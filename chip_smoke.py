@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's f32 AUTO main path on one NVIDIA card and check it.
+"""Drive the port's f32 and f64 AUTO main paths on one NVIDIA card and
+check them.
 
 Run from the repository root with no arguments:
 
@@ -8,22 +9,50 @@ Run from the repository root with no arguments:
 Phases (any failure exits non-zero and prints no ``"ok"`` line):
 
 1. toolchain: the card's name and power limit, CUDA, nvcc, triton;
-2. build: the host packers (g++) and the CUDA kernels (nvcc, sm_90a);
+2. build: the host packers (g++) and the CUDA kernels (nvcc, sm_90a, one
+   process per source), with ptxas' registers and spill bytes;
 3. kernels: each kernel against its plain PyTorch version on the card —
    ``sell_row`` over f32/bf16/palette values, ``sell_slot`` over
-   nw ∈ {1,2,4,8} × cell_w × the three value modes, ``dia`` over f32/bf16;
-4. main path: the bench's f32 families (``bench.py``'s generator calls and
-   seeds) through ``create_handle(a, device="cuda")`` and ``spmv``, checked
-   against ``spmv_golden``, with the AUTO plan asserted and the launch
-   counts read; then each family's kernels against their plain versions
-   at the main path's shapes, and CUDA-event times of both.
+   nw ∈ {1,2,4,8} × cell_w × the three value modes, ``dia`` over f32/bf16,
+   and their f64 forms ``sell_row_df``, ``sell_slot_df`` (df, df16,
+   palette_df, the same nw × cell_w grid) and ``dia_f64``;
+4. main path: the bench's eight families (``bench.py``'s generator calls
+   and seeds, ``_to_f64`` seed 7 for the f64 ones) through
+   ``create_handle(a, device="cuda")`` and ``spmv``, with the AUTO plan
+   asserted; the f32 families and the f64 families each run once with
+   every launch count set to 0 just before and read just after, and each
+   family's kernels must have launched.  Then per family: the result
+   against its reference, CUDA-event times of the port, of the same plan
+   on the plain versions and of one cuSPARSE call
+   (``torch.sparse_csr_tensor(...) @ x``, timed only: the port never
+   calls it), a torch.profiler window, and each kernel against its plain
+   version at the main path's shapes, with its bound.
 
-Bound everywhere: |Δy_i| ≤ 1e-5·(|A||x|)_i (f32 sums in another order).
+Bounds, per row i against (|A||x|)_i:
+- f32: 1e-5 against ``spmv_golden``; f32 sums in another order.
+- f64 family: 1e-10 against row-by-row f64 sums of the products
+  (``np.add.reduceat``).  df16 values carry ≤ 2^-39 relative error, and an
+  f32 computation (~1e-7) fails it.  ``spmv_golden`` takes its rows as
+  differences of one running f64 sum, whose rounding reaches 4e-9 of
+  (|A||x|)_i on powerlaw100k_f64, so the f64 families are held to the
+  row-by-row sums and the distance to ``spmv_golden`` is printed beside.
+- f64 kernel against its plain version: 1e-12; both are f64 sums of the
+  same decoded values, taken in another order.
+
+``bound_ms`` is the larger of the bytes the SpMV must move over 3.35 TB/s
+and its operations over 67 TFLOP/s in f32 or 34 TFLOP/s in f64 (NVIDIA
+H100 SXM data sheet): each nonzero value read once in the stream's own
+encoding without padding, x read once, y written once at its real rows,
+2 operations a nonzero.  ``stream_bound_ms`` beside it counts the packed
+stream as stored (padding slots, chunk tables, the padded output): what
+the kernel's format makes it move.
+
 Output: one JSON line per family and one ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -35,25 +64,50 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BOUND = 1e-5
+BOUND_F64 = 1e-10
+BOUND_F64_KERNEL = 1e-12
 ITERS = 30
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
-#: family → (generator call as in bench.py:_gen_one, AUTO plan, kernels)
+
+def _to_f64(a, np):
+    """bench.py:_gen_one's ``_to_f64``: the same pattern, f64 values."""
+    from spmv_tpu_torch.types import CsrMatrix
+    vals = np.random.default_rng(7).standard_normal(a.nnz)
+    return CsrMatrix(a.m, a.n, a.rowptr, a.colidx, vals)
+
+
+#: family → (generator call as in bench.py:_gen_one, AUTO plan, its value
+#: mode, the kernels it runs)
 FAMILIES = {
     "banded4m": (lambda g, np: g.banded(4_000_000, 4_000_000, 4,
                                         dtype=np.float32, seed=7),
-                 "dia", ("dia",)),
+                 "dia", None, ("dia",)),
     "clustered200k": (lambda g, np: g.clustered(200_000, 200_000, 32,
                                                 spread=512,
                                                 dtype=np.float32, seed=9),
-                      "sell8d", ("sell_slot",)),
+                      "sell8d", "bf16", ("sell_slot",)),
     "uniform100k": (lambda g, np: g.random_uniform(100_000, 100_000, 40,
                                                    dtype=np.float32,
                                                    seed=42),
-                    "sell8d", ("sell_slot",)),
+                    "sell8d", "bf16", ("sell_slot",)),
     "powerlaw100k": (lambda g, np: g.power_law(100_000, 100_000,
                                                40 * 100_000,
                                                dtype=np.float32, seed=2),
-                     "hybrid(8w+8d)", ("sell_row", "sell_slot")),
+                     "hybrid(8w+8d)", "bf16", ("sell_row", "sell_slot")),
+    "banded1m_f64": (lambda g, np: _to_f64(g.banded(
+        1_000_000, 1_000_000, 4, dtype=np.float32, seed=7), np),
+        "dia", None, ("dia_f64",)),
+    "uniform100k_f64": (lambda g, np: _to_f64(g.random_uniform(
+        100_000, 100_000, 40, dtype=np.float32, seed=42), np),
+        "sell8d", "df16", ("sell_slot_df",)),
+    "clustered200k_f64": (lambda g, np: _to_f64(g.clustered(
+        200_000, 200_000, 32, spread=512, dtype=np.float32, seed=9), np),
+        "sell8d", "df16", ("sell_slot_df",)),
+    "powerlaw100k_f64": (lambda g, np: _to_f64(g.power_law(
+        100_000, 100_000, 40 * 100_000, dtype=np.float32, seed=2), np),
+        "hybrid(8w+8d)", "df16", ("sell_row_df", "sell_slot_df")),
 }
 
 KERNELS = {
@@ -62,6 +116,12 @@ KERNELS = {
     "sell_slot": ("spmv_tpu_torch/csrc/sell.cu",
                   "spmv_tpu/ops/pallas_sell.py:202"),
     "dia": ("spmv_tpu_torch/csrc/dia.cu", "spmv_tpu/ops/pallas_dia.py:43"),
+    "sell_row_df": ("spmv_tpu_torch/csrc/sell.cu",
+                    "spmv_tpu/ops/pallas_sell.py:815"),
+    "sell_slot_df": ("spmv_tpu_torch/csrc/sell.cu",
+                     "spmv_tpu/ops/pallas_sell.py:815"),
+    "dia_f64": ("spmv_tpu_torch/csrc/dia.cu",
+                "spmv_tpu/ops/pallas_dia.py:108"),
 }
 
 
@@ -77,6 +137,22 @@ def _cmd_line(cmd):
         return f"unavailable ({e.__class__.__name__})"
     out = (res.stdout or res.stderr).strip().splitlines()
     return out[-1] if out else f"exit {res.returncode}"
+
+
+def read_counts():
+    """Every kernel's launch count."""
+    from spmv_tpu_torch.ops import dia, sell
+    return {"sell_row": sell.row_launches, "sell_slot": sell.slot_launches,
+            "dia": dia.launches, "sell_row_df": sell.row_df_launches,
+            "sell_slot_df": sell.slot_df_launches,
+            "dia_f64": dia.f64_launches}
+
+
+def zero_counts():
+    from spmv_tpu_torch.ops import dia, sell
+    sell.row_launches = sell.slot_launches = 0
+    sell.row_df_launches = sell.slot_df_launches = 0
+    dia.launches = dia.f64_launches = 0
 
 
 def cuda_ms(fn, x, iters=ITERS):
@@ -97,13 +173,13 @@ def cuda_ms(fn, x, iters=ITERS):
     return statistics.median(times)
 
 
-def scaled_err(y, ref, absref):
-    """max_i |y_i - ref_i| / (|A||x|)_i, and whether all are within
-    BOUND."""
+def scaled_err(y, ref, absref, bound):
+    """max_i |y_i - ref_i| / (|A||x|)_i, max |y_i - ref_i|, and whether
+    all are within ``bound``."""
     import torch
     d = (y.double() - ref.double()).abs()
     den = absref.double()
-    ok = bool((d <= BOUND * den + 1e-30).all())
+    ok = bool((d <= bound * den + 1e-300).all())
     ratio = torch.where(den > 0, d / den.clamp_min(1e-300),
                         torch.where(d > 0, float("inf"), 0.0))
     return float(ratio.max()) if ratio.numel() else 0.0, \
@@ -123,44 +199,135 @@ def plain_kernels():
         sell.sell_spmv, dia.dia_spmv = saved
 
 
+def is_dia(st):
+    return hasattr(st, "offsets")
+
+
+def kernel_of(st):
+    """The kernel name that runs a placed stream."""
+    import torch
+    if is_dia(st):
+        return "dia_f64" if st.data.dtype == torch.float64 else "dia"
+    return (("sell_slot" if st.slot_mode else "sell_row")
+            + ("_df" if st.dtype == torch.float64 else ""))
+
+
 def abs_stream(st):
-    import dataclasses
+    if is_dia(st):
+        return dataclasses.replace(st, data=st.data.abs())
     return dataclasses.replace(
         st, palette=st.palette.abs(),
-        vals=None if st.vals is None else st.vals.abs())
+        vals=None if st.vals is None else st.vals.abs(),
+        vals_lo=None if st.vals_lo is None else st.vals_lo.abs())
 
 
-def abs_dia(p):
-    import dataclasses
-    return dataclasses.replace(p, data=p.data.abs())
+def stream_bound(st, nnz):
+    """(bound_ms, bound_by, bytes, stream_bound_ms, stream_bytes).
+
+    ``bound_ms`` is the SpMV's own bound over the stream's ``nnz`` nonzero
+    values (an explicitly stored zero needs no work): each read once in the
+    stream's own encoding without its padding (SELL: a slot's meta and values, the palette once; DIA: the
+    values, the columns following from the offsets), x read once and y
+    written once at its real rows, against 2 operations a nonzero.
+    ``stream_bound_ms`` is the bound of the packed stream as it is stored:
+    every slot with its padding, the chunk tables and the kernel's
+    block-padded output."""
+    esize = 8 if str(st.dtype) == "torch.float64" else 4
+    xy = (st.n + st.m) * esize
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    if is_dia(st):
+        nbytes = nnz * st.data.element_size() + nb(st.offsets_dev) + xy
+        stored = nb(st.data, st.offsets_dev) + xy
+    else:
+        slot = nb(st.meta, st.vals, st.vals_lo) / st.meta.numel()
+        nbytes = nnz * slot + nb(st.palette) + xy
+        stored = (nb(st.meta, st.vals, st.vals_lo, st.palette, st.tinfo,
+                     st.chunk_step_ptr, st.block_chunk_ptr)
+                  + (st.n + st.nblocks * 1024) * esize)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * nnz / PEAK_FLOPS[str(st.dtype).replace("torch.", "")] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, stored / HBM_BYTES_PER_S * 1e3,
+            stored)
 
 
-def check_stream(kind, st, x, timing=False):
+def stream_csr(st):
+    """The stream's own matrix as a CUDA sparse CSR tensor (its stored
+    nonzeros), for the cuSPARSE yardstick."""
+    import torch
+    from spmv_tpu_torch.ops import sell
+    if is_dia(st):
+        i = torch.arange(st.m, device=st.data.device)
+        rows, cols, vals = [], [], []
+        for d, o in enumerate(st.offsets):
+            v = st.data[d].to(st.dtype)
+            keep = (i + o >= 0) & (i + o < st.n) & (v != 0)
+            rows.append(i[keep])
+            cols.append(i[keep] + o)
+            vals.append(v[keep])
+        rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+        shape = (st.m, st.n)
+    else:
+        r, c, v = sell.sell_decode(st)
+        keep = (v != 0) & (c < st.n)
+        rows, cols, vals = r[keep], c[keep], v[keep]
+        shape = (st.nblocks * 1024, st.n)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape)
+    return coo.coalesce().to_sparse_csr()
+
+
+def matrix_csr(a, dev):
+    import numpy as np
+    import torch
+    dt = torch.float64 if a.vals.dtype == np.float64 else torch.float32
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(a.rowptr.astype(np.int64)),
+        torch.from_numpy(a.colidx.astype(np.int64)),
+        torch.from_numpy(a.vals).to(dt), size=(a.m, a.n)).to(dev)
+
+
+def check_stream(st, x, timing=False):
     """Kernel vs plain version on one stream; returns a record."""
     import torch
     from spmv_tpu_torch.ops import dia, sell
-    if kind == "dia":
+    if is_dia(st):
         run, plain = dia.dia_spmv, dia.dia_plain
-        absref = dia.dia_plain(abs_dia(st), x.abs())
     else:
         run, plain = sell.sell_spmv, sell.sell_plain
-        absref = sell.sell_plain(abs_stream(st), x.abs())
+    absref = plain(abs_stream(st), x.abs())
     y = run(st, x)
     ref = plain(st, x)
     torch.cuda.synchronize()
-    rel, mabs, ok = scaled_err(y, ref, absref)
+    kern = kernel_of(st)
+    bound = BOUND_F64_KERNEL if x.dtype == torch.float64 else BOUND
+    rel, mabs, ok = scaled_err(y, ref, absref, bound)
     if not ok:
-        raise AssertionError(f"{kind}: kernel disagrees with its plain "
+        raise AssertionError(f"{kern}: kernel disagrees with its plain "
                              f"version (max scaled error {rel:.3g})")
     rec = {"max_scaled_err": rel, "max_abs_err": mabs}
     if timing:
         rec["ms"] = cuda_ms(lambda v: run(st, v), x)
+        rec["device_ms"] = profile_calls(lambda v: run(st, v), x)[
+            "device_ms"]
         rec["plain_ms"] = cuda_ms(lambda v: plain(st, v), x)
+        csr = stream_csr(st)
+        y_lib = csr @ x
+        rec["library_ms"] = cuda_ms(lambda v: csr @ v, x)
+        rec["library_scaled_err"] = scaled_err(
+            y_lib[:ref.numel()], ref, absref, bound)[0]
+        (rec["bound_ms"], rec["bound_by"], rec["bytes"],
+         rec["stream_bound_ms"], rec["stream_bytes"]) = stream_bound(
+             st, csr.values().numel())
+        del csr
     return rec
 
 
 def kernel_phase(dev):
-    """Coverage: every value mode, bundle width and cell_w setting."""
+    """Coverage: every value mode, bundle width and cell_w setting, f32
+    and f64."""
     import numpy as np
     import torch
     from spmv_tpu_torch.formats import dia as dia_fmt
@@ -173,51 +340,69 @@ def kernel_phase(dev):
     rng = np.random.default_rng(0)
 
     def revalue(a, mode, entries):
-        if mode == "palette":
-            v = rng.integers(1, entries, a.nnz) / 8.0
+        if mode in ("palette", "palette_df"):
+            uniq = (np.arange(1, entries) / 8.0 if mode == "palette"
+                    else rng.standard_normal(entries - 1))
+            v = uniq[rng.integers(0, entries - 1, a.nnz)]
         elif mode == "bf16":
             v = rng.integers(1, 256, a.nnz) / 32.0
         else:
             v = rng.standard_normal(a.nnz)
-        return CsrMatrix(a.m, a.n, a.rowptr, a.colidx, v.astype(np.float32))
+        dt = np.float64 if mode in sell.DF_MODES else np.float32
+        return CsrMatrix(a.m, a.n, a.rowptr, a.colidx, v.astype(dt))
 
-    def xvec(n):
-        return torch.from_numpy(rng.standard_normal(n).astype(
-            np.float32)).to(dev)
+    def row_plan(a, mode):
+        hi = pack_sell8w(a)
+        if mode not in sell.DF_MODES:
+            return plan_v2(hi)
+        lo = pack_sell8w(CsrMatrix(
+            a.m, a.n, a.rowptr, a.colidx,
+            (a.vals - a.vals.astype(np.float32)).astype(np.float32)))
+        return plan_v2(hi, lo_tiles=lo.vals, force_value_mode=mode)
+
+    def xvec(n, dt):
+        return torch.from_numpy(rng.standard_normal(n).astype(dt)).to(dev)
 
     rows = []
     base = generate.clustered(50_000, 50_000, 24, spread=400,
                               dtype=np.float32, seed=1)
-    for mode in ("f32", "bf16", "palette"):
-        v2 = plan_v2(pack_sell8w(revalue(base, mode, 64)))
-        assert v2.value_mode == mode, (mode, v2.value_mode)
-        st = sell.prepare_sell(v2, dev, slot_mode=False)
-        rec = check_stream("sell_row", st, xvec(base.n))
-        rows.append({"kernel": "sell_row", "value_mode": mode, **rec})
     scat = generate.random_uniform(30_000, 300_000, 10, dtype=np.float32,
                                    seed=2)
-    for nw in (1, 2, 4, 8):
-        for cell_w in ((False,) if nw == 1 else (False, True)):
-            for mode in ("f32", "bf16", "palette"):
-                a = revalue(scat, mode, 64 >> (nw.bit_length() - 1))
-                pk, _ = pack_sell8d(a, g="auto", max_pad_ratio=256.0,
-                                    max_spill=0.05, nw=nw, cell_w=cell_w,
-                                    force_value_mode=mode)
-                st = sell.prepare_sell(pk, dev, slot_mode=True)
-                rec = check_stream("sell_slot", st, xvec(a.n))
-                rows.append({"kernel": "sell_slot", "nw": nw,
-                             "cell_w": cell_w, "value_mode": mode, **rec})
+    for modes, dt in ((("f32", "bf16", "palette"), np.float32),
+                      (sell.DF_MODES, np.float64)):
+        for mode in modes:
+            v2 = row_plan(revalue(base, mode, 64), mode)
+            assert v2.value_mode == mode, (mode, v2.value_mode)
+            st = sell.prepare_sell(v2, dev, slot_mode=False)
+            rec = check_stream(st, xvec(base.n, dt))
+            rows.append({"kernel": kernel_of(st), "value_mode": mode,
+                         **rec})
+        for nw in (1, 2, 4, 8):
+            for cell_w in ((False,) if nw == 1 else (False, True)):
+                for mode in modes:
+                    a = revalue(scat, mode, 64 >> (nw.bit_length() - 1))
+                    pk, _ = pack_sell8d(a, g="auto", max_pad_ratio=256.0,
+                                        max_spill=0.05, nw=nw,
+                                        cell_w=cell_w,
+                                        force_value_mode=mode)
+                    st = sell.prepare_sell(pk, dev, slot_mode=True)
+                    rec = check_stream(st, xvec(a.n, dt))
+                    rows.append({"kernel": kernel_of(st), "nw": nw,
+                                 "cell_w": cell_w, "value_mode": mode,
+                                 **rec})
     band = generate.banded(1_000_000, 1_000_200, 6, dtype=np.float32,
                            seed=3, exact=False)
-    for mode in ("f32", "bf16"):
-        d = dia_fmt.pack_dia(band, compress="none" if mode == "f32"
-                             else "bf16")
+    for mode in ("f32", "bf16", "f64"):
+        a = band if mode != "f64" else _to_f64(band, np)
+        d = dia_fmt.pack_dia(a, compress="bf16" if mode == "bf16"
+                             else "none")
         p = dia.prepare_dia(d, dev)
-        rec = check_stream("dia", p, xvec(band.n))
-        rows.append({"kernel": "dia", "value_mode": mode, **rec})
+        rec = check_stream(p, xvec(band.n, np.float64 if mode == "f64"
+                                   else np.float32))
+        rows.append({"kernel": kernel_of(p), "value_mode": mode, **rec})
     for r in rows:
         log(json.dumps({"phase": "kernels", **r}))
-    return max(r["max_abs_err"] for r in rows)
+    return rows
 
 
 def profile_calls(fn, x, calls=20):
@@ -255,29 +440,44 @@ def profile_calls(fn, x, calls=20):
 
 
 def family_streams(plan):
-    """(kernel name, stream) pairs of a placed plan."""
+    """The placed streams of a plan."""
     if "hybrid" in plan:
         return [s for p in plan["hybrid"] for s in family_streams(p)]
-    if "sell8d" in plan:
-        return [("sell_slot", plan["sell8d"])]
-    if "sell8w_v2" in plan:
-        return [("sell_row", plan["sell8w_v2"])]
-    if "dia" in plan:
-        return [("dia", plan["dia"])]
+    for key in ("sell8d", "sell8w_v2", "dia"):
+        if key in plan:
+            return [plan[key]]
     return []
+
+
+def reference(a, xh, np):
+    """(reference y, (|A||x|)_i, bound, the reference's name) on the host:
+    spmv_golden for f32, row-by-row f64 sums for f64."""
+    import spmv_tpu_torch as st
+    if a.vals.dtype != np.float64:
+        absref = st.spmv_golden(
+            st.CsrMatrix(a.m, a.n, a.rowptr, a.colidx, np.abs(a.vals)),
+            np.abs(xh))
+        return st.spmv_golden(a.astype(np.float64), xh), absref, BOUND, \
+            "spmv_golden"
+    prod = a.vals * xh[a.colidx]
+    rp = a.rowptr.astype(np.int64)
+    full = rp[1:] > rp[:-1]
+    y, absref = np.zeros(a.m), np.zeros(a.m)
+    y[full] = np.add.reduceat(prod, rp[:-1][full])
+    absref[full] = np.add.reduceat(np.abs(prod), rp[:-1][full])
+    return y, absref, BOUND_F64, "rowwise_f64"
 
 
 def main_path(dev):
     import numpy as np
     import torch
     import spmv_tpu_torch as st
-    from spmv_tpu_torch.handle import plan_kind
+    from spmv_tpu_torch.handle import light_part_input, plan_kind
     from spmv_tpu_torch.io import generate
-    from spmv_tpu_torch.ops import dia, sell
     from spmv_tpu_torch.utils.profiling import predeal_profile
 
     handles, xs, mats, pre = {}, {}, {}, {}
-    for name, (make, kind, _k) in FAMILIES.items():
+    for name, (make, kind, vmode, _k) in FAMILIES.items():
         t0 = time.perf_counter()
         a = make(generate, np)
         t_gen = time.perf_counter() - t0
@@ -286,74 +486,105 @@ def main_path(dev):
             h = st.create_handle(a, method=st.Method.AUTO, device=dev)
         predeal = time.perf_counter() - t0
         got = plan_kind(h.plan).replace("+rest", "")
-        if got != kind:
-            raise AssertionError(f"{name}: AUTO planned {got}, "
-                                 f"expected {kind}")
+        if got != kind or h.plan.get("value_mode") != vmode:
+            raise AssertionError(f"{name}: AUTO planned {got} "
+                                 f"({h.plan.get('value_mode')}), expected "
+                                 f"{kind} ({vmode})")
+        if (name.endswith("_f64") and kind.startswith("hybrid")
+                and not h.plan["hybrid"][0].get("fold_planes_ext")):
+            raise AssertionError(f"{name}: the f64 hybrid does not fold "
+                                 "by x-extension")
         handles[name], mats[name] = h, a
+        dt = np.float64 if name.endswith("_f64") else np.float32
         xs[name] = torch.from_numpy(np.random.default_rng(0)
                                     .standard_normal(a.n)
-                                    .astype(np.float32)).to(dev)
+                                    .astype(dt)).to(dev)
         pre[name] = {"gen_ms": t_gen * 1e3,
                      "pack_ms": (predeal - laps["transfer_s"]) * 1e3,
                      "transfer_ms": laps["transfer_s"] * 1e3,
                      "plan_mb": laps["bytes"] / 1e6}
         log(f"# {name}: {h!r} predeal {predeal * 1e3:.0f} ms")
 
-    # the counted run: every count to 0, the main path once, read back
-    sell.row_launches = sell.slot_launches = dia.launches = 0
-    ys = {name: st.spmv(h, xs[name]) for name, h in handles.items()}
-    torch.cuda.synchronize()
-    launches = {"sell_row": sell.row_launches,
-                "sell_slot": sell.slot_launches, "dia": dia.launches}
-    log(json.dumps({"phase": "main_path_launches", **launches}))
+    # the counted runs, f32 path then f64 path: every count to 0, the
+    # path's families once, the counts read back
+    launches, ys = {}, {}
+    for f64 in (False, True):
+        names = [n for n in FAMILIES if n.endswith("_f64") == f64]
+        zero_counts()
+        for name in names:
+            ys[name] = st.spmv(handles[name], xs[name])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        path = {k: c for k, c in counts.items() if k.endswith(
+            ("_df", "_f64")) == f64}
+        log(json.dumps({"phase": "main_path_launches",
+                        "path": "f64" if f64 else "f32", **counts}))
+        for name in names:
+            for k in FAMILIES[name][3]:
+                if path[k] == 0:
+                    raise AssertionError(f"{name}: kernel {k} was not "
+                                         "launched")
+        launches.update(path)
 
     kern = {k: {"max_abs_err": 0.0} for k in KERNELS}
     for name, h in handles.items():
         a, x = mats[name], xs[name]
-        _make, _kind, need = FAMILIES[name]
-        for k in need:
-            if launches[k] == 0:
-                raise AssertionError(f"{name}: kernel {k} was not launched")
         xh = x.cpu().numpy().astype(np.float64)
-        gold = torch.from_numpy(st.spmv_golden(a.astype(np.float64), xh))
-        aa = st.CsrMatrix(a.m, a.n, a.rowptr, a.colidx, np.abs(a.vals))
-        absref = torch.from_numpy(st.spmv_golden(aa.astype(np.float64),
-                                                 np.abs(xh)))
+        ref, absref, bound, ref_name = reference(a, xh, np)
+        ref, absref = torch.from_numpy(ref), torch.from_numpy(absref)
         y = ys[name].cpu()
-        if y.shape != (a.m,) or not bool(torch.isfinite(y).all()):
-            raise AssertionError(f"{name}: bad output {tuple(y.shape)}")
-        rel, mabs, ok = scaled_err(y, gold, absref)
+        if (y.shape != (a.m,) or y.dtype != x.dtype
+                or not bool(torch.isfinite(y).all())):
+            raise AssertionError(f"{name}: bad output {y.dtype} "
+                                 f"{tuple(y.shape)}")
+        rel, mabs, ok = scaled_err(y, ref, absref, bound)
         if not ok:
             raise AssertionError(f"{name}: max scaled error {rel:.3g} "
-                                 f"against spmv_golden")
+                                 f"against {ref_name}")
+        gold = torch.from_numpy(st.spmv_golden(a.astype(np.float64), xh))
+        rel_gold = scaled_err(y, gold, absref, bound)[0]
+        gold_self = scaled_err(gold, ref, absref, bound)[0]
         ms = cuda_ms(h, x)
         with plain_kernels():
             y_plain = h(x)
             plain_ms = cuda_ms(h, x)
-        rel_p, _, ok_p = scaled_err(y_plain.cpu(), gold, absref)
+        rel_p, _, ok_p = scaled_err(y_plain.cpu(), ref, absref, bound)
         if not ok_p:
             raise AssertionError(f"{name}: plain path scaled error "
                                  f"{rel_p:.3g}")
+        csr = matrix_csr(a, dev)
+        library_ms = cuda_ms(lambda v: csr @ v, x)
+        rel_lib = scaled_err((csr @ x).cpu(), ref, absref, bound)[0]
+        del csr
         prof = profile_calls(h, x)
         streams = []
-        for k, stream in family_streams(h.plan):
-            rec = check_stream(k, stream, x, timing=True)
+        for stream in family_streams(h.plan):
+            k = kernel_of(stream)
+            # the f64 hybrid's light part reads x extended by the dense
+            # part's output
+            xin = x if stream.n == a.n else light_part_input(h, x)
+            rec = check_stream(stream, xin, timing=True)
             kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"],
                                          rec["max_abs_err"])
-            # per kernel, keep the times at its largest main-path stream
-            size = (stream.meta.numel() if k != "dia"
-                    else stream.data.numel())
+            # per kernel, keep the numbers at its largest main-path stream
+            size = (stream.data.numel() if is_dia(stream)
+                    else stream.meta.numel())
             if size >= kern[k].get("size", -1):
-                kern[k].update(size=size, ms=rec["ms"],
-                               plain_ms=rec["plain_ms"], family=name)
+                kern[k].update(size=size, family=name, **{
+                    f: rec[f] for f in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms", "bytes",
+                                        "stream_bound_ms",
+                                        "stream_bytes")})
             streams.append({"kernel": k, "value_mode":
                             getattr(stream, "value_mode", None) or
                             str(stream.data.dtype).replace("torch.", ""),
                             "nw": getattr(stream, "nw", None),
                             "cell_w": getattr(stream, "cell_w", None),
                             "g": getattr(stream, "g", None),
-                            "tiles": (stream.meta.shape[0]
-                                      if k != "dia" else None), **rec})
+                            "n": stream.n,
+                            "tiles": (None if is_dia(stream)
+                                      else stream.meta.shape[0]), **rec})
         nnz = a.nnz
         log(json.dumps({
             "family": name, "plan": plan_kind(h.plan),
@@ -361,7 +592,11 @@ def main_path(dev):
             "nw": h.plan.get("nw"), "m": a.m, "n": a.n, "nnz": nnz,
             **pre[name], "ms": ms, "gflops": 2 * nnz / ms / 1e6,
             "plain_ms": plain_ms, "plain_gflops": 2 * nnz / plain_ms / 1e6,
+            "library_ms": library_ms, "library_gflops":
+            2 * nnz / library_ms / 1e6, "reference": ref_name,
             "max_scaled_err": rel, "max_abs_err": mabs,
+            "golden_scaled_err": rel_gold, "golden_vs_reference": gold_self,
+            "plain_scaled_err": rel_p, "library_scaled_err": rel_lib,
             "profile": prof, "streams": streams}))
     return launches, kern
 
@@ -402,9 +637,12 @@ def main() -> int:
     lib = _build.load_kernels()
     t_cuda = time.perf_counter() - t0
     log(json.dumps({"phase": "build", "native_s": t_native,
-                    "cuda_s": t_cuda, "library": lib._name}))
-    with open(lib._name + ".log") as f:
-        ptxas = f.read()
+                    "cuda_s": t_cuda, "libraries": sorted(
+                        os.path.basename(p) for p in lib.logs)}))
+    ptxas = ""
+    for path in lib.logs:
+        with open(path) as f:
+            ptxas += f.read()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
     spills = [int(b) for b in re.findall(r"(\d+) bytes spill", ptxas)]
     log(json.dumps({"phase": "ptxas", "kernels": len(regs),
@@ -419,7 +657,13 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[name],
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                        "plain_ms": k["plain_ms"], "family": k["family"]})
+                        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                        "bound_by": k["bound_by"],
+                        "library_ms": k["library_ms"],
+                        "device_ms": k["device_ms"], "bytes": k["bytes"],
+                        "stream_bound_ms": k["stream_bound_ms"],
+                        "stream_bytes": k["stream_bytes"],
+                        "family": k["family"]})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

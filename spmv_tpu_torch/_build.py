@@ -1,12 +1,11 @@
 """Build-on-first-use for the port's native code.
 
-Two shared libraries, both plain C interfaces loaded with ctypes:
+Shared libraries with plain C interfaces, loaded with ctypes:
 
-* the host packers: the JAX package's one C++ source,
-  ``spmv_tpu/native/spmv_native.cpp``, compiled by file path with g++ (so
-  both packages pack with the same code);
+* the host packers: ``spmv_tpu_torch/native/spmv_native.cpp`` (the port's
+  copy of the JAX package's packer source), compiled with g++;
 * the Hopper kernels: ``spmv_tpu_torch/csrc/*.cu``, compiled with nvcc for
-  ``sm_90a``.
+  ``sm_90a``, one library per source, all compiled at once.
 
 Outputs go into ``spmv_tpu_torch/_build/`` (gitignored), named by a hash of
 the sources and the command, and are written to a temporary file first and
@@ -16,6 +15,7 @@ once, and a reader never sees half a library.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import glob
 import hashlib
@@ -23,7 +23,8 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import List, Optional
+from types import SimpleNamespace
+from typing import List, Optional, Sequence
 
 __all__ = ["BUILD_DIR", "check", "compile_shared", "load_kernels", "nvcc_path"]
 
@@ -32,17 +33,18 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 
 _lock = threading.Lock()
-_kernels: Optional[ctypes.CDLL] = None
+_kernels: Optional[SimpleNamespace] = None
 
 
 def compile_shared(name: str, sources: List[str], cmd: List[str],
-                   timeout: float = 600.0) -> str:
+                   timeout: float = 600.0, deps: Sequence[str] = ()) -> str:
     """Compile ``sources`` with ``cmd + sources + ["-o", out]`` once and
-    return the library's path.  The compiler's output is kept beside the
-    library as ``<library>.log``.  Raises ``RuntimeError`` when the
-    compiler fails."""
+    return the library's path.  The name hashes the command, the sources
+    and ``deps`` (the headers they include).  The compiler's output is kept
+    beside the library as ``<library>.log``.  Raises ``RuntimeError`` when
+    the compiler fails."""
     h = hashlib.sha256(" ".join(cmd).encode())
-    for src in sources:
+    for src in list(sources) + sorted(deps):
         with open(src, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
@@ -60,6 +62,8 @@ def compile_shared(name: str, sources: List[str], cmd: List[str],
             f.write(res.stdout + res.stderr)
         os.replace(tmp + ".log", out + ".log")
         os.replace(tmp, out)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"building {name} timed out: {e}") from e
     finally:
         for p in (tmp, tmp + ".log"):
             if os.path.exists(p):
@@ -76,8 +80,10 @@ def nvcc_path() -> Optional[str]:
     return default if os.path.exists(default) else None
 
 
-def load_kernels() -> ctypes.CDLL:
-    """Build (first use) and load the CUDA kernels library."""
+def load_kernels() -> SimpleNamespace:
+    """Build (first use) and load the CUDA kernels: one library per
+    ``csrc/*.cu``, one nvcc each, all started together.  Returns the entry
+    points by name, and ``logs``, the paths of the compilers' output."""
     global _kernels
     with _lock:
         if _kernels is not None:
@@ -86,25 +92,36 @@ def load_kernels() -> ctypes.CDLL:
         if nvcc is None:
             raise RuntimeError("nvcc not found: the CUDA kernels build on "
                                "the machine with the card")
-        sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-        path = compile_shared(
-            "spmv_kernels", sources,
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", "-I", CSRC_DIR])
-        lib = ctypes.CDLL(path)
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-I", CSRC_DIR]
+        deps = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+        stems = sorted(os.path.splitext(os.path.basename(f))[0]
+                       for f in glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+        with concurrent.futures.ThreadPoolExecutor(len(stems)) as pool:
+            paths = dict(zip(stems, pool.map(lambda s: compile_shared(
+                f"spmv_{s}", [os.path.join(CSRC_DIR, s + ".cu")], cmd,
+                deps=deps), stems)))
+        libs = {s: ctypes.CDLL(p) for s, p in paths.items()}
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.spmv_dia_launch.restype = ctypes.c_int
-        lib.spmv_dia_launch.argtypes = [p, p, p, p, i64, i64, i64, i64, p]
-        lib.spmv_sell_launch.restype = ctypes.c_int
-        lib.spmv_sell_launch.argtypes = [p] * 9 + [i64] * 8 + [p]
-        lib.spmv_cuda_error_string.restype = ctypes.c_char_p
-        lib.spmv_cuda_error_string.argtypes = [ctypes.c_int]
-        _kernels = lib
-        return lib
+        entries = {}
+        for name, (stem, restype, argtypes) in {
+                "spmv_dia_launch": ("dia", ctypes.c_int,
+                                    [p, p, p, p, i64, i64, i64, i64, p]),
+                "spmv_sell_launch": ("sell", ctypes.c_int,
+                                     [p] * 10 + [i64] * 8 + [p]),
+                "spmv_cuda_error_string": ("errors", ctypes.c_char_p,
+                                           [ctypes.c_int])}.items():
+            fn = getattr(libs[stem], name)
+            fn.restype, fn.argtypes = restype, argtypes
+            entries[name] = fn
+        _kernels = SimpleNamespace(
+            **entries, libs=libs,
+            logs=[path + ".log" for path in paths.values()])
+        return _kernels
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+def check(lib: SimpleNamespace, err: int, what: str) -> None:
     """Raise when a launch entry returned a CUDA error code."""
     if err:
         msg = lib.spmv_cuda_error_string(err).decode()

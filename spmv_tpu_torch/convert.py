@@ -24,8 +24,8 @@ __all__ = ["plan_from_reference"]
 
 _ARRAYS = ("rest_rows", "rest_cols", "rest_vals", "fold_rows",
            "mega_sub_rows", "rows", "colidx", "vals")
-_OUT_OF_SLICE = {"graph": 2, "sell8d_stripes": 3, "sell8w_v2w": 3,
-                 "coo2": 4, "colidx_pad": 5, "blocks": 5, "cols": 5}
+_OUT_OF_SLICE = {"graph": 5, "sell8d_stripes": 2, "sell8w_v2w": 2,
+                 "coo2": 3, "colidx_pad": 6, "blocks": 6, "cols": 6}
 
 
 def _host_array(v) -> np.ndarray:
@@ -45,11 +45,15 @@ def _dataclass_like(cls, obj):
 
 
 def _dia_from_parts(parts) -> DiaMatrix:
-    if "data3_lo" in parts:
-        raise _not_ported("the f64 DIA plan (K4)", 1)
+    """The Pallas DIA plan's parts; an f64 plan's (hi, lo) f32 planes
+    become one f64 plane, hi + lo."""
     m = int(parts["m"])
     offsets = np.asarray(parts["offsets"], dtype=np.int32)
-    data = _host_array(parts["data3"]).reshape(len(offsets), -1)[:, :m]
+    data = _host_array(parts["data3"])
+    if "data3_lo" in parts:
+        data = (data.astype(np.float64)
+                + np.asarray(parts["data3_lo"], dtype=np.float64))
+    data = data.reshape(len(offsets), -1)[:, :m]
     return DiaMatrix(m, int(parts["n"]), int(np.count_nonzero(data)),
                      offsets, np.ascontiguousarray(data))
 

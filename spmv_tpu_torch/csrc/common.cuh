@@ -16,4 +16,12 @@ __device__ __forceinline__ float bf16_bits_to_f32(uint16_t b) {
   return __uint_as_float(static_cast<uint32_t>(b) << 16);
 }
 
+// acc + a * b rounded once, in the accumulator's own type.
+__device__ __forceinline__ float fma_acc(float a, float b, float acc) {
+  return fmaf(a, b, acc);
+}
+__device__ __forceinline__ double fma_acc(double a, double b, double acc) {
+  return fma(a, b, acc);
+}
+
 }  // namespace spmv

@@ -1,9 +1,18 @@
 // SELL tile-stream SpMV over the JAX package's grouped (8, 128) tiles, in
-// its row mode (SELL-8W v2) and slot mode (SELL-8D).
+// its row mode (SELL-8W v2) and slot mode (SELL-8D), for f32 and f64.
 //
-// Replaces the TPU kernel spmv_tpu/ops/pallas_sell.py::_kernel_v2 (K1),
-// launched there by _run_v2 for build_sell8w_v2_fn (row mode) and the
-// resident branch of build_sell8d_fn (slot mode).
+// Replaces two TPU kernels, launched there by build_sell8w_v2_fn (row
+// mode) and the resident branch of build_sell8d_fn (slot mode):
+//   * spmv_tpu/ops/pallas_sell.py::_kernel_v2 (K1, via _run_v2): f32, bf16
+//     and palette values, f32 x and y;
+//   * spmv_tpu/ops/pallas_sell.py::_kernel_v2_df (K2, via _run_v2_df): the
+//     double-float packs of f64 matrices, values as "df" (f32 hi + f32 lo),
+//     "df16" (f32 hi + int16 lo scaled by hi's exponent, _df16_decode) or
+//     "palette_df" (a palette of f64 values), f64 x and y.  The TPU has no
+//     f64, so its kernel carries (hi, lo) f32 pairs through error-free
+//     transforms; the H100 has f64, so here each slot's value is decoded
+//     to one double (hi + lo, rounded once) and the sums are native f64
+//     FMAs.
 //
 // Decode, per slot (i, l) of tile t (meta read as uint16):
 //   r    = meta[t, i, l] & 127                       (at the slot)
@@ -17,38 +26,81 @@
 // 128 * i + l.  Padding slots hold value 0; columns >= n read 0.
 //
 // Bound on the H100: device-memory bytes per padded slot (2 B meta, plus
-// 2 B bf16 or 4 B f32 values; palette values live in the meta bits) and
-// the dependent loads per slot (meta -> cell meta -> x).  The TPU grid ran
-// the tile stream in order on one core, carrying each output block in
-// VMEM; here the stream is cut into chunks of at most kChunkTiles tiles
-// that never straddle an output block, one CUDA block of 1024 threads per
-// chunk (a thread per slot), so even a plan with few output blocks fills
-// the card.  Each chunk writes its 1024 partial row sums; a second kernel
-// adds a block's chunks in order.  No atomics: the result is deterministic.
+// 2 B bf16, 4 B f32, 6 B df16 or 8 B df values; palette values live in the
+// meta bits) and the dependent loads per slot (meta -> cell meta -> x).
+// The TPU grid ran the tile stream in order on one core, carrying each
+// output block in VMEM; here the stream is cut into chunks of at most
+// kChunkTiles tiles that never straddle an output block, one CUDA block of
+// 1024 threads per chunk (a thread per slot), so even a plan with few
+// output blocks fills the card.  Each chunk writes its 1024 partial row
+// sums; a second kernel adds a block's chunks in order.  No atomics: the
+// result is deterministic.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace spmv {
 namespace {
 
-enum ValueMode : int { kF32 = 0, kBf16 = 1, kPalette = 2 };
+enum ValueMode : int {
+  kF32 = 0, kBf16 = 1, kPalette = 2,   // f32 matrices (K1)
+  kDf = 3, kDf16 = 4, kPaletteDf = 5,  // f64 matrices (K2)
+};
+
+// f32 modes accumulate (and read x, write y) in float, f64 modes in double.
+template <int kVM>
+using Acc = typename std::conditional<(kVM >= kDf), double, float>::type;
+
+// The value of slot k of the stream, whose meta is ms.
+template <int kVM, int kLb>
+__device__ __forceinline__ Acc<kVM> slot_value(const void* vals,
+                                               const void* vals_lo,
+                                               const void* palette, int64_t k,
+                                               uint32_t ms) {
+  const uint32_t code = (ms >> (10 + kLb)) & (63u >> kLb);
+  if constexpr (kVM == kPalette) {
+    return __ldg(static_cast<const float*>(palette) + code);
+  } else if constexpr (kVM == kPaletteDf) {
+    return __ldg(static_cast<const double*>(palette) + code);
+  } else if constexpr (kVM == kBf16) {
+    return bf16_bits_to_f32(__ldg(static_cast<const uint16_t*>(vals) + k));
+  } else if constexpr (kVM == kF32) {
+    return __ldg(static_cast<const float*>(vals) + k);
+  } else {
+    const float hi = __ldg(static_cast<const float*>(vals) + k);
+    if constexpr (kVM == kDf16) {
+      // lo = q * floor-pow2(|hi|) * 2^-39, the scale read from hi's
+      // exponent bits (0 for a zero or subnormal hi) as _df16_decode does;
+      // q * scale and hi + lo are exact in double (lo spans 2^-39 of hi)
+      const float pulse = __uint_as_float(__float_as_uint(hi) & 0x7F800000u);
+      const int16_t q = __ldg(static_cast<const int16_t*>(vals_lo) + k);
+      return double(hi) + double(q) * double(pulse * 0x1p-39f);
+    } else {
+      const float lo = __ldg(static_cast<const float*>(vals_lo) + k);
+      return double(hi) + double(lo);
+    }
+  }
+}
 
 template <int kVM, bool kSlot, int kNw, bool kCellW>
 __global__ void __launch_bounds__(kTile)
     sell_chunk_kernel(const uint16_t* __restrict__ meta,
                       const void* __restrict__ vals,
-                      const float* __restrict__ palette,
+                      const void* __restrict__ vals_lo,
+                      const void* __restrict__ palette,
                       const int32_t* __restrict__ tinfo,
                       const int32_t* __restrict__ chunk_step_ptr,
-                      const float* __restrict__ x,
-                      float* __restrict__ partial, int64_t g, int64_t n) {
+                      const Acc<kVM>* __restrict__ x,
+                      Acc<kVM>* __restrict__ partial, int64_t g, int64_t n) {
+  using T = Acc<kVM>;
   constexpr int kLb = kNw == 8 ? 3 : kNw == 4 ? 2 : kNw == 2 ? 1 : 0;
   const int tid = threadIdx.x;  // slot (i, l) = (tid >> 7, tid & 127)
   const int i = tid >> 7;
   const int64_t t0 = int64_t(chunk_step_ptr[blockIdx.x]) * g;
   const int64_t t1 = int64_t(chunk_step_ptr[blockIdx.x + 1]) * g;
-  float acc[kSlot ? 1 : kSub];
+  T acc[kSlot ? 1 : kSub];
 #pragma unroll
-  for (int j = 0; j < (kSlot ? 1 : kSub); ++j) acc[j] = 0.f;
+  for (int j = 0; j < (kSlot ? 1 : kSub); ++j) acc[j] = T(0);
 
   for (int64_t t = t0; t < t1; ++t) {
     const int32_t ti = __ldg(tinfo + t);
@@ -61,49 +113,53 @@ __global__ void __launch_bounds__(kTile)
                   s * kLanes + r;
     if (kSlot && kNw > 1)
       col += int64_t(((kCellW ? mc : ms) >> 10) & (kNw - 1)) * kTile;
-    float v;
-    if (kVM == kPalette)
-      v = __ldg(palette + ((ms >> (10 + kLb)) & (63u >> kLb)));
-    else if (kVM == kBf16)
-      v = bf16_bits_to_f32(
-          __ldg(static_cast<const uint16_t*>(vals) + t * kTile + tid));
-    else
-      v = __ldg(static_cast<const float*>(vals) + t * kTile + tid);
-    const float xv = col < n ? __ldg(x + col) : 0.f;
+    const T v = slot_value<kVM, kLb>(vals, vals_lo, palette, t * kTile + tid,
+                                     ms);
+    const T xv = col < n ? __ldg(x + col) : T(0);
     if (kSlot) {
-      acc[0] = fmaf(v, xv, acc[0]);
+      acc[0] = fma_acc(v, xv, acc[0]);
     } else {
       const int row = ti & 7;
 #pragma unroll
       for (int j = 0; j < kSub; ++j)
-        if (j == row) acc[j] = fmaf(v, xv, acc[j]);
+        if (j == row) acc[j] = fma_acc(v, xv, acc[j]);
     }
   }
 
-  float* out = partial + int64_t(blockIdx.x) * kTile;
+  T* out = partial + int64_t(blockIdx.x) * kTile;
   if (kSlot) {
     out[tid] = acc[0];
     return;
   }
-  // row mode: row j of the block gets the sum over sublanes i of acc_i[j]
-  __shared__ float red[kSub][kTile];  // red[j][i * 128 + l], 32 KB
-#pragma unroll
-  for (int j = 0; j < kSub; ++j) red[j][tid] = acc[j];
-  __syncthreads();
+  // row mode: row j of the block gets the sum over sublanes i of acc_i[j],
+  // through 32 KB of shared memory: 8 rows in one pass in f32, 4 rows in
+  // each of two passes in f64 (64 KB would exceed the 48 KB static limit)
+  constexpr int kRows = 32 * 1024 / (kTile * int(sizeof(T)));
+  __shared__ T red[kRows][kTile];  // red[j][i * 128 + l]
   const int row = tid >> 7, l = tid & 127;
-  float sum = 0.f;
 #pragma unroll
-  for (int k = 0; k < kSub; ++k) sum += red[row][k * kLanes + l];
-  out[tid] = sum;
+  for (int p = 0; p < kSub / kRows; ++p) {
+    if (p > 0) __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) red[j][tid] = acc[p * kRows + j];
+    __syncthreads();
+    if (row / kRows == p) {
+      T sum = T(0);
+#pragma unroll
+      for (int k = 0; k < kSub; ++k) sum += red[row % kRows][k * kLanes + l];
+      out[tid] = sum;
+    }
+  }
 }
 
 // out[b, :] = sum of the partials of block b's chunks, in chunk order.
+template <typename T>
 __global__ void __launch_bounds__(kTile)
-    sell_reduce_kernel(const float* __restrict__ partial,
+    sell_reduce_kernel(const T* __restrict__ partial,
                        const int32_t* __restrict__ block_chunk_ptr,
-                       float* __restrict__ out) {
+                       T* __restrict__ out) {
   const int64_t b = blockIdx.x;
-  float sum = 0.f;
+  T sum = T(0);
   for (int32_t c = block_chunk_ptr[b]; c < block_chunk_ptr[b + 1]; ++c)
     sum += partial[int64_t(c) * kTile + threadIdx.x];
   out[b * kTile + threadIdx.x] = sum;
@@ -112,30 +168,34 @@ __global__ void __launch_bounds__(kTile)
 struct Args {
   const uint16_t* meta;
   const void* vals;
-  const float* palette;
+  const void* vals_lo;
+  const void* palette;
   const int32_t* tinfo;
   const int32_t* chunk_step_ptr;
   const int32_t* block_chunk_ptr;
-  const float* x;
-  float* partial;
-  float* out;
+  const void* x;
+  void* partial;
+  void* out;
   int64_t nchunks, nblocks, g, n;
   cudaStream_t stream;
 };
 
 template <int kVM, bool kSlot, int kNw, bool kCellW>
 int launch(const Args& a) {
+  using T = Acc<kVM>;
   if (a.nchunks > 0) {
     sell_chunk_kernel<kVM, kSlot, kNw, kCellW>
         <<<unsigned(a.nchunks), kTile, 0, a.stream>>>(
-            a.meta, a.vals, a.palette, a.tinfo, a.chunk_step_ptr, a.x,
-            a.partial, a.g, a.n);
+            a.meta, a.vals, a.vals_lo, a.palette, a.tinfo, a.chunk_step_ptr,
+            static_cast<const T*>(a.x), static_cast<T*>(a.partial), a.g,
+            a.n);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
   }
   if (a.nblocks > 0)
-    sell_reduce_kernel<<<unsigned(a.nblocks), kTile, 0, a.stream>>>(
-        a.partial, a.block_chunk_ptr, a.out);
+    sell_reduce_kernel<T><<<unsigned(a.nblocks), kTile, 0, a.stream>>>(
+        static_cast<const T*>(a.partial), a.block_chunk_ptr,
+        static_cast<T*>(a.out));
   return int(cudaGetLastError());
 }
 
@@ -163,16 +223,19 @@ int dispatch(const Args& a, bool slot, int64_t nw, bool cell_w) {
 }  // namespace
 }  // namespace spmv
 
-// meta: (ntiles, 8, 128) int16; vals: (ntiles, 8, 128) f32 / bf16 bits, or
-// unused for the palette; palette: (128,) f32; tinfo: (ntiles,) int32;
+// meta: (ntiles, 8, 128) int16; vals: (ntiles, 8, 128) f32 / bf16 bits
+// (the hi plane in df modes), or unused for the palettes; vals_lo:
+// (ntiles, 8, 128) f32 (df) or int16 (df16), else unused; palette: (128,)
+// f32 (palette) or f64 (palette_df); tinfo: (ntiles,) int32;
 // chunk_step_ptr: (nchunks + 1,) int32, step bounds of each chunk;
 // block_chunk_ptr: (nblocks + 1,) int32, chunk bounds of each output block;
-// x: (n,) f32; partial: (nchunks, 1024) f32 scratch; out: (nblocks, 1024)
-// f32.  value_mode: 0 f32, 1 bf16, 2 palette.  Launches on `stream`,
-// allocates nothing, returns cudaGetLastError().
+// x: (n,), partial: (nchunks, 1024) scratch, out: (nblocks, 1024), all f32
+// in the f32 modes and f64 in the df modes.  value_mode: 0 f32, 1 bf16,
+// 2 palette, 3 df, 4 df16, 5 palette_df.  Launches on `stream`, allocates
+// nothing, returns cudaGetLastError().
 extern "C" int spmv_sell_launch(const void* meta, const void* vals,
-                                const void* palette, const void* tinfo,
-                                const void* chunk_step_ptr,
+                                const void* vals_lo, const void* palette,
+                                const void* tinfo, const void* chunk_step_ptr,
                                 const void* block_chunk_ptr, const void* x,
                                 void* partial, void* out, int64_t nchunks,
                                 int64_t nblocks, int64_t g, int64_t n,
@@ -180,13 +243,14 @@ extern "C" int spmv_sell_launch(const void* meta, const void* vals,
                                 int64_t nw, int64_t cell_w, void* stream) {
   const spmv::Args a{static_cast<const uint16_t*>(meta),
                      vals,
-                     static_cast<const float*>(palette),
+                     vals_lo,
+                     palette,
                      static_cast<const int32_t*>(tinfo),
                      static_cast<const int32_t*>(chunk_step_ptr),
                      static_cast<const int32_t*>(block_chunk_ptr),
-                     static_cast<const float*>(x),
-                     static_cast<float*>(partial),
-                     static_cast<float*>(out),
+                     x,
+                     partial,
+                     out,
                      nchunks, nblocks, g, n,
                      static_cast<cudaStream_t>(stream)};
   const bool slot = slot_mode != 0, cw = cell_w != 0;
@@ -194,6 +258,10 @@ extern "C" int spmv_sell_launch(const void* meta, const void* vals,
     case spmv::kF32: return spmv::dispatch<spmv::kF32>(a, slot, nw, cw);
     case spmv::kBf16: return spmv::dispatch<spmv::kBf16>(a, slot, nw, cw);
     case spmv::kPalette: return spmv::dispatch<spmv::kPalette>(a, slot, nw, cw);
+    case spmv::kDf: return spmv::dispatch<spmv::kDf>(a, slot, nw, cw);
+    case spmv::kDf16: return spmv::dispatch<spmv::kDf16>(a, slot, nw, cw);
+    case spmv::kPaletteDf:
+      return spmv::dispatch<spmv::kPaletteDf>(a, slot, nw, cw);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,5 @@
-"""Handle lifecycle + AUTO dispatch for the f32 main path (the port of
-``spmv_tpu/handle.py``).
+"""Handle lifecycle + AUTO dispatch for the f32 and f64 main path (the port
+of ``spmv_tpu/handle.py``).
 
 ``create_handle`` inspects the matrix and builds a host-side plan (numpy
 packs, routed exactly as the JAX package routes on a TPU), places it on
@@ -8,16 +8,22 @@ work.  Planning does not depend on the device: the CPU runs the same plans
 as the card, through each kernel's plain PyTorch version, so the CPU tests
 cover the plans the card runs.
 
-Ported plans (the slice the bench's f32 families run):
+Ported plans (the slice the bench's f32 and f64 families run):
 
 =================  ==========================================================
-DIA                ``ops/dia.py`` (K3; also the JAX package's XLA DIA plan)
-SELL-8W v2 rows    ``ops/sell.py`` row mode (K1), with the mega-row fold
-SELL-8D slots      ``ops/sell.py`` slot mode (K1), nw 1/2/4/8, cell_w
-row-split hybrid   8W heavy rows + 8D light rows + fold scatter-add
+DIA                ``ops/dia.py`` (K3, K4 for f64; also the JAX package's XLA
+                   DIA plan)
+SELL-8W v2 rows    ``ops/sell.py`` row mode (K1, K2 for f64), with the
+                   mega-row fold
+SELL-8D slots      ``ops/sell.py`` slot mode (K1, K2 for f64), nw 1/2/4/8,
+                   cell_w
+row-split hybrid   8W heavy rows + 8D light rows; the heavy output folds
+                   back by a scatter-add (f32) or by x-extension (f64)
 stragglers         compact per-row sums + one scatter-add (plain PyTorch)
 Serial             gather + scatter-add (plain PyTorch, AUTO's nnz < 10k)
 =================  ==========================================================
+
+An f64 matrix runs in native f64 end to end: x, the kernels' sums and y.
 
 Everything else raises ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -143,14 +149,14 @@ def _pad_allow(soft_cap: float, mem_cap: float, floor: float = 3.0) -> float:
 def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
                 vectorized: VectorizedWay = VectorizedWay.VPU,
                 hints: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """The JAX planner's f32 branches, as it routes on a TPU."""
+    """The JAX planner's f32 and f64 branches, as it routes on a TPU."""
     if method in (Method.SELL_C_SIGMA, Method.PARALLEL):
         if vectorized == VectorizedWay.NONE:
             raise _not_ported("the XLA chunked-SELL plan "
-                              "(VectorizedWay.NONE)", 5)
+                              "(VectorizedWay.NONE)", 6)
         if a.n > V2_MAX_N:
             raise _not_ported("SELL tiers for n > 2M (K5-K7, column "
-                              "stripes, sell8w_v2w)", 3)
+                              "stripes, sell8w_v2w)", 2)
         return _plan_sell(a, hints or {})
     if method == Method.SERIAL:
         return {
@@ -171,19 +177,53 @@ def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
         return {"dia": d, "fill": d.fill,
                 "offsets": tuple(int(o) for o in d.offsets), "n": a.n}
     if method == Method.CSR5:
-        raise _not_ported("Method.CSR5 (the two-pass COO2 plan, K8)", 4)
+        raise _not_ported("Method.CSR5 (the two-pass COO2 plan, K8)", 3)
     if method == Method.BCSR:
-        raise _not_ported("Method.BCSR", 5)
-    raise _not_ported(f"{METHOD_NAMES.get(method, method)}", 5)
+        raise _not_ported("Method.BCSR", 6)
+    raise _not_ported(f"{METHOD_NAMES.get(method, method)}", 6)
+
+
+def _append_fold_entries(mat: CsrMatrix, fold_rows: np.ndarray,
+                         val_dtype) -> CsrMatrix:
+    """``[mat | F]`` where ``F[fold_rows[j], j] = 1``: fold by x-extension
+    (``spmv_tpu/handle.py:_append_fold_entries``).  Fold columns land at
+    the end of each row, after every real column."""
+    m, n = mat.m, mat.n
+    k = len(fold_rows)
+    lens = mat.row_lengths.astype(np.int64)
+    extra = np.bincount(fold_rows, minlength=m).astype(np.int64)
+    rp2 = np.zeros(m + 1, np.int64)
+    np.cumsum(lens + extra, out=rp2[1:])
+    total = int(rp2[-1])
+    cols2 = np.empty(total, dtype=np.int64)
+    vals2 = np.empty(total, dtype=val_dtype)
+    rows_old = np.repeat(np.arange(m, dtype=np.int64), lens)
+    old_pos = rp2[rows_old] + (np.arange(mat.nnz, dtype=np.int64)
+                               - mat.rowptr.astype(np.int64)[rows_old])
+    cols2[old_pos] = mat.colidx
+    vals2[old_pos] = mat.vals
+    order = np.argsort(fold_rows, kind="stable")
+    fr = np.asarray(fold_rows, dtype=np.int64)[order]
+    base = np.arange(k, dtype=np.int64)
+    first = np.ones(k, dtype=bool)
+    first[1:] = fr[1:] != fr[:-1]
+    rank = base - np.maximum.accumulate(np.where(first, base, 0))
+    pos = rp2[fr] + lens[fr] + rank
+    cols2[pos] = n + order                       # column = n + j
+    vals2[pos] = 1.0
+    return CsrMatrix(m, n + k, rp2, cols2.astype(INT_DTYPE), vals2)
 
 
 def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
-    """SELL_C_SIGMA / PARALLEL on f32 with n ≤ V2_MAX_N: row mode
-    (SELL-8W v2) vs slot mode (SELL-8D) vs the row-split hybrid, by
-    estimated tile count — the JAX planner's ``_plan_windowed`` ladder."""
-    from .formats.sell8d import (estimate_sell8d_auto, pack_sell8d,
+    """SELL_C_SIGMA / PARALLEL with n ≤ V2_MAX_N: row mode (SELL-8W v2)
+    vs slot mode (SELL-8D) vs the row-split hybrid, by estimated tile count
+    (f32) or estimated cost (the f64 hybrid gate) — the JAX planner's
+    ``_plan_windowed`` ladder."""
+    from .formats.sell8d import (cost_tables, dense_tile_ns,
+                                 estimate_sell8d_auto, pack_sell8d,
                                  prepare_hybrid, slot_stream_budget)
     WINDOW = sell8w_fmt.WINDOW
+    df = np.dtype(a.dtype) == np.dtype(np.float64)
 
     def _finish_rest(plan, rest_parts):
         """Merge host-side COO remainders into the plan's straggler
@@ -204,7 +244,7 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
         # slot-mode deep-slice stream; the depth-cap tail and s-table
         # leftovers ride the straggler stream
         nw = extra.get("sell8d_nw", 1)
-        mem_cap = slot_stream_budget(mat.vals, nw, False) / max(mat.nnz, 1)
+        mem_cap = slot_stream_budget(mat.vals, nw, df) / max(mat.nnz, 1)
         allow = extra.get("sell8d_allow", _pad_allow(32.0, mem_cap))
         packed, rest8d = pack_sell8d(
             mat, max_pad_ratio=allow, nw=nw, g="auto",
@@ -223,7 +263,16 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
             extra = {**extra, "mega_sub_rows": sub_rows}
         allow = _pad_allow(32.0, 6.7e8 / max(mat.nnz, 1))
         packed = sell8w_fmt.pack_sell8w(mat, max_pad_ratio=allow)
-        v2 = sell8w_fmt.plan_v2(packed)
+        if df:
+            # the greedy placement is value-independent, so packing the lo
+            # parts of the values too gives slot-aligned (hi, lo) tiles
+            hi_back = mat.vals.astype(np.float32).astype(np.float64)
+            lo = sell8w_fmt.pack_sell8w(CsrMatrix(
+                mat.m, mat.n, mat.rowptr, mat.colidx,
+                (mat.vals - hi_back).astype(np.float32)))
+            v2 = sell8w_fmt.plan_v2(packed, lo_tiles=lo.vals)
+        else:
+            v2 = sell8w_fmt.plan_v2(packed)
         plan = {"sell8w": packed, "pad_ratio": packed.pad_ratio,
                 "value_mode": v2.value_mode, "sell8w_v2": v2}
         extra = dict(extra)
@@ -275,22 +324,43 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
             hint = hints.get("hybrid_prep")
             prep = (hint if hint is not None and mat is a
                     else prepare_hybrid(mat))
-            if (prep is not None and prep.tiles < 0.7 * best
-                    and prep.spilled <= 0.02 * mat.nnz
+            if prep is None:
+                hybrid_wins = False
+            elif df:
+                # f64 compares estimated costs, not tile counts: dense
+                # (8W) and slot (8D) double-float tiles price differently
+                ts_tab, spill_ns = cost_tables(False, True)
+                cost_8w = (t8w * dense_tile_ns(True) if t8w
+                           else float("inf"))
+                cost_8d = (t8d * ts_tab[nw] + spilled * spill_ns if t8d
+                           else float("inf"))
+                hybrid_wins = prep.cost < 0.85 * min(cost_8w, cost_8d)
+            else:
+                hybrid_wins = prep.tiles < 0.7 * best
+            if (hybrid_wins and prep.spilled <= 0.02 * mat.nnz
                     and prep.tiles * WINDOW <= 6.7e8):
                 try:
                     pd = _sell8w_plan(prep.dense_sorted, {})
                     pd["m_rows"] = prep.dense_sorted.m
                     pd["fold_rows"] = prep.fold_rows.astype(INT_DTYPE)
+                    sparse = prep.sparse
+                    if (df and "mega_sub_rows" not in pd
+                            and "rest_rows" not in pd):
+                        # f64 folds by x-extension: the light plan gains a
+                        # 1.0-valued entry (row fold_rows[j], column n + j)
+                        # per compact heavy row, and the executor appends
+                        # the heavy output to x
+                        pd["fold_planes_ext"] = True
+                        sparse = _append_fold_entries(
+                            prep.sparse, prep.fold_rows, np.float64)
                     allow_s = min(
                         96.0,
                         max(32.0, 1.5 * prep.ts * WINDOW
                             / max(prep.sparse.nnz, 1)),
-                        slot_stream_budget(prep.sparse.vals, prep.nw,
-                                           False)
-                        / max(prep.sparse.nnz, 1))
+                        slot_stream_budget(sparse.vals, prep.nw, df)
+                        / max(sparse.nnz, 1))
                     psp = _sell8d_plan(
-                        prep.sparse,
+                        sparse,
                         {**extra, "sell8d_nw": prep.nw,
                          "sell8d_allow": allow_s,
                          "sell8d_max_spill": max_sp})
@@ -320,12 +390,18 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
             except ValueError:
                 pass
     raise _not_ported("no SELL tile plan fits this matrix: the graph "
-                      "plan and the XLA chunked-SELL/scan fall-through", 2)
+                      "plan and the XLA chunked-SELL/scan fall-through", 5)
 
 
 # --------------------------------------------------------------------------
 # Placement and binding (device work)
 # --------------------------------------------------------------------------
+
+def _host_values(vals) -> np.ndarray:
+    """Values as the plan streams them: f64 stays f64, the rest is f32."""
+    v = np.asarray(vals)
+    return v if v.dtype == np.float64 else v.astype(np.float32)
+
 
 def _prepare_rest(rows, cols, vals, device) -> Dict[str, Any]:
     """Straggler stream sorted by row: per-row sums on the compact
@@ -340,7 +416,7 @@ def _prepare_rest(rows, cols, vals, device) -> Dict[str, Any]:
             "seg": dev_put(seg.astype(np.int64), device),
             "cols": dev_put(np.asarray(cols)[order].astype(np.int64),
                             device),
-            "vals": dev_put(np.asarray(vals, np.float32)[order], device),
+            "vals": dev_put(_host_values(vals)[order], device),
             "nseg": int(seg[-1]) + 1 if len(seg) else 0}
 
 
@@ -360,7 +436,7 @@ def _place(plan: Dict[str, Any], device) -> Dict[str, Any]:
         elif k in ("mega_sub_rows", "fold_rows", "rows", "colidx"):
             out[k] = dev_put(np.asarray(v).astype(np.int64), device)
         elif k == "vals":
-            out[k] = dev_put(np.asarray(v, np.float32), device)
+            out[k] = dev_put(_host_values(v), device)
         elif k == "rest_rows":
             out["rest"] = _prepare_rest(v, plan["rest_cols"],
                                         plan["rest_vals"], device)
@@ -369,6 +445,24 @@ def _place(plan: Dict[str, Any], device) -> Dict[str, Any]:
         else:
             out[k] = v
     return out
+
+
+def _extend_x(f_dense, x: torch.Tensor) -> torch.Tensor:
+    """Fold by x-extension: x with the dense part's output (its compact
+    heavy rows) appended, which the light part of an f64 hybrid reads."""
+    return torch.cat([x, f_dense(x)])
+
+
+def light_part_input(handle: "SpmvHandle", x: torch.Tensor) -> torch.Tensor:
+    """The x that the light (slot-mode) part of ``handle``'s hybrid plan
+    reads: ``x`` itself, or ``x`` extended by the dense part's output when
+    the plan folds by x-extension.  ``x`` is on the handle's device, in its
+    type."""
+    pd = handle.plan["hybrid"][0]
+    if not pd.get("fold_planes_ext"):
+        return x
+    return _extend_x(_make_bound(handle.method, pd,
+                                 pd.get("m_rows", handle.m)), x)
 
 
 def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
@@ -381,6 +475,10 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
         pd, psp = p["hybrid"]
         f2 = _make_bound(method, psp, m_rows)
         f1 = _make_bound(method, pd, pd.get("m_rows", m_rows))
+        if pd.get("fold_planes_ext"):
+            # f64: the light plan's fold columns gather the heavy output,
+            # appended to x (the light stream's n is n + the heavy rows)
+            return lambda x: f2(_extend_x(f1, x))
         if "fold_rows" in pd:
             fr = pd["fold_rows"]
             return lambda x: f2(x).index_add_(0, fr, f1(x))
@@ -406,7 +504,7 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
 
             def fn(x):
                 prod = r["vals"] * x[r["cols"]]
-                sums = torch.zeros(max(r["nseg"], 1), dtype=torch.float32,
+                sums = torch.zeros(max(r["nseg"], 1), dtype=prod.dtype,
                                    device=x.device).index_add_(
                                        0, r["seg"], prod)
                 return kern(x).index_add_(0, r["uniq"], sums[:r["nseg"]])
@@ -448,10 +546,10 @@ def create_handle(a: CsrMatrix,
     kernels; on the CPU it runs their plain PyTorch versions.
     """
     if reorder is not None:
-        raise _not_ported("create_handle(reorder=...)", 5)
-    if np.dtype(a.dtype) != np.dtype(np.float32):
-        raise _not_ported(f"{np.dtype(a.dtype).name} input (the "
-                          "double-float kernels K2, K4)", 1)
+        raise _not_ported("create_handle(reorder=...)", 6)
+    if np.dtype(a.dtype) not in (np.dtype(np.float32), np.dtype(np.float64)):
+        raise _not_ported(f"{np.dtype(a.dtype).name} input (the JAX "
+                          "package's XLA plans)", 6)
     dev = _resolve_device(device)
     requested = Method(method)
     resolved = requested
@@ -485,14 +583,14 @@ def create_handle(a: CsrMatrix,
                                              Method.SELL_C_SIGMA)
         if resolved == Method.BALANCED:
             raise _not_ported("AUTO's graph rung and the Balanced scan "
-                              "plan it falls back to", 2)
+                              "plan it falls back to", 5)
     if (VectorizedWay(vectorized) == VectorizedWay.MXU
             and resolved in (Method.PARALLEL, Method.SELL_C_SIGMA,
                              Method.CSR5) and a.nnz > 0):
         from .formats import bcsr as bcsr_fmt
         nblocks, fill = bcsr_fmt.bcsr_profile(a)
         if fill >= 0.02 and nblocks * bcsr_fmt.BLOCK ** 2 * 8 <= 4e9:
-            raise _not_ported("VectorizedWay.MXU (the BCSR plan)", 5)
+            raise _not_ported("VectorizedWay.MXU (the BCSR plan)", 6)
     plan = _build_plan(a, resolved, nthreads, VectorizedWay(vectorized),
                        hints=plan_hints)
     placed = _place(plan, dev)
@@ -511,13 +609,20 @@ def create_handle(a: CsrMatrix,
         mtx_token=mtx_token, device=dev, plan=placed, _bound=bound,
         _matrix=a_orig)
     if warm:
-        spmv(h, torch.zeros(a.n, dtype=torch.float32, device=dev))
+        spmv(h, torch.zeros(a.n, dtype=_torch_dtype(h.dtype), device=dev))
     return h
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """The type x and y take for a matrix of ``dtype``."""
+    return (torch.float64 if np.dtype(dtype) == np.dtype(np.float64)
+            else torch.float32)
 
 
 def spmv(handle: SpmvHandle, x) -> torch.Tensor:
     """Execute y = A @ x.  ``x`` is a tensor on ``handle.device`` (a numpy
-    array is copied there); the result is a float32 tensor there."""
+    array is copied there), cast to the matrix's type; the result is a
+    tensor of that type (float32 or float64) there."""
     if handle._bound is None:
         raise RuntimeError("handle was cleared/destroyed; create a new one")
     if not isinstance(x, torch.Tensor):
@@ -528,7 +633,7 @@ def spmv(handle: SpmvHandle, x) -> torch.Tensor:
     if x.device != handle.device:
         raise ValueError(f"x is on {x.device}, the handle on "
                          f"{handle.device}")
-    return handle._bound(x.to(torch.float32).contiguous())
+    return handle._bound(x.to(_torch_dtype(handle.dtype)).contiguous())
 
 
 # -- reference-parity spellings ---------------------------------------------

@@ -1,11 +1,11 @@
-"""Native (C++) host packers, loaded via ctypes — the port's loader for the
-JAX package's own source, ``spmv_tpu/native/spmv_native.cpp``.
+"""Native (C++) host packers, loaded via ctypes.
 
-The source is compiled by file path (nothing of ``spmv_tpu`` is imported)
-into the port's build directory, so both packages run one packer and the
-native parts of their packs are identical by construction.  Only the entry
-points the port's packers call are bound: the SELL-8W greedy packer, the
-SELL-8D slot-mode packer and its bundle-width stats.
+``spmv_native.cpp`` beside this file is the port's own copy of the JAX
+package's packer source; its code is unchanged, so both packages emit
+identical packs (``tests/test_torch_formats.py`` pins them).  It is
+compiled with g++ into the port's build directory at first use.  Only the
+entry points the port's packers call are bound: the SELL-8W greedy packer,
+the SELL-8D slot-mode packer and its bundle-width stats.
 
 Everything degrades gracefully, as in the JAX package: if compilation
 fails, the packers fall back to their pure-numpy paths.
@@ -26,8 +26,8 @@ from .._build import compile_shared
 __all__ = ["load_native", "native_available", "pack_sell8w_native",
            "pack_sell8d_native", "sell8d_stats_native"]
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "spmv_tpu", "native", "spmv_native.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                    "spmv_native.cpp")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False

@@ -13,7 +13,9 @@ __all__ = ["segment_sum_spmv"]
 
 
 def segment_sum_spmv(rows, colidx, vals, x, *, m: int) -> torch.Tensor:
-    """Method_Serial plan: one gather of x, then a scatter-add by row."""
-    prod = vals.to(torch.float32) * x.to(torch.float32)[colidx]
-    return torch.zeros(m, dtype=torch.float32,
-                       device=x.device).index_add_(0, rows, prod)
+    """Method_Serial plan: one gather of x, then a scatter-add by row, in
+    f64 for f64 values and in f32 otherwise."""
+    dt = torch.float64 if vals.dtype == torch.float64 else torch.float32
+    prod = vals.to(dt) * x.to(dt)[colidx]
+    return torch.zeros(m, dtype=dt, device=x.device).index_add_(0, rows,
+                                                                prod)

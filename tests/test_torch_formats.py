@@ -157,3 +157,105 @@ def test_choose_method_agrees_on_zoo(matrices):
         assert j_insp.choose_method(a) == t_insp.choose_method(t), name
         _same(dataclasses.astuple(j_insp.featurize(a)),
               dataclasses.astuple(t_insp.featurize(t)))
+
+
+# -- f64: the double-float branches the f64 main path packs with ------------
+
+def _f64_values(j, t, value_mode, entries=64, seed=1):
+    """Both packages' matrices with the same f64 values for ``value_mode``
+    (palette_df: few distinct values; else full-mantissa values over a
+    wide exponent range)."""
+    rng = np.random.default_rng(seed)
+    if value_mode == "palette_df":
+        v = rng.standard_normal(entries - 1)[rng.integers(0, entries - 1,
+                                                          j.nnz)]
+    else:
+        v = rng.standard_normal(j.nnz) * np.exp(rng.uniform(-20, 20, j.nnz))
+    return (JaxCsr(j.m, j.n, j.rowptr, j.colidx, v),
+            TorchCsr(t.m, t.n, t.rowptr, t.colidx, v))
+
+
+@pytest.mark.parametrize("value_mode", ["df", "df16", "palette_df"])
+def test_pack_sell8w_and_plan_v2_identical_f64(value_mode):
+    j, t = _both(lambda g: g.clustered(4000, 6000, 10, spread=400,
+                                       dtype=np.float32, seed=3))
+    j, t = _f64_values(j, t, value_mode)
+
+    def double_pack(mod, a, cls):
+        hi = mod.pack_sell8w(a)
+        lo = mod.pack_sell8w(cls(a.m, a.n, a.rowptr, a.colidx,
+                                 (a.vals - a.vals.astype(np.float32))
+                                 .astype(np.float32)))
+        return mod.plan_v2(hi, lo_tiles=lo.vals,
+                           force_value_mode=None if value_mode == "df16"
+                           else value_mode)
+
+    vj, vt = double_pack(j_8w, j, JaxCsr), double_pack(t_8w, t, TorchCsr)
+    assert vt.value_mode == value_mode
+    _same(vj, vt)
+
+
+@pytest.mark.parametrize("nw,cell_w,value_mode", [
+    (1, False, "df16"), (2, True, "df"), (4, True, "palette_df"),
+    (8, True, "df16")])
+def test_pack_sell8d_identical_f64(nw, cell_w, value_mode):
+    j, t = _both(lambda g: g.random_uniform(5000, 50000, 8,
+                                            dtype=np.float32, seed=nw))
+    j, t = _f64_values(j, t, value_mode, entries=64 >> (nw.bit_length() - 1))
+    kw = dict(g="auto", max_pad_ratio=256.0, max_spill=0.05, nw=nw,
+              cell_w=cell_w)
+    if value_mode == "df":
+        kw["force_value_mode"] = "df"
+    pj, rj = j_8d.pack_sell8d(j, **kw)
+    pt, rt = t_8d.pack_sell8d(t, **kw)
+    assert pt.value_mode == value_mode
+    _same(pj, pt)
+    _same(rj, rt)
+    assert (j_8d.estimate_sell8d_auto(j, nw=None)
+            == t_8d.estimate_sell8d_auto(t, nw=None))
+
+
+def test_df16_codec_and_cost_tables_identical():
+    rng = np.random.default_rng(7)
+    v = rng.standard_normal(100_000) * np.exp(rng.uniform(-60, 60, 100_000))
+    vh = v.astype(np.float32)
+    _same(j_8w.df16_encode_lo(vh, v - vh.astype(np.float64)),
+          t_8w.df16_encode_lo(vh, v - vh.astype(np.float64)))
+    for vals in (v, np.array([1.0, 2.0 ** -120]), np.array([1.0, np.inf])):
+        assert j_8w.df16_safe(vals) == t_8w.df16_safe(vals)
+    for windowed in (False, True):
+        for df in (False, True, "df"):
+            assert (j_8d.cost_tables(windowed, df)
+                    == t_8d.cost_tables(windowed, df))
+    for df in (False, True, "df"):
+        assert j_8d.dense_tile_ns(df) == t_8d.dense_tile_ns(df)
+    for vals in (v, v[:63].repeat(100), v.astype(np.float32)):
+        for nw in (1, 8):
+            for df in (False, True):
+                assert (j_8d.slot_stream_budget(vals, nw, df)
+                        == t_8d.slot_stream_budget(vals, nw, df))
+
+
+def test_prepare_hybrid_and_fold_entries_identical_f64():
+    import spmv_tpu.handle as jh
+    from spmv_tpu_torch import handle as th
+    j, t = _both(lambda g: g.power_law(10000, 10000, 400_000,
+                                       dtype=np.float32, seed=2))
+    j, t = _f64_values(j, t, "df16", seed=7)
+    hj, ht = j_8d.prepare_hybrid(j), t_8d.prepare_hybrid(t)
+    for f in ("td", "ts", "spilled", "nw", "dense_frac", "cost"):
+        assert getattr(hj, f) == getattr(ht, f)
+    _same(hj.fold_rows, ht.fold_rows)
+    ej = jh._append_fold_entries(hj.sparse, hj.fold_rows, np.float64)
+    et = th._append_fold_entries(ht.sparse, ht.fold_rows, np.float64)
+    _same((ej.m, ej.n, ej.rowptr, ej.colidx, ej.vals),
+          (et.m, et.n, et.rowptr, et.colidx, et.vals))
+
+
+def test_pack_dia_identical_f64():
+    j, t = _both(lambda g: g.banded(3000, 3200, 5, dtype=np.float32,
+                                    seed=7, exact=False))
+    j, t = _f64_values(j, t, "df")
+    dj, dt = j_dia.pack_dia(j), t_dia.pack_dia(t)
+    assert dt.data.dtype == np.float64
+    _same(dj, dt)

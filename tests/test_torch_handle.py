@@ -5,14 +5,21 @@ plan_from_reference) and against the golden product; plan parity; the
 handle lifecycle; what is not ported yet; and that the port imports no
 JAX.
 
-Tolerance per row: |Δy| ≤ 1e-5·(|A||x|)_i — the f32 sums are taken in
-another order.
+Tolerance per row against (|A||x|)_i:
+- f32: 1e-5 — the f32 sums are taken in another order;
+- f64: 1e-10 against the golden product (df16 values carry ≤ 2^-39
+  relative error; an f32 computation, about 1e-7, fails it), and 2e-6
+  against the JAX plan run in interpret mode, where XLA:CPU simplifies the
+  double-float kernels' error-free transforms to about f32 accuracy (the
+  bound of tests/test_sell8w_f64.py).
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -45,14 +52,51 @@ MATRICES = {
                 "hybrid(8w+8d)", "bf16"),
     "tiny": (lambda g: g.random_uniform(300, 300, 5, dtype=np.float32,
                                         seed=1), "serial", None),
+    # f64: the same patterns with f64 values, as bench.py's _to_f64 makes
+    # them; the powerlaw one folds by x-extension (fold_planes_ext)
+    "banded_f64": (lambda g: _to_f64(g.banded(40000, 40000, 4,
+                                              dtype=np.float32, seed=7)),
+                   "dia", None),
+    "uniform_f64": (lambda g: _to_f64(g.random_uniform(
+        8000, 80000, 12, dtype=np.float32, seed=42)), "sell8d", "df16"),
+    "powerlaw_f64": (lambda g: _to_f64(g.power_law(
+        10000, 10000, 400_000, dtype=np.float32, seed=2)),
+        "hybrid(8w+8d)", "df16"),
+    "tiny_f64": (lambda g: _to_f64(g.random_uniform(
+        300, 300, 5, dtype=np.float32, seed=1)), "serial", None),
 }
+
+
+def _to_f64(a, seed=7):
+    """``a``'s pattern with standard-normal f64 values (bench.py)."""
+    vals = np.random.default_rng(seed).standard_normal(a.nnz)
+    return type(a)(a.m, a.n, a.rowptr, a.colidx, vals)
+
+
+def _tol(a):
+    """(tolerance against the golden product, against interpret mode)."""
+    return (1e-10, 2e-6) if a.vals.dtype == np.float64 else (1e-5, 1e-5)
+
+
+def _abs_ax(a, x):
+    """(|A||x|)_i from the golden product."""
+    aa = st.CsrMatrix(a.m, a.n, a.rowptr, a.colidx, np.abs(a.vals))
+    return st.spmv_golden(aa.astype(np.float64),
+                          np.abs(x).astype(np.float64)) + 1e-300
 
 
 def _bound(a, x):
     """1e-5·(|A||x|)_i from the golden product."""
-    aa = st.CsrMatrix(a.m, a.n, a.rowptr, a.colidx, np.abs(a.vals))
-    return 1e-5 * st.spmv_golden(aa.astype(np.float64),
-                                 np.abs(x).astype(np.float64)) + 1e-30
+    return 1e-5 * _abs_ax(a, x)
+
+
+@pytest.fixture
+def x64():
+    """f64 runs with jax_enable_x64 on (the JAX create_handle turns it on
+    for the whole process); the flag is restored after each test."""
+    was = jax.config.jax_enable_x64
+    yield
+    jax.config.update("jax_enable_x64", was)
 
 
 def _golden(a, x):
@@ -70,6 +114,12 @@ def _reference_exec(plan, x, m_rows):
     (the glue of spmv_tpu.handle._make_bound, in numpy)."""
     if "hybrid" in plan:
         pd, psp = plan["hybrid"]
+        if pd.get("fold_planes_ext"):
+            # f64: the light plan reads the dense part's output appended
+            # to x (spmv_tpu.handle._make_bound's hyb_df)
+            y_dense = _reference_exec(pd, x, pd["m_rows"])
+            return _reference_exec(psp, np.concatenate([x, y_dense]),
+                                   m_rows)
         y = _reference_exec(psp, x, m_rows)
         np.add.at(y, np.asarray(pd["fold_rows"]),
                   _reference_exec(pd, x, pd.get("m_rows", m_rows)))
@@ -108,6 +158,12 @@ def _same_placed(p, q):
                 _same_placed(a, b)
         elif isinstance(u, dict):
             _same_placed(u, v)
+        elif isinstance(u, torch.Tensor) and k == "data" \
+                and u.dtype == torch.float64:
+            # an f64 DIA plan: the port keeps the pack's f64 diagonals, the
+            # JAX plan hi + lo f32 planes, which hold 48 of the 53 bits
+            assert v.dtype == u.dtype and u.shape == v.shape
+            assert bool(((u - v).abs() <= 2.0 ** -48 * u.abs()).all())
         elif isinstance(u, torch.Tensor):
             assert u.dtype == v.dtype and torch.equal(u, v), k
         elif hasattr(u, "__dataclass_fields__"):      # SellStream, DiaPlan
@@ -117,27 +173,44 @@ def _same_placed(p, q):
 
 
 @pytest.mark.parametrize("name", sorted(MATRICES))
-def test_main_path_matches_reference_plan(name, monkeypatch):
+def test_main_path_matches_reference_plan(name, monkeypatch, x64):
     make, kind, value_mode = MATRICES[name]
     a, ja = make(t_gen), make(j_gen)
-    x = np.random.default_rng(0).standard_normal(a.n).astype(np.float32)
+    x = np.random.default_rng(0).standard_normal(a.n).astype(a.vals.dtype)
     h = st.create_handle(a, method=st.Method.AUTO, device="cpu")
     assert th.plan_kind(h.plan) == kind
     assert h.plan.get("value_mode") == value_mode
+    if name == "powerlaw_f64":
+        assert h.plan["hybrid"][0].get("fold_planes_ext")
     y = st.spmv(h, torch.from_numpy(x))
-    assert y.dtype == torch.float32 and y.shape == (a.m,)
+    assert y.dtype == torch.from_numpy(x).dtype and y.shape == (a.m,)
     y = y.numpy()
-    bound = _bound(a, x)
-    np.testing.assert_array_less(np.abs(y - _golden(a, x)), bound)
+    tol, tol_ref = _tol(a)
+    absax = _abs_ax(a, x)
+    np.testing.assert_array_less(np.abs(y - _golden(a, x)), tol * absax)
 
     jhandle = _reference_plan(ja, monkeypatch)
     assert int(jhandle.method) == int(h.method)
+    assert jhandle.plan.get("value_mode") == value_mode
     placed = plan_from_reference(jhandle.plan, "cpu")
     _same_placed(h.plan, placed)
     y_ref = _reference_exec(jhandle.plan, x, a.m)
+    if name == "powerlaw_f64":
+        # the light part's input (x extended by the dense part's compact
+        # heavy rows) against the JAX dense part; a compact row's dense
+        # part is a subset of its row, so (|A||x|)_i bounds it
+        x_ext = th.light_part_input(h, torch.from_numpy(x)).numpy()
+        pd = jhandle.plan["hybrid"][0]
+        assert x_ext.shape == (h.plan["hybrid"][1]["sell8d"].n,)
+        assert np.array_equal(x_ext[:a.n], x)
+        np.testing.assert_array_less(
+            np.abs(x_ext[a.n:] - _reference_exec(pd, x, pd["m_rows"])),
+            tol_ref * absax[np.asarray(pd["fold_rows"])])
     y_car = th._make_bound(h.method, placed, a.m)(torch.from_numpy(x))
-    np.testing.assert_array_less(np.abs(y_car.numpy() - y_ref), bound)
-    np.testing.assert_array_less(np.abs(y - y_ref), bound)
+    np.testing.assert_array_less(np.abs(y_car.numpy() - y), tol * absax)
+    np.testing.assert_array_less(np.abs(y_car.numpy() - y_ref),
+                                 tol_ref * absax)
+    np.testing.assert_array_less(np.abs(y - y_ref), tol_ref * absax)
 
 
 def test_straggler_stream_matches_reference():
@@ -159,6 +232,56 @@ def test_straggler_stream_matches_reference():
     np.testing.assert_array_less(np.abs(y - _reference_exec(plan, x, a.m)),
                                  bound)
     np.testing.assert_array_less(np.abs(y - _golden(a, x)), bound)
+
+
+def test_straggler_stream_matches_reference_f64(x64):
+    # the f64 straggler stream: compact f64 sums, one f64 scatter-add
+    from spmv_tpu.formats.sell8d import pack_sell8d
+    ja = _to_f64(j_gen.random_uniform(3000, 20000, 10, dtype=np.float32,
+                                      seed=5))
+    pk, rest = pack_sell8d(ja, g=8, depth_cap=2, max_pad_ratio=256.0,
+                           max_spill=0.9, nw=2, cell_w=True)
+    assert pk.value_mode == "df16" and len(rest[0]) > 100
+    assert np.asarray(rest[2]).dtype == np.float64
+    plan = {"sell8d": pk, "rest_rows": rest[0], "rest_cols": rest[1],
+            "rest_vals": rest[2]}
+    x = np.random.default_rng(1).standard_normal(ja.n)
+    y = th._make_bound(st.Method.SELL_C_SIGMA,
+                       plan_from_reference(plan, "cpu"),
+                       ja.m)(torch.from_numpy(x))
+    assert y.dtype == torch.float64
+    y = y.numpy()
+    a = st.CsrMatrix(ja.m, ja.n, ja.rowptr, ja.colidx, ja.vals)
+    absax = _abs_ax(a, x)
+    np.testing.assert_array_less(np.abs(y - _golden(a, x)), 1e-10 * absax)
+    np.testing.assert_array_less(np.abs(y - _reference_exec(plan, x, a.m)),
+                                 2e-6 * absax)
+
+
+@pytest.mark.parametrize("low,mode", [(-90, "df16"), (-110, "df")])
+def test_df16_survives_exponent_spread(low, mode):
+    # values whose exponents spread far more than 2^16 apart inside one
+    # slot group: df16 scales each lo part by its own hi's exponent, so
+    # the spread costs nothing; values below 2^-100 leave df16's range
+    # and the pack falls back to df.  Held to row-by-row f64 sums: at a
+    # 2^180 spread the golden product's running-sum differences lose the
+    # small rows
+    base = t_gen.random_uniform(3000, 30000, 8, dtype=np.float32, seed=6)
+    rng = np.random.default_rng(6)
+    v = rng.standard_normal(base.nnz) * 2.0 ** rng.uniform(low, 90,
+                                                           base.nnz)
+    a = st.CsrMatrix(base.m, base.n, base.rowptr, base.colidx, v)
+    h = st.create_handle(a, device="cpu", warm=True)
+    streams = [q for q in (h.plan.get("hybrid") or (h.plan,))
+               for k, q in q.items() if k in ("sell8d", "sell8w_v2")]
+    assert streams and {q.value_mode for q in streams} == {mode}
+    x = rng.standard_normal(a.n)
+    y = st.spmv(h, torch.from_numpy(x)).numpy()
+    rows = np.repeat(np.arange(a.m), a.row_lengths)
+    exact, absax = np.zeros(a.m), np.zeros(a.m)
+    np.add.at(exact, rows, a.vals * x[a.colidx])
+    np.add.at(absax, rows, np.abs(a.vals * x[a.colidx]))
+    np.testing.assert_array_less(np.abs(y - exact), 1e-10 * absax + 1e-300)
 
 
 def test_lifecycle_and_spellings():
@@ -189,8 +312,8 @@ def test_lifecycle_and_spellings():
 
 def test_not_ported_raises(monkeypatch):
     a = t_gen.random_uniform(2000, 2000, 8, dtype=np.float32, seed=3)
-    with pytest.raises(NotImplementedError, match="K2, K4"):
-        st.create_handle(a.astype(np.float64), device="cpu")
+    with pytest.raises(NotImplementedError, match="float16"):
+        st.create_handle(a.astype(np.float16), device="cpu")
     for m in (st.Method.BALANCED, st.Method.BALANCED2,
               st.Method.BALANCED_YID, st.Method.CSR5, st.Method.BCSR):
         with pytest.raises(NotImplementedError):
@@ -210,20 +333,37 @@ def test_not_ported_raises(monkeypatch):
     assert not {"sell8d", "sell8w_v2", "hybrid", "dia_pallas"} & set(ref)
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
+    # spmv_tpu_torch/ alone (no spmv_tpu/ beside it, no build outputs):
+    # it imports no JAX, builds its native packer from its own copy of the
+    # source, and runs f32 and f64 SELL plans
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shutil.copytree(os.path.join(root, "spmv_tpu_torch"),
+                    tmp_path / "spmv_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
     code = (
         "import sys, numpy as np, torch\n"
         "import spmv_tpu_torch as st\n"
+        "from spmv_tpu_torch import native\n"
+        "from spmv_tpu_torch.handle import plan_kind\n"
         "from spmv_tpu_torch.io import generate\n"
-        "a = generate.power_law(3000, 3000, 60000, dtype=np.float32,"
-        " seed=2)\n"
-        "h = st.create_handle(a, device='cpu')\n"
-        "st.spmv(h, torch.ones(a.n))\n"
+        "assert native.native_available()\n"
+        "assert native.load_native()._name.startswith(sys.argv[1])\n"
+        "a = generate.random_uniform(3000, 30000, 8, dtype=np.float32,"
+        " seed=6)\n"
+        "for dt in (np.float32, np.float64):\n"
+        "    b = a.astype(dt)\n"
+        "    h = st.create_handle(b, device='cpu')\n"
+        "    assert plan_kind(h.plan) == 'sell8d', plan_kind(h.plan)\n"
+        "    y = st.spmv(h, torch.ones(a.n, dtype=torch.float64)).numpy()\n"
+        "    assert y.dtype == dt\n"
+        "    g = st.spmv_golden(b.astype(np.float64), np.ones(a.n))\n"
+        "    assert np.allclose(y, g, rtol=1e-4, atol=1e-3)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'ml_dtypes', 'spmv_tpu')]\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
-                         capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
     assert res.returncode == 0, res.stderr

@@ -1,15 +1,21 @@
 """The port's SELL tile-stream product (spmv_tpu_torch/ops/sell.py, the CUDA
-kernel's plain version on the CPU) against the TPU kernel it replaces,
-spmv_tpu.ops.pallas_sell._run_v2 run in interpret mode, on the same
-streams: random streams (every decode rule, including the cell reads) and
-streams from the JAX package's packers.
+kernel's plain version on the CPU) against the TPU kernels it replaces,
+spmv_tpu.ops.pallas_sell._run_v2 (f32) and _run_v2_df (f64) run in
+interpret mode, on the same streams: random streams (every decode rule,
+including the cell reads) and streams from the JAX package's packers.
 
-Tolerance per row: |Δy| ≤ 1e-5·(|A||x|)_i — the f32 sums are taken in
-another order.
+Tolerance per row against (|A||x|)_i:
+- f32: 1e-5 against the TPU kernel — the f32 sums are taken in another
+  order;
+- f64: 1e-12 against an exact numpy f64 decode of the same pack (both sum
+  the same f64 values in another order), and 2e-6 against the TPU kernel
+  in interpret mode — XLA:CPU simplifies its error-free transforms to
+  about f32 accuracy (the bound of tests/test_sell8w_f64.py).
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -19,7 +25,8 @@ import torch
 from spmv_tpu.formats.sell8d import pack_sell8d
 from spmv_tpu.formats.sell8w import pack_sell8w, plan_v2
 from spmv_tpu.io import generate
-from spmv_tpu.ops.pallas_sell import _run_v2
+from spmv_tpu.ops.pallas_sell import _run_v2, _run_v2_df
+from spmv_tpu.types import CsrMatrix as JaxCsr
 from spmv_tpu_torch.ops import sell as tsell
 
 
@@ -39,6 +46,17 @@ class _Stream:
     palette: object
     nw: int = 1
     cell_w: bool = False
+    vals_lo: object = None
+    palette_lo: object = None
+
+
+@pytest.fixture
+def x64():
+    """The f64 tests run with jax_enable_x64 on and restore the flag."""
+    was = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", was)
 
 
 def _reference(pk, x, slot_mode):
@@ -74,7 +92,8 @@ def _check(pk, slot_mode, x=None):
 def _random_stream(slot_mode, nw, cell_w, value_mode, g, seed):
     """Random meta (every bit pattern), tinfo and monotone ginfo that
     visits every output block: valid kernel input, whatever a packer
-    would emit."""
+    would emit.  The double-float modes get random hi planes and random
+    lo planes (f32, int16 quanta, or a second palette)."""
     rng = np.random.default_rng(seed)
     nblocks, nsteps = 3, 7
     nslices = nblocks if slot_mode else 8 * nblocks
@@ -90,19 +109,28 @@ def _random_stream(slot_mode, nw, cell_w, value_mode, g, seed):
              | rng.integers(0, 8, ntiles)).astype(np.int32)
     meta = rng.integers(0, 1 << 16, (ntiles, 8, 128)).astype(
         np.uint16).view(np.int16)
-    vals = pal = None
+    vals = pal = vals_lo = pal_lo = None
     v = rng.standard_normal((ntiles, 8, 128)).astype(np.float32)
-    if value_mode == "palette":
+    if value_mode in ("palette", "palette_df"):
         pal = np.zeros(128, np.float32)
         pal[1:64] = rng.standard_normal(63)
+        if value_mode == "palette_df":
+            pal_lo = np.zeros(128, np.float32)
+            pal_lo[1:64] = pal[1:64] * rng.uniform(-2 ** -24, 2 ** -24, 63)
     elif value_mode == "bf16":
         vals = v.astype(ml_dtypes.bfloat16)
     else:
         vals = v
+    if value_mode == "df":
+        vals_lo = (v * rng.uniform(-2 ** -24, 2 ** -24, v.shape)).astype(
+            np.float32)
+    elif value_mode == "df16":
+        vals_lo = rng.integers(-32767, 32768, v.shape).astype(np.int16)
     return _Stream(m=nblocks * 1024, n=n, nslices=nslices, g=g,
                    nsteps=nsteps, value_mode=value_mode, tinfo=tinfo,
                    ginfo=(blocks << 1 | first).astype(np.int32), meta=meta,
-                   vals=vals, palette=pal, nw=nw, cell_w=cell_w)
+                   vals=vals, palette=pal, nw=nw, cell_w=cell_w,
+                   vals_lo=vals_lo, palette_lo=pal_lo)
 
 
 @pytest.mark.parametrize("slot_mode,nw,cell_w,value_mode,g", [
@@ -191,3 +219,152 @@ def test_wrapper_takes_no_other_device():
     st = tsell.prepare_sell(pk, "cpu", False)
     with pytest.raises(ValueError):
         tsell.sell_spmv(st, torch.empty(pk.n, device="meta"))
+    # an f64 stream likewise, with its own x type
+    pk = _random_stream(True, 2, True, "df16", 2, seed=0)
+    st = tsell.prepare_sell(pk, "cpu", True)
+    assert st.dtype == torch.float64 and st.vals_lo.dtype == torch.int16
+    with pytest.raises(ValueError):
+        tsell.sell_spmv(st, torch.empty(pk.n, dtype=torch.float64,
+                                        device="meta"))
+
+
+# -- f64: the double-float packs (K2) ---------------------------------------
+
+def _reference_df(pk, x, slot_mode):
+    """The TPU kernel _run_v2_df in interpret mode."""
+    def tile(p):
+        return jnp.asarray(np.tile((p if p is not None else np.zeros(
+            128, np.float32))[None, :], (8, 1)))
+
+    pal = pk.value_mode == "palette_df"
+    dummy = jnp.zeros((8, 128), jnp.float32)
+    out = _run_v2_df(jnp.asarray(pk.tinfo), jnp.asarray(pk.ginfo),
+                     jnp.asarray(x), jnp.asarray(pk.meta),
+                     dummy if pal else jnp.asarray(pk.vals),
+                     dummy if pal else jnp.asarray(pk.vals_lo),
+                     tile(pk.palette), tile(pk.palette_lo), g=pk.g,
+                     palette=pal, nsteps=pk.nsteps, nslices=pk.nslices,
+                     n=pk.n, interpret=True, slot_mode=slot_mode,
+                     nw=getattr(pk, "nw", 1),
+                     vlo16=pk.value_mode == "df16",
+                     cell_w=bool(getattr(pk, "cell_w", False)))
+    return np.asarray(out, dtype=np.float64).reshape(-1)
+
+
+def _numpy_df(pk, x, slot_mode, absolute=False):
+    """An exact numpy f64 decode of the pack: every slot's column and
+    f64 value, the products added into their rows."""
+    meta = pk.meta.view(np.uint16).astype(np.int64)
+    r = meta & 127
+    cell = np.take_along_axis(meta, r, axis=2)
+    s = (cell >> 7) & 7
+    ti = pk.tinfo.astype(np.int64)[:, None, None]
+    nw = getattr(pk, "nw", 1) if slot_mode else 1
+    lb = nw.bit_length() - 1
+    if slot_mode:
+        w = ((cell if pk.cell_w else meta) >> 10) & (nw - 1)
+        col = (ti >> 3) * nw * 1024 + w * 1024 + s * 128 + r
+    else:
+        col = (ti >> 3) * 1024 + s * 128 + r
+    if pk.value_mode == "palette_df":
+        code = (meta >> (10 + lb)) & (63 >> lb)
+        v = (pk.palette.astype(np.float64)[code]
+             + pk.palette_lo.astype(np.float64)[code])
+    elif pk.value_mode == "df":
+        v = pk.vals.astype(np.float64) + pk.vals_lo.astype(np.float64)
+    else:
+        pulse = (pk.vals.view(np.int32) & 0x7F800000).view(np.float32)
+        scale = (pulse * np.float32(2.0 ** -39)).astype(np.float64)
+        v = pk.vals.astype(np.float64) + pk.vals_lo.astype(np.float64) * scale
+    xv = np.where(col < pk.n, x[np.minimum(col, pk.n - 1)], 0.0)
+    prod = v * xv
+    if absolute:
+        prod = np.abs(v) * np.abs(xv)
+    block = np.repeat(pk.ginfo.astype(np.int64) >> 1, pk.g)[:, None]
+    lane = np.arange(128)
+    nblocks = pk.nslices if slot_mode else -(-pk.nslices // 8)
+    out = np.zeros(nblocks * 1024)
+    if slot_mode:
+        rows = block[:, :, None] * 1024 + np.arange(8)[:, None] * 128 + lane
+        np.add.at(out, rows.reshape(-1), prod.reshape(-1))
+    else:
+        rows = block * 1024 + (ti[:, 0] & 7) * 128 + lane
+        np.add.at(out, rows.reshape(-1), prod.sum(1).reshape(-1))
+    return out
+
+
+def _check_df(pk, slot_mode, x=None):
+    if x is None:
+        x = np.random.default_rng(0).standard_normal(pk.n)
+    st = tsell.prepare_sell(pk, "cpu", slot_mode)
+    y = tsell.sell_spmv(st, torch.from_numpy(x))
+    assert y.dtype == torch.float64
+    y = y.numpy()
+    bound = _numpy_df(pk, x, slot_mode, absolute=True) + 1e-300
+    exact = _numpy_df(pk, x, slot_mode)
+    assert y.shape == exact.shape
+    np.testing.assert_array_less(np.abs(y - exact), 1e-12 * bound)
+    ref = _reference_df(pk, x, slot_mode)
+    np.testing.assert_array_less(np.abs(y - ref), 2e-6 * bound)
+    return y
+
+
+@pytest.mark.parametrize("slot_mode,nw,cell_w,value_mode,g", [
+    (False, 1, False, "df", 2),
+    (False, 1, False, "df16", 3),
+    (False, 1, False, "palette_df", 2),
+    (True, 1, False, "df16", 2),
+    (True, 2, False, "df", 2),
+    (True, 2, True, "palette_df", 2),
+    (True, 4, False, "palette_df", 2),
+    (True, 4, True, "df16", 3),
+    (True, 8, False, "df", 2),
+    (True, 8, True, "df16", 2),
+    (True, 8, True, "palette_df", 2),
+])
+def test_random_df_stream_matches_tpu_kernel(slot_mode, nw, cell_w,
+                                             value_mode, g, x64):
+    pk = _random_stream(slot_mode, nw, cell_w, value_mode, g, seed=nw + g)
+    _check_df(pk, slot_mode)
+
+
+def _f64_values(a, value_mode, entries, seed):
+    """``a``'s pattern with f64 values suited to ``value_mode``."""
+    rng = np.random.default_rng(seed)
+    if value_mode == "palette_df":
+        v = rng.standard_normal(entries - 1)[rng.integers(0, entries - 1,
+                                                          a.nnz)]
+    else:
+        v = rng.standard_normal(a.nnz) * np.exp(rng.uniform(-20, 20,
+                                                            a.nnz))
+    return JaxCsr(a.m, a.n, a.rowptr, a.colidx, v)
+
+
+@pytest.mark.parametrize("value_mode", ["df", "df16", "palette_df"])
+def test_row_mode_on_packed_df_streams(value_mode, x64):
+    base = generate.with_empty_rows(
+        generate.clustered(2000, 3000, 10, spread=300, dtype=np.float32,
+                           seed=3), 0.3, seed=4)
+    a = _f64_values(base, value_mode, 64, seed=5)
+    hi = pack_sell8w(a)
+    lo = pack_sell8w(JaxCsr(a.m, a.n, a.rowptr, a.colidx,
+                            (a.vals - a.vals.astype(np.float32))
+                            .astype(np.float32)))
+    v2 = plan_v2(hi, g=4, lo_tiles=lo.vals, force_value_mode=value_mode)
+    assert v2.value_mode == value_mode
+    _check_df(v2, slot_mode=False)
+
+
+@pytest.mark.parametrize("nw,cell_w,value_mode", [
+    (1, False, "df16"), (2, False, "palette_df"), (2, True, "df"),
+    (4, False, "df"), (4, True, "palette_df"), (8, False, "df16"),
+    (8, True, "df16")])
+def test_slot_mode_on_packed_df_streams(nw, cell_w, value_mode, x64):
+    base = generate.random_uniform(2000, 20000, 6, dtype=np.float32,
+                                   seed=nw)
+    a = _f64_values(base, value_mode, 64 >> (nw.bit_length() - 1), seed=nw)
+    pk, _rest = pack_sell8d(a, g=8, max_pad_ratio=256.0, max_spill=0.05,
+                            nw=nw, cell_w=cell_w, force_value_mode=value_mode)
+    assert (pk.nw, pk.cell_w, pk.value_mode) == (nw, cell_w, value_mode)
+    _check_df(pk, slot_mode=True)
+
