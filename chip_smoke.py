@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's f32 and f64 AUTO main paths on one NVIDIA card and
-check them.
+"""Drive the port's f32 and f64 AUTO main paths and its Method.CSR5 path on
+one NVIDIA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -15,15 +15,21 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    ``sell_row`` over f32/bf16/palette values, ``sell_slot`` over
    nw ∈ {1,2,4,8} × cell_w × the three value modes, ``dia`` over f32/bf16,
    and their f64 forms ``sell_row_df``, ``sell_slot_df`` (df, df16,
-   palette_df, the same nw × cell_w grid) and ``dia_f64``;
+   palette_df, the same nw × cell_w grid) and ``dia_f64``; the COO2
+   kernels ``coo2_pass1`` (f32 and bf16 values) and ``sell_row_bin`` (one
+   stream over more than 2M product positions);
 4. main path: the bench's eight families (``bench.py``'s generator calls
    and seeds, ``_to_f64`` seed 7 for the f64 ones) through
    ``create_handle(a, device="cuda")`` and ``spmv``, with the AUTO plan
-   asserted; the f32 families and the f64 families each run once with
-   every launch count set to 0 just before and read just after, and each
-   family's kernels must have launched.  Then per family: the result
-   against its reference, CUDA-event times of the port, of the same plan
-   on the plain versions and of one cuSPARSE call
+   asserted, and three CSR5 families: clustered200k with ``Method.CSR5``
+   (the two-pass COO2 plan), clustered200k at spread 4096 with AUTO, which
+   must resolve to ``Method.CSR5`` and COO2, and clustered200k_f64 with
+   ``Method.CSR5`` (the SELL-8D df16 retry); each COO2 pack must come from
+   the native packer.  The f32 AUTO path, the f64 AUTO path and the CSR5
+   path each run once with every launch count set to 0 just before and
+   read just after, and each family's kernels must have launched.  Then
+   per family: the result against its reference, CUDA-event times of the
+   port, of the same plan on the plain versions and of one cuSPARSE call
    (``torch.sparse_csr_tensor(...) @ x``, timed only: the port never
    calls it), a torch.profiler window, and each kernel against its plain
    version at the main path's shapes, with its bound.
@@ -43,9 +49,15 @@ Bounds, per row i against (|A||x|)_i:
 and its operations over 67 TFLOP/s in f32 or 34 TFLOP/s in f64 (NVIDIA
 H100 SXM data sheet): each nonzero value read once in the stream's own
 encoding without padding, x read once, y written once at its real rows,
-2 operations a nonzero.  ``stream_bound_ms`` beside it counts the packed
-stream as stored (padding slots, chunk tables, the padded output): what
-the kernel's format makes it move.
+2 operations a nonzero.  The COO2 kernels count their own work: pass 1
+reads each nonzero's meta and value and writes its product (1 operation);
+the binary reduce reads each valid slot's meta, the product stream once
+and writes y (1 addition a nonzero).  ``stream_bound_ms`` beside it
+counts the packed stream as stored (padding slots, chunk tables, the
+padded output): what the kernel's format makes it move.  Each kernel's
+``library_ms`` is one cuSPARSE CSR product over the stream's own
+nonzeros, except ``coo2_pass1``'s: ``x.take(cols) * vals`` over its
+nonzeros, two PyTorch calls (``library_call`` names it).
 
 Output: one JSON line per family and one ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -78,16 +90,20 @@ def _to_f64(a, np):
     return CsrMatrix(a.m, a.n, a.rowptr, a.colidx, vals)
 
 
-#: family → (generator call as in bench.py:_gen_one, AUTO plan, its value
-#: mode, the kernels it runs)
+def _clustered200k(g, np, spread=512):
+    """bench.py:_gen_one's clustered200k (at another spread if asked)."""
+    return g.clustered(200_000, 200_000, 32, spread=spread,
+                       dtype=np.float32, seed=9)
+
+
+#: family → (generator call as in bench.py:_gen_one, the plan AUTO must
+#: build, its value mode, the kernels it runs); the CSR5 families are in
+#: CSR5_FAMILIES
 FAMILIES = {
     "banded4m": (lambda g, np: g.banded(4_000_000, 4_000_000, 4,
                                         dtype=np.float32, seed=7),
                  "dia", None, ("dia",)),
-    "clustered200k": (lambda g, np: g.clustered(200_000, 200_000, 32,
-                                                spread=512,
-                                                dtype=np.float32, seed=9),
-                      "sell8d", "bf16", ("sell_slot",)),
+    "clustered200k": (_clustered200k, "sell8d", "bf16", ("sell_slot",)),
     "uniform100k": (lambda g, np: g.random_uniform(100_000, 100_000, 40,
                                                    dtype=np.float32,
                                                    seed=42),
@@ -102,13 +118,32 @@ FAMILIES = {
     "uniform100k_f64": (lambda g, np: _to_f64(g.random_uniform(
         100_000, 100_000, 40, dtype=np.float32, seed=42), np),
         "sell8d", "df16", ("sell_slot_df",)),
-    "clustered200k_f64": (lambda g, np: _to_f64(g.clustered(
-        200_000, 200_000, 32, spread=512, dtype=np.float32, seed=9), np),
-        "sell8d", "df16", ("sell_slot_df",)),
+    "clustered200k_f64": (lambda g, np: _to_f64(_clustered200k(g, np),
+                                                np),
+                          "sell8d", "df16", ("sell_slot_df",)),
     "powerlaw100k_f64": (lambda g, np: _to_f64(g.power_law(
         100_000, 100_000, 40 * 100_000, dtype=np.float32, seed=2), np),
         "hybrid(8w+8d)", "df16", ("sell_row_df", "sell_slot_df")),
+    # the CSR5 path: Method.CSR5 asked for, or AUTO resolving to it
+    "clustered200k_csr5": (_clustered200k, "coo2", None,
+                           ("coo2_pass1", "sell_row_bin")),
+    "clustered200k_w4096": (lambda g, np: _clustered200k(g, np, 4096),
+                            "coo2", None, ("coo2_pass1", "sell_row_bin")),
+    "clustered200k_f64_csr5": (lambda g, np: _to_f64(_clustered200k(g, np),
+                                                     np),
+                               "sell8d", "df16", ("sell_slot_df",)),
 }
+#: the CSR5 path's families → the method create_handle is asked for
+CSR5_FAMILIES = {"clustered200k_csr5": "CSR5", "clustered200k_w4096": "AUTO",
+                 "clustered200k_f64_csr5": "CSR5"}
+
+
+def path_of(name):
+    """The counted run a family belongs to: csr5, f64 or f32."""
+    if name in CSR5_FAMILIES:
+        return "csr5"
+    return "f64" if name.endswith("_f64") else "f32"
+
 
 KERNELS = {
     "sell_row": ("spmv_tpu_torch/csrc/sell.cu",
@@ -122,6 +157,10 @@ KERNELS = {
                      "spmv_tpu/ops/pallas_sell.py:815"),
     "dia_f64": ("spmv_tpu_torch/csrc/dia.cu",
                 "spmv_tpu/ops/pallas_dia.py:108"),
+    "coo2_pass1": ("spmv_tpu_torch/csrc/coo2.cu",
+                   "spmv_tpu/ops/pallas_coo2.py:29"),
+    "sell_row_bin": ("spmv_tpu_torch/csrc/sell.cu",
+                     "spmv_tpu/ops/pallas_sell.py:339"),
 }
 
 
@@ -141,18 +180,22 @@ def _cmd_line(cmd):
 
 def read_counts():
     """Every kernel's launch count."""
-    from spmv_tpu_torch.ops import dia, sell
+    from spmv_tpu_torch.ops import coo2, dia, sell
     return {"sell_row": sell.row_launches, "sell_slot": sell.slot_launches,
             "dia": dia.launches, "sell_row_df": sell.row_df_launches,
             "sell_slot_df": sell.slot_df_launches,
-            "dia_f64": dia.f64_launches}
+            "dia_f64": dia.f64_launches,
+            "coo2_pass1": coo2.coo2_launches,
+            "sell_row_bin": sell.row_bin_launches}
 
 
 def zero_counts():
-    from spmv_tpu_torch.ops import dia, sell
+    from spmv_tpu_torch.ops import coo2, dia, sell
     sell.row_launches = sell.slot_launches = 0
     sell.row_df_launches = sell.slot_df_launches = 0
+    sell.row_bin_launches = 0
     dia.launches = dia.f64_launches = 0
+    coo2.coo2_launches = 0
 
 
 def cuda_ms(fn, x, iters=ITERS):
@@ -190,31 +233,41 @@ def scaled_err(y, ref, absref, bound):
 def plain_kernels():
     """Route every kernel wrapper to its plain version (to time the same
     plan without the kernels)."""
-    from spmv_tpu_torch.ops import dia, sell
-    saved = sell.sell_spmv, dia.dia_spmv
+    from spmv_tpu_torch.ops import coo2, dia, sell
+    saved = sell.sell_spmv, dia.dia_spmv, coo2.coo2_pass1
     sell.sell_spmv, dia.dia_spmv = sell.sell_plain, dia.dia_plain
+    coo2.coo2_pass1 = coo2.coo2_pass1_plain
     try:
         yield
     finally:
-        sell.sell_spmv, dia.dia_spmv = saved
+        sell.sell_spmv, dia.dia_spmv, coo2.coo2_pass1 = saved
 
 
 def is_dia(st):
     return hasattr(st, "offsets")
 
 
+def is_coo2(st):
+    """A COO2 plan's pass 1 (its pass 2 is a binary SELL stream)."""
+    return hasattr(st, "window_ids")
+
+
 def kernel_of(st):
     """The kernel name that runs a placed stream."""
     import torch
+    from spmv_tpu_torch.ops import sell
     if is_dia(st):
         return "dia_f64" if st.data.dtype == torch.float64 else "dia"
-    return (("sell_slot" if st.slot_mode else "sell_row")
-            + ("_df" if st.dtype == torch.float64 else ""))
+    if is_coo2(st):
+        return "coo2_pass1"
+    return sell.kernel_name(st)
 
 
 def abs_stream(st):
     if is_dia(st):
         return dataclasses.replace(st, data=st.data.abs())
+    if is_coo2(st):
+        return dataclasses.replace(st, vals=st.vals.abs())
     return dataclasses.replace(
         st, palette=st.palette.abs(),
         vals=None if st.vals is None else st.vals.abs(),
@@ -232,8 +285,11 @@ def stream_bound(st, nnz):
     ``stream_bound_ms`` is the bound of the packed stream as it is stored:
     every slot with its padding, the chunk tables and the kernel's
     block-padded output."""
-    esize = 8 if str(st.dtype) == "torch.float64" else 4
+    dtype = "float32" if is_coo2(st) else str(st.dtype).replace("torch.",
+                                                                 "")
+    esize = 8 if dtype == "float64" else 4
     xy = (st.n + st.m) * esize
+    ops = 2 * nnz
 
     def nb(*ts):
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
@@ -241,17 +297,40 @@ def stream_bound(st, nnz):
     if is_dia(st):
         nbytes = nnz * st.data.element_size() + nb(st.offsets_dev) + xy
         stored = nb(st.data, st.offsets_dev) + xy
+    elif is_coo2(st):
+        # a nonzero's meta and value in, its product out; x once
+        slot = nb(st.meta, st.vals) / st.meta.numel() + 4
+        nbytes = nnz * slot + nb(st.window_ids) + st.n * 4
+        stored = nb(st.meta, st.vals, st.window_ids) + (
+            st.n + st.meta.numel()) * 4
+        ops = nnz
     else:
         slot = nb(st.meta, st.vals, st.vals_lo) / st.meta.numel()
-        nbytes = nnz * slot + nb(st.palette) + xy
-        stored = (nb(st.meta, st.vals, st.vals_lo, st.palette, st.tinfo,
+        binary = st.value_mode == "binary"   # no palette, one add a slot
+        nbytes = nnz * slot + (0 if binary else nb(st.palette)) + xy
+        stored = (nb(st.meta, st.vals, st.vals_lo, st.tinfo,
                      st.chunk_step_ptr, st.block_chunk_ptr)
+                  + (0 if binary else nb(st.palette))
                   + (st.n + st.nblocks * 1024) * esize)
+        ops = nnz if binary else ops
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * nnz / PEAK_FLOPS[str(st.dtype).replace("torch.", "")] * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, stored / HBM_BYTES_PER_S * 1e3,
             stored)
+
+
+def pass1_nonzeros(p):
+    """(mask, columns, values) of a COO2 pass 1's nonzero slots: the
+    (ntiles, 8, 128) mask, the columns and values in slot order."""
+    import torch
+    meta = p.meta.to(torch.int64) & 0xFFFF
+    r = meta & 127
+    s = (torch.gather(meta, 2, r) >> 7) & 7
+    col = p.window_ids.to(torch.int64)[:, None, None] * 1024 + s * 128 + r
+    vals = p.vals.to(torch.float32)
+    keep = (vals != 0) & (col < p.n)
+    return keep, col[keep], vals[keep]
 
 
 def stream_csr(st):
@@ -292,9 +371,11 @@ def matrix_csr(a, dev):
 def check_stream(st, x, timing=False):
     """Kernel vs plain version on one stream; returns a record."""
     import torch
-    from spmv_tpu_torch.ops import dia, sell
+    from spmv_tpu_torch.ops import coo2, dia, sell
     if is_dia(st):
         run, plain = dia.dia_spmv, dia.dia_plain
+    elif is_coo2(st):
+        run, plain = coo2.coo2_pass1, coo2.coo2_pass1_plain
     else:
         run, plain = sell.sell_spmv, sell.sell_plain
     absref = plain(abs_stream(st), x.abs())
@@ -313,28 +394,40 @@ def check_stream(st, x, timing=False):
         rec["device_ms"] = profile_calls(lambda v: run(st, v), x)[
             "device_ms"]
         rec["plain_ms"] = cuda_ms(lambda v: plain(st, v), x)
-        csr = stream_csr(st)
-        y_lib = csr @ x
-        rec["library_ms"] = cuda_ms(lambda v: csr @ v, x)
-        rec["library_scaled_err"] = scaled_err(
-            y_lib[:ref.numel()], ref, absref, bound)[0]
+        if is_coo2(st):
+            # pass 1 alone is a gather and a multiply: two PyTorch calls
+            keep, cols, vals = pass1_nonzeros(st)
+            rec["library_call"] = "x.take(cols) * vals"
+            rec["library_ms"] = cuda_ms(lambda v: v.take(cols) * vals, x)
+            rec["library_max_abs_err"] = float(
+                (x.take(cols) * vals - y.reshape(keep.shape)[keep])
+                .abs().max())
+            nnz = vals.numel()
+            del keep, cols, vals
+        else:
+            csr = stream_csr(st)
+            y_lib = csr @ x
+            rec["library_call"] = "cuSPARSE CSR @ x"
+            rec["library_ms"] = cuda_ms(lambda v: csr @ v, x)
+            rec["library_scaled_err"] = scaled_err(
+                y_lib[:ref.numel()], ref, absref, bound)[0]
+            nnz = csr.values().numel()
+            del csr
         (rec["bound_ms"], rec["bound_by"], rec["bytes"],
-         rec["stream_bound_ms"], rec["stream_bytes"]) = stream_bound(
-             st, csr.values().numel())
-        del csr
+         rec["stream_bound_ms"], rec["stream_bytes"]) = stream_bound(st, nnz)
     return rec
 
 
 def kernel_phase(dev):
     """Coverage: every value mode, bundle width and cell_w setting, f32
-    and f64."""
+    and f64, and the two COO2 kernels."""
     import numpy as np
     import torch
-    from spmv_tpu_torch.formats import dia as dia_fmt
+    from spmv_tpu_torch.formats import coo2 as coo2_fmt, dia as dia_fmt
     from spmv_tpu_torch.formats.sell8d import pack_sell8d
     from spmv_tpu_torch.formats.sell8w import pack_sell8w, plan_v2
     from spmv_tpu_torch.io import generate
-    from spmv_tpu_torch.ops import dia, sell
+    from spmv_tpu_torch.ops import coo2, dia, sell
     from spmv_tpu_torch.types import CsrMatrix
 
     rng = np.random.default_rng(0)
@@ -400,6 +493,23 @@ def kernel_phase(dev):
         rec = check_stream(p, xvec(band.n, np.float64 if mode == "f64"
                                    else np.float32))
         rows.append({"kernel": kernel_of(p), "value_mode": mode, **rec})
+    # COO2: pass 1 over f32 (gaussian) and bf16 (k/8) values, and the
+    # binary reduce over R, whose n (the product positions) passes 2M here
+    for exact in (False, True):
+        a = generate.clustered(100_000, 100_000, 24, spread=2048,
+                               dtype=np.float32, seed=1, exact=exact)
+        c = coo2.prepare_coo2(coo2_fmt.pack_coo2(a, max_pad2=8.0), dev)
+        x = xvec(a.n, np.float32)
+        rec = check_stream(c, x)
+        rows.append({"kernel": "coo2_pass1", "value_mode":
+                     str(c.vals.dtype).replace("torch.", ""),
+                     "tiles": c.ntiles, **rec})
+        if exact:
+            assert c.reduce.n > 2_000_000, c.reduce.n
+            prod = coo2.coo2_pass1_plain(c, x)[:c.reduce.n]
+            rec = check_stream(c.reduce, prod)
+            rows.append({"kernel": kernel_of(c.reduce), "n": c.reduce.n,
+                         "tiles": c.reduce.meta.shape[0], **rec})
     for r in rows:
         log(json.dumps({"phase": "kernels", **r}))
     return rows
@@ -440,13 +550,24 @@ def profile_calls(fn, x, calls=20):
 
 
 def family_streams(plan):
-    """The placed streams of a plan."""
+    """The placed streams of a plan (a COO2 plan: pass 1, then R)."""
     if "hybrid" in plan:
         return [s for p in plan["hybrid"] for s in family_streams(p)]
+    if "coo2" in plan:
+        return [plan["coo2"], plan["coo2"].reduce]
     for key in ("sell8d", "sell8w_v2", "dia"):
         if key in plan:
             return [plan[key]]
     return []
+
+
+def value_mode_of(stream):
+    """A stream's value mode, or its values' type where it has none."""
+    vm = getattr(stream, "value_mode", None)
+    if vm:
+        return vm
+    vals = stream.data if is_dia(stream) else stream.vals
+    return str(vals.dtype).replace("torch.", "")
 
 
 def reference(a, xh, np):
@@ -472,8 +593,10 @@ def main_path(dev):
     import numpy as np
     import torch
     import spmv_tpu_torch as st
+    from spmv_tpu_torch.formats import coo2 as coo2_fmt
     from spmv_tpu_torch.handle import light_part_input, plan_kind
     from spmv_tpu_torch.io import generate
+    from spmv_tpu_torch.ops import coo2 as coo2_ops
     from spmv_tpu_torch.utils.profiling import predeal_profile
 
     handles, xs, mats, pre = {}, {}, {}, {}
@@ -481,50 +604,62 @@ def main_path(dev):
         t0 = time.perf_counter()
         a = make(generate, np)
         t_gen = time.perf_counter() - t0
+        method = CSR5_FAMILIES.get(name, "AUTO")
+        native_packs = coo2_fmt.packs["native"]
         t0 = time.perf_counter()
         with predeal_profile() as laps:
-            h = st.create_handle(a, method=st.Method.AUTO, device=dev)
+            h = st.create_handle(a, method=getattr(st.Method, method),
+                                 device=dev)
         predeal = time.perf_counter() - t0
         got = plan_kind(h.plan).replace("+rest", "")
         if got != kind or h.plan.get("value_mode") != vmode:
-            raise AssertionError(f"{name}: AUTO planned {got} "
+            raise AssertionError(f"{name}: {method} planned {got} "
                                  f"({h.plan.get('value_mode')}), expected "
                                  f"{kind} ({vmode})")
+        if name in CSR5_FAMILIES and h.method != st.Method.CSR5:
+            raise AssertionError(f"{name}: {method} resolved to "
+                                 f"{h.method_name}, not Method.CSR5")
+        if kind == "coo2" and coo2_fmt.packs["native"] != native_packs + 1:
+            raise AssertionError(f"{name}: the COO2 pack did not come from "
+                                 f"the native packer ({coo2_fmt.packs})")
         if (name.endswith("_f64") and kind.startswith("hybrid")
                 and not h.plan["hybrid"][0].get("fold_planes_ext")):
             raise AssertionError(f"{name}: the f64 hybrid does not fold "
                                  "by x-extension")
         handles[name], mats[name] = h, a
-        dt = np.float64 if name.endswith("_f64") else np.float32
         xs[name] = torch.from_numpy(np.random.default_rng(0)
                                     .standard_normal(a.n)
-                                    .astype(dt)).to(dev)
-        pre[name] = {"gen_ms": t_gen * 1e3,
+                                    .astype(a.vals.dtype)).to(dev)
+        pre[name] = {"method": method, "resolved": h.method_name,
+                     "gen_ms": t_gen * 1e3,
                      "pack_ms": (predeal - laps["transfer_s"]) * 1e3,
                      "transfer_ms": laps["transfer_s"] * 1e3,
                      "plan_mb": laps["bytes"] / 1e6}
+        if kind == "coo2":
+            pre[name].update(packer="native", pad1=h.plan["pad1"],
+                             pad2=h.plan["pad2"])
         log(f"# {name}: {h!r} predeal {predeal * 1e3:.0f} ms")
 
-    # the counted runs, f32 path then f64 path: every count to 0, the
-    # path's families once, the counts read back
-    launches, ys = {}, {}
-    for f64 in (False, True):
-        names = [n for n in FAMILIES if n.endswith("_f64") == f64]
+    # the counted runs, one a path (f32 AUTO, f64 AUTO, CSR5): every count
+    # to 0, the path's families once, the counts read back; a kernel's
+    # launches add up over the paths
+    launches, ys = {k: 0 for k in KERNELS}, {}
+    for path in ("f32", "f64", "csr5"):
+        names = [n for n in FAMILIES if path_of(n) == path]
         zero_counts()
         for name in names:
             ys[name] = st.spmv(handles[name], xs[name])
         torch.cuda.synchronize()
         counts = read_counts()
-        path = {k: c for k, c in counts.items() if k.endswith(
-            ("_df", "_f64")) == f64}
-        log(json.dumps({"phase": "main_path_launches",
-                        "path": "f64" if f64 else "f32", **counts}))
+        log(json.dumps({"phase": "main_path_launches", "path": path,
+                        **counts}))
         for name in names:
             for k in FAMILIES[name][3]:
-                if path[k] == 0:
+                if counts[k] == 0:
                     raise AssertionError(f"{name}: kernel {k} was not "
                                          "launched")
-        launches.update(path)
+        for k, c in counts.items():
+            launches[k] += c
 
     kern = {k: {"max_abs_err": 0.0} for k in KERNELS}
     for name, h in handles.items():
@@ -560,9 +695,16 @@ def main_path(dev):
         streams = []
         for stream in family_streams(h.plan):
             k = kernel_of(stream)
-            # the f64 hybrid's light part reads x extended by the dense
-            # part's output
-            xin = x if stream.n == a.n else light_part_input(h, x)
+            if k == "sell_row_bin":
+                # COO2's pass 2 reads the pass-1 product stream
+                xin = coo2_ops.coo2_pass1_plain(h.plan["coo2"],
+                                                x)[:stream.n]
+            elif stream.n == a.n:
+                xin = x
+            else:
+                # the f64 hybrid's light part reads x extended by the
+                # dense part's output
+                xin = light_part_input(h, x)
             rec = check_stream(stream, xin, timing=True)
             kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"],
                                          rec["max_abs_err"])
@@ -573,12 +715,10 @@ def main_path(dev):
                 kern[k].update(size=size, family=name, **{
                     f: rec[f] for f in ("ms", "device_ms", "plain_ms",
                                         "bound_ms", "bound_by",
-                                        "library_ms", "bytes",
-                                        "stream_bound_ms",
+                                        "library_ms", "library_call",
+                                        "bytes", "stream_bound_ms",
                                         "stream_bytes")})
-            streams.append({"kernel": k, "value_mode":
-                            getattr(stream, "value_mode", None) or
-                            str(stream.data.dtype).replace("torch.", ""),
+            streams.append({"kernel": k, "value_mode": value_mode_of(stream),
                             "nw": getattr(stream, "nw", None),
                             "cell_w": getattr(stream, "cell_w", None),
                             "g": getattr(stream, "g", None),
@@ -660,6 +800,7 @@ def main() -> int:
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"],
                         "library_ms": k["library_ms"],
+                        "library_call": k["library_call"],
                         "device_ms": k["device_ms"], "bytes": k["bytes"],
                         "stream_bound_ms": k["stream_bound_ms"],
                         "stream_bytes": k["stream_bytes"],

@@ -3,10 +3,11 @@
 The same inspect-once/execute-many SpMV API as ``spmv_tpu`` (the JAX
 package, which stays the reference): ``create_handle(a, Method.AUTO,
 device=...)`` then ``spmv(h, x)`` on torch tensors.  The port runs the
-f32 and f64 AUTO main path: DIA and the SELL-8W/SELL-8D tile streams
-through hand-written CUDA kernels for ``sm_90a`` (``csrc/``), each with a
-plain PyTorch version that CPU tensors take.  f64 matrices compute in
-native f64.  The package imports no JAX.
+f32 and f64 AUTO main path and Method.CSR5: DIA, the SELL-8W/SELL-8D tile
+streams and the two-pass COO2 plan through hand-written CUDA kernels for
+``sm_90a`` (``csrc/``), each with a plain PyTorch version that CPU
+tensors take.  f64 matrices compute in native f64.  The package imports
+no JAX.
 """
 
 from .types import CsrMatrix, Method, VectorizedWay, METHOD_NAMES, VECTORIZED_NAMES

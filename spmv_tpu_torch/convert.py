@@ -15,9 +15,10 @@ from typing import Any, Dict
 
 import numpy as np
 
+from .formats.coo2 import Coo2
 from .formats.dia import DiaMatrix
 from .formats.sell8d import Sell8D
-from .formats.sell8w import Sell8WV2
+from .formats.sell8w import Sell8W, Sell8WV2
 from .handle import _not_ported, _place
 
 __all__ = ["plan_from_reference"]
@@ -25,7 +26,7 @@ __all__ = ["plan_from_reference"]
 _ARRAYS = ("rest_rows", "rest_cols", "rest_vals", "fold_rows",
            "mega_sub_rows", "rows", "colidx", "vals")
 _OUT_OF_SLICE = {"graph": 5, "sell8d_stripes": 2, "sell8w_v2w": 2,
-                 "coo2": 3, "colidx_pad": 6, "blocks": 6, "cols": 6}
+                 "colidx_pad": 6, "blocks": 6, "cols": 6}
 
 
 def _host_array(v) -> np.ndarray:
@@ -70,6 +71,10 @@ def _host_plan(p: Dict[str, Any]) -> Dict[str, Any]:
             out[k] = _dataclass_like(Sell8WV2, v)
         elif k == "sell8d":
             out[k] = _dataclass_like(Sell8D, v)
+        elif k == "coo2":
+            out[k] = dataclasses.replace(
+                _dataclass_like(Coo2, v),
+                reduce_plan=_dataclass_like(Sell8W, v.reduce_plan))
         elif k == "dia_pallas":
             out["dia"] = _dia_from_parts(v)
         elif k == "data":           # the XLA DIA plan

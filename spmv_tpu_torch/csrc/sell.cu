@@ -12,7 +12,15 @@
 //     f64, so its kernel carries (hi, lo) f32 pairs through error-free
 //     transforms; the H100 has f64, so here each slot's value is decoded
 //     to one double (hi + lo, rounded once) and the sums are native f64
-//     FMAs.
+//     FMAs;
+//   * spmv_tpu/ops/pallas_sell.py::_make_kernel_v2w (K5, via _run_v2w) in
+//     its "binary" mode, row mode only: the COO2 pass-2 reduce y = R @ p.
+//     Every stored value is 1 and a slot's validity is bit 15 of its meta,
+//     so there is no values stream; x is the f32 pass-1 product stream.
+//     K5 selects x where the bit is set (jnp.where(m < 0, xg, 0)); here a
+//     padding slot loads nothing and adds nothing, and a valid one adds x
+//     (fma(1, x, acc) is acc + x rounded once).  K5 DMAs a window of x per
+//     tile because x does not fit in VMEM; here x stays in device memory.
 //
 // Decode, per slot (i, l) of tile t (meta read as uint16):
 //   r    = meta[t, i, l] & 127                       (at the slot)
@@ -45,11 +53,17 @@ namespace {
 enum ValueMode : int {
   kF32 = 0, kBf16 = 1, kPalette = 2,   // f32 matrices (K1)
   kDf = 3, kDf16 = 4, kPaletteDf = 5,  // f64 matrices (K2)
+  kBinary = 6,                         // COO2's R, row mode (K5 binary)
 };
 
-// f32 modes accumulate (and read x, write y) in float, f64 modes in double.
+constexpr bool is_double(int vm) {
+  return vm == kDf || vm == kDf16 || vm == kPaletteDf;
+}
+
+// The double-float modes accumulate (and read x, write y) in double, every
+// other mode in float.
 template <int kVM>
-using Acc = typename std::conditional<(kVM >= kDf), double, float>::type;
+using Acc = typename std::conditional<is_double(kVM), double, float>::type;
 
 // The value of slot k of the stream, whose meta is ms.
 template <int kVM, int kLb>
@@ -58,7 +72,9 @@ __device__ __forceinline__ Acc<kVM> slot_value(const void* vals,
                                                const void* palette, int64_t k,
                                                uint32_t ms) {
   const uint32_t code = (ms >> (10 + kLb)) & (63u >> kLb);
-  if constexpr (kVM == kPalette) {
+  if constexpr (kVM == kBinary) {
+    return 1.0f;  // the caller has skipped the slots whose bit 15 is clear
+  } else if constexpr (kVM == kPalette) {
     return __ldg(static_cast<const float*>(palette) + code);
   } else if constexpr (kVM == kPaletteDf) {
     return __ldg(static_cast<const double*>(palette) + code);
@@ -106,6 +122,7 @@ __global__ void __launch_bounds__(kTile)
     const int32_t ti = __ldg(tinfo + t);
     const uint16_t* mt = meta + t * kTile;
     const uint32_t ms = __ldg(mt + tid);
+    if (kVM == kBinary && !(ms & 0x8000u)) continue;  // padding: value 0
     const uint32_t r = ms & 127u;
     const uint32_t mc = __ldg(mt + i * kLanes + r);  // the cell (i, r)
     const uint32_t s = (mc >> 7) & 7u;
@@ -220,18 +237,27 @@ int dispatch(const Args& a, bool slot, int64_t nw, bool cell_w) {
   return dispatch_slot<kVM>(a, nw, cell_w);
 }
 
+// The binary mode exists in row mode only (COO2's R is a SELL-8W pack).
+template <>
+int dispatch<kBinary>(const Args& a, bool slot, int64_t nw, bool cell_w) {
+  return !slot && nw == 1 && !cell_w ? launch<kBinary, false, 1, false>(a)
+                                     : int(cudaErrorInvalidValue);
+}
+
 }  // namespace
 }  // namespace spmv
 
 // meta: (ntiles, 8, 128) int16; vals: (ntiles, 8, 128) f32 / bf16 bits
 // (the hi plane in df modes), or unused for the palettes; vals_lo:
 // (ntiles, 8, 128) f32 (df) or int16 (df16), else unused; palette: (128,)
-// f32 (palette) or f64 (palette_df); tinfo: (ntiles,) int32;
+// f32 (palette) or f64 (palette_df), read only by those modes; tinfo:
+// (ntiles,) int32;
 // chunk_step_ptr: (nchunks + 1,) int32, step bounds of each chunk;
 // block_chunk_ptr: (nblocks + 1,) int32, chunk bounds of each output block;
-// x: (n,), partial: (nchunks, 1024) scratch, out: (nblocks, 1024), all f32
-// in the f32 modes and f64 in the df modes.  value_mode: 0 f32, 1 bf16,
-// 2 palette, 3 df, 4 df16, 5 palette_df.  Launches on `stream`, allocates
+// x: (n,), partial: (nchunks, 1024) scratch, out: (nblocks, 1024), all f64
+// in the df modes and f32 in the others.  value_mode: 0 f32, 1 bf16,
+// 2 palette, 3 df, 4 df16, 5 palette_df, 6 binary (row mode only; vals
+// unused, validity in meta bit 15).  Launches on `stream`, allocates
 // nothing, returns cudaGetLastError().
 extern "C" int spmv_sell_launch(const void* meta, const void* vals,
                                 const void* vals_lo, const void* palette,
@@ -262,6 +288,7 @@ extern "C" int spmv_sell_launch(const void* meta, const void* vals,
     case spmv::kDf16: return spmv::dispatch<spmv::kDf16>(a, slot, nw, cw);
     case spmv::kPaletteDf:
       return spmv::dispatch<spmv::kPaletteDf>(a, slot, nw, cw);
+    case spmv::kBinary: return spmv::dispatch<spmv::kBinary>(a, slot, nw, cw);
     default: return int(cudaErrorInvalidValue);
   }
 }

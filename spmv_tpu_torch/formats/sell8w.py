@@ -1,6 +1,7 @@
 """SELL-8W: the windowed-gather SELL format for the Pallas kernel
 (a copy of ``spmv_tpu/formats/sell8w.py`` with ``ml_dtypes`` replaced by
-:mod:`._bf16`: bf16 arrays are uint16 bit arrays here; pinned by
+:mod:`._bf16`: bf16 arrays are uint16 bit arrays here; ``plan_v2``'s tile
+layout is :func:`v2_layout`, which COO2's binary reduce shares; pinned by
 ``tests/test_torch_formats.py``).
 
 The Mosaic TPU compiler only lowers gathers on exact (8,128) tiles
@@ -39,7 +40,7 @@ import numpy as np
 from ..types import CsrMatrix, INT_DTYPE
 from . import _bf16
 
-__all__ = ["Sell8W", "Sell8WV2", "pack_sell8w", "plan_v2",
+__all__ = ["Sell8W", "Sell8WV2", "pack_sell8w", "plan_v2", "v2_layout",
            "estimate_sell8w_tiles", "pairs_lower_bound", "value_palette",
            "split_megarows", "split_stragglers", "df16_encode_lo",
            "df16_safe"]
@@ -177,6 +178,21 @@ def value_palette(vals: np.ndarray, max_entries: int = 64):
     return palette, codes
 
 
+def v2_layout(p: Sell8W, g: int):
+    """(padded, dest) of the v2 regrouping: each slice group's tile count
+    padded to a multiple of ``g`` (at least ``g``), and the v2 position of
+    every v1 tile."""
+    ngroups = max(-(-p.nslices // SUB), 1)
+    groups = p.slice_ids.astype(np.int64) // SUB
+    # run lengths per group (slice-major order; every group covered ≥ 1)
+    counts = np.bincount(groups, minlength=ngroups)
+    padded = np.maximum(-(-counts // g) * g, g)
+    starts = np.concatenate([[0], np.cumsum(padded)[:-1]])
+    dest = starts[groups] + (np.arange(p.ntiles)
+                             - np.concatenate([[0], np.cumsum(counts)[:-1]])[groups])
+    return padded, dest
+
+
 def plan_v2(p: Sell8W, g: int = 16,
             lo_tiles: Optional[np.ndarray] = None,
             force_value_mode: Optional[str] = None) -> Sell8WV2:
@@ -200,14 +216,8 @@ def plan_v2(p: Sell8W, g: int = 16,
     if force_value_mode not in (None, "df", "df16", "palette_df"):
         raise ValueError(f"unknown plan_v2 value mode {force_value_mode!r}")
     ngroups = max(-(-p.nslices // SUB), 1)
-    groups = p.slice_ids.astype(np.int64) // SUB
-    # run lengths per group (slice-major order; every group covered ≥ 1)
-    counts = np.bincount(groups, minlength=ngroups)
-    padded = np.maximum(-(-counts // g) * g, g)
+    padded, dest = v2_layout(p, g)
     ntiles = int(padded.sum())
-    starts = np.concatenate([[0], np.cumsum(padded)[:-1]])
-    dest = starts[groups] + (np.arange(p.ntiles)
-                             - np.concatenate([[0], np.cumsum(counts)[:-1]])[groups])
 
     # meta is scattered exactly once per mode below (palette modes merge
     # codes on the v1 layout first) — a second full-array pass costs ~2 s

@@ -20,8 +20,14 @@ SELL-8D slots      ``ops/sell.py`` slot mode (K1, K2 for f64), nw 1/2/4/8,
 row-split hybrid   8W heavy rows + 8D light rows; the heavy output folds
                    back by a scatter-add (f32) or by x-extension (f64)
 stragglers         compact per-row sums + one scatter-add (plain PyTorch)
+COO2 (CSR5, f32)   ``ops/coo2.py``: pass 1 (K8) writes one product a slot,
+                   pass 2 sums them by the SELL row-mode kernel in binary
+                   mode (K5 binary) over R
 Serial             gather + scatter-add (plain PyTorch, AUTO's nnz < 10k)
 =================  ==========================================================
+
+Method.CSR5 packs COO2 in f32; when the pass-2 gate refuses, and for every
+f64 matrix, it retries the SELL tiers above (n ≤ 2M).
 
 An f64 matrix runs in native f64 end to end: x, the kernels' sums and y.
 
@@ -38,7 +44,7 @@ import torch
 
 from .types import CsrMatrix, Method, VectorizedWay, METHOD_NAMES, INT_DTYPE
 from .formats import dia as dia_fmt, sell8w as sell8w_fmt
-from .ops import dia as dia_ops, sell as sell_ops
+from .ops import coo2 as coo2_ops, dia as dia_ops, sell as sell_ops
 from .ops.sell import V2_MAX_N
 from .ops.torch_csr import segment_sum_spmv
 from .utils.profiling import dev_put
@@ -128,6 +134,8 @@ def plan_kind(plan: Dict[str, Any]) -> str:
     """Short name of a (host or placed) plan's shape."""
     if "hybrid" in plan:
         return "hybrid(8w+8d)"
+    if "coo2" in plan:
+        return "coo2"
     for key, name in (("sell8d", "sell8d"), ("sell8w_v2", "sell8w_v2"),
                       ("dia", "dia")):
         if key in plan:
@@ -177,10 +185,57 @@ def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
         return {"dia": d, "fill": d.fill,
                 "offsets": tuple(int(o) for o in d.offsets), "n": a.n}
     if method == Method.CSR5:
-        raise _not_ported("Method.CSR5 (the two-pass COO2 plan, K8)", 3)
+        return _plan_csr5(a, nthreads, vectorized, hints)
     if method == Method.BCSR:
         raise _not_ported("Method.BCSR", 6)
     raise _not_ported(f"{METHOD_NAMES.get(method, method)}", 6)
+
+
+def _plan_csr5(a: CsrMatrix, nthreads: int, vectorized: VectorizedWay,
+                hints: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """The JAX planner's CSR5 branch on a TPU: the two-pass COO2 plan in
+    f32; when its pass-2 gate refuses, and for any f64 matrix (the
+    reference's CSR5 is f64 only), the SELL-8D / hybrid retry for n ≤ 2M
+    when its estimates hold.  What the JAX planner hands to its XLA tiled
+    scan raises here."""
+    scan = "Method.CSR5's fall-through to the XLA tiled scan"
+    if vectorized == VectorizedWay.NONE or a.nnz == 0:
+        raise _not_ported(scan, 6)
+    if np.dtype(a.dtype) != np.dtype(np.float64):
+        from .formats import coo2 as coo2_fmt
+        try:
+            packed = coo2_fmt.pack_coo2(a, max_pad2=8.0)
+            return {"coo2": packed, "pad1": packed.pad_ratio_pass1,
+                    "pad2": packed.pad_ratio_pass2}
+        except ValueError:
+            pass                    # the pass-2 gate refused
+    if a.n <= V2_MAX_N:
+        # the cheap estimates first, as the JAX planner does
+        from .formats.sell8d import estimate_sell8d_auto, prepare_hybrid
+        WINDOW = sell8w_fmt.WINDOW
+        t8d, _c, sp, _w = estimate_sell8d_auto(a, nw=None)
+        ok = (t8d and sp <= 0.02 * a.nnz and t8d * WINDOW / a.nnz <= 32.0
+              and t8d * WINDOW <= 6.7e8)
+        sub_hints = hints
+        if not ok:
+            # heavy-tailed scatter: the row-split hybrid may still hold
+            prep = prepare_hybrid(a)
+            if (prep is not None and prep.tiles * WINDOW / a.nnz <= 32.0
+                    and prep.tiles * WINDOW <= 6.7e8
+                    and prep.spilled <= 0.02 * a.nnz):
+                ok = True
+                sub_hints = {**(hints or {}), "hybrid_prep": prep}
+        if ok:
+            try:
+                alt = _build_plan(a, Method.SELL_C_SIGMA, nthreads,
+                                  vectorized, hints=sub_hints)
+            except NotImplementedError:
+                # no SELL tile plan: the JAX planner's SELL branch would
+                # fall through to plans its CSR5 branch does not take
+                alt = {}
+            if any(k in alt for k in ("sell8d", "sell8w_v2", "hybrid")):
+                return alt
+    raise _not_ported(scan, 6)
 
 
 def _append_fold_entries(mat: CsrMatrix, fold_rows: np.ndarray,
@@ -433,6 +488,8 @@ def _place(plan: Dict[str, Any], device) -> Dict[str, Any]:
             out[k] = sell_ops.prepare_sell(v, device, slot_mode=False)
         elif k == "dia":
             out[k] = dia_ops.prepare_dia(v, device)
+        elif k == "coo2":
+            out[k] = coo2_ops.prepare_coo2(v, device)
         elif k in ("mega_sub_rows", "fold_rows", "rows", "colidx"):
             out[k] = dev_put(np.asarray(v).astype(np.int64), device)
         elif k == "vals":
@@ -513,6 +570,9 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
     if "dia" in p:
         d = p["dia"]
         return lambda x: dia_ops.dia_spmv(d, x)
+    if "coo2" in p:
+        c = p["coo2"]
+        return lambda x: coo2_ops.coo2_spmv(c, x)
     if method == Method.SERIAL:
         return lambda x: segment_sum_spmv(p["rows"], p["colidx"],
                                           p["vals"], x, m=m_rows)

@@ -5,7 +5,8 @@ package's packer source; its code is unchanged, so both packages emit
 identical packs (``tests/test_torch_formats.py`` pins them).  It is
 compiled with g++ into the port's build directory at first use.  Only the
 entry points the port's packers call are bound: the SELL-8W greedy packer,
-the SELL-8D slot-mode packer and its bundle-width stats.
+the COO2 packers (the fused pipeline and the pass-1 placer), the SELL-8D
+slot-mode packer and its bundle-width stats.
 
 Everything degrades gracefully, as in the JAX package: if compilation
 fails, the packers fall back to their pure-numpy paths.
@@ -24,7 +25,8 @@ import numpy as np
 from .._build import compile_shared
 
 __all__ = ["load_native", "native_available", "pack_sell8w_native",
-           "pack_sell8d_native", "sell8d_stats_native"]
+           "coo2_place_native", "coo2_pack_all_native", "pack_sell8d_native",
+           "sell8d_stats_native"]
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "spmv_native.cpp")
@@ -61,6 +63,37 @@ def load_native() -> Optional[ctypes.CDLL]:
                                                 np.int16, np.float32)]
         lib.sell8w_free.restype = None
         lib.sell8w_free.argtypes = [c.c_void_p]
+        lib.coo2_place.restype = c.c_void_p
+        lib.coo2_place.argtypes = [
+            c.c_int64,
+            np.ctypeslib.ndpointer(np.int16),
+            np.ctypeslib.ndpointer(np.int16),
+            np.ctypeslib.ndpointer(np.float32),
+            c.c_int64,
+            np.ctypeslib.ndpointer(np.int64),
+            np.ctypeslib.ndpointer(np.int64),
+            np.ctypeslib.ndpointer(np.int64),
+            c.POINTER(c.c_int64)]
+        lib.coo2_copy.restype = None
+        lib.coo2_copy.argtypes = [c.c_void_p] + [
+            np.ctypeslib.ndpointer(d) for d in (np.int32, np.int16,
+                                                np.float32, np.int64)]
+        lib.coo2_free.restype = None
+        lib.coo2_free.argtypes = [c.c_void_p]
+        lib.coo2_pack_all.restype = c.c_void_p
+        lib.coo2_pack_all.argtypes = [
+            c.c_int64, c.c_int64,
+            np.ctypeslib.ndpointer(np.int32),
+            np.ctypeslib.ndpointer(np.int32),
+            np.ctypeslib.ndpointer(np.float32),
+            c.c_int64, c.POINTER(c.c_int64)]
+        lib.coo2_all_copy.restype = None
+        lib.coo2_all_copy.argtypes = [c.c_void_p] + [
+            np.ctypeslib.ndpointer(d) for d in (np.int32, np.int16,
+                                                np.float32, np.int32,
+                                                np.int32)]
+        lib.coo2_all_free.restype = None
+        lib.coo2_all_free.argtypes = [c.c_void_p]
         lib.sell8d_pack.restype = c.c_void_p
         lib.sell8d_pack.argtypes = [
             c.c_int64, c.c_int64,
@@ -119,6 +152,66 @@ def pack_sell8w_native(m: int, n: int, rowptr: np.ndarray,
                 vtiles.reshape(t, 8, 128))
     finally:
         lib.sell8w_free(h)
+
+
+def coo2_pack_all_native(m, n, rowptr, colidx, vals, super_slices):
+    """(window_ids, meta, vals_tiles, r_rowptr, r_colidx) or None.
+
+    The fused pipeline: counting-sort by (super, window), greedy placement,
+    and the pass-2 R matrix in CSR form, in one C++ pass."""
+    lib = load_native()
+    if lib is None:
+        return None
+    rowptr = np.ascontiguousarray(rowptr, np.int32)
+    colidx = np.ascontiguousarray(colidx, np.int32)
+    vals32 = np.ascontiguousarray(vals, np.float32)
+    nnz = int(rowptr[-1])
+    ntiles = ctypes.c_int64(0)
+    h = lib.coo2_pack_all(m, n, rowptr, colidx, vals32, super_slices,
+                          ctypes.byref(ntiles))
+    if not h:
+        return None
+    try:
+        t = int(ntiles.value)
+        window_ids = np.empty(t, np.int32)
+        meta = np.empty(t * 8 * 128, np.int16)
+        vtiles = np.empty(t * 8 * 128, np.float32)
+        r_rowptr = np.empty(m + 1, np.int32)
+        r_colidx = np.empty(nnz, np.int32)
+        lib.coo2_all_copy(h, window_ids, meta, vtiles, r_rowptr, r_colidx)
+        return (window_ids, meta.reshape(t, 8, 128),
+                vtiles.reshape(t, 8, 128), r_rowptr, r_colidx)
+    finally:
+        lib.coo2_all_free(h)
+
+
+def coo2_place_native(s_arr, r_arr, v_arr, group_w, group_lo, group_hi):
+    """(window_ids, meta, vals, positions) or None if unavailable."""
+    lib = load_native()
+    if lib is None:
+        return None
+    s_arr = np.ascontiguousarray(s_arr, np.int16)
+    r_arr = np.ascontiguousarray(r_arr, np.int16)
+    v_arr = np.ascontiguousarray(v_arr, np.float32)
+    group_w = np.ascontiguousarray(group_w, np.int64)
+    group_lo = np.ascontiguousarray(group_lo, np.int64)
+    group_hi = np.ascontiguousarray(group_hi, np.int64)
+    ntiles = ctypes.c_int64(0)
+    h = lib.coo2_place(len(s_arr), s_arr, r_arr, v_arr, len(group_w),
+                       group_w, group_lo, group_hi, ctypes.byref(ntiles))
+    if not h:
+        return None
+    try:
+        t = int(ntiles.value)
+        window_ids = np.empty(t, np.int32)
+        meta = np.empty(t * 8 * 128, np.int16)
+        vals = np.empty(t * 8 * 128, np.float32)
+        positions = np.empty(len(s_arr), np.int64)
+        lib.coo2_copy(h, window_ids, meta, vals, positions)
+        return (window_ids, meta.reshape(t, 8, 128),
+                vals.reshape(t, 8, 128), positions)
+    finally:
+        lib.coo2_free(h)
 
 
 def pack_sell8d_native(m, n, rowptr, colidx, nw=1, g=16, depth_cap=-1,

@@ -11,12 +11,17 @@ of 1, 2, 4 or 8 and the cell-shared window select (``cell_w``):
   packs of f64 matrices (``df``, ``df16``, ``palette_df`` values), f64 x
   and y.  Each slot's value is decoded to one f64 (hi + lo, rounded once) and
   summed in native f64: the TPU's error-free transforms are not carried
-  over.
+  over;
+* ``spmv_tpu/ops/pallas_sell.py::_make_kernel_v2w`` (K5) in its ``binary``
+  mode, row mode only: COO2's pass-2 reduce, every value 1 with validity in
+  meta bit 15 and no values stream (:func:`binary_v2` builds the stream as
+  ``build_sell8w_v2w_fn(binary=True)`` does), f32 x (the pass-1 products)
+  and y.  K5's window DMAs are not carried over: x stays in device memory.
 
 On the H100 the kernel is bound by the bytes of each padded slot (2 B of
 meta, plus 2 B bf16, 4 B f32, 6 B df16 or 8 B df values; none for the
-palettes) and by the three dependent loads a slot makes (its meta, its
-cell's meta, x).  Its design (see the source) cuts the stream into chunks
+palettes and the binary mode) and by the three dependent loads a slot
+makes (its meta, its cell's meta, x).  Its design (see the source) cuts the stream into chunks
 of at most ``CHUNK_TILES`` tiles inside one output block, one CUDA block
 per chunk, and adds each block's chunks in a second, ordered pass: no
 atomics.
@@ -36,12 +41,14 @@ import torch
 
 from .. import _build
 from ..formats import _bf16
-from ..formats.sell8w import LANES, SUB, WINDOW
+from ..formats.sell8w import (LANES, SUB, WINDOW, Sell8W, Sell8WV2,
+                              plan_v2, v2_layout)
 from ..utils.profiling import dev_put
 
-__all__ = ["SellStream", "prepare_sell", "sell_spmv", "sell_plain",
-           "sell_decode", "row_launches", "slot_launches",
-           "row_df_launches", "slot_df_launches", "V2_MAX_N", "CHUNK_TILES"]
+__all__ = ["SellStream", "prepare_sell", "binary_v2", "sell_spmv",
+           "sell_plain", "sell_decode", "kernel_name", "row_launches",
+           "slot_launches", "row_df_launches", "slot_df_launches",
+           "row_bin_launches", "V2_MAX_N", "CHUNK_TILES"]
 
 #: the JAX package's VMEM-resident-x bound; the port keeps it as the edge
 #: of the slice (n > 2M SELL tiers are not ported yet)
@@ -49,15 +56,16 @@ V2_MAX_N = 2_000_000
 #: most tiles one CUDA block takes (a chunk never straddles output blocks)
 CHUNK_TILES = 64
 
-#: kernel launches made by :func:`sell_spmv` in each mode, f32 (K1) and
-#: f64 (K2) streams apart
+#: kernel launches made by :func:`sell_spmv` in each mode, f32 (K1), f64
+#: (K2) and binary (K5) streams apart
 row_launches = 0
 slot_launches = 0
 row_df_launches = 0
 slot_df_launches = 0
+row_bin_launches = 0
 
 _VALUE_MODES = {"f32": 0, "bf16": 1, "palette": 2,
-                "df": 3, "df16": 4, "palette_df": 5}
+                "df": 3, "df16": 4, "palette_df": 5, "binary": 6}
 #: the double-float value modes of f64 matrices
 DF_MODES = ("df", "df16", "palette_df")
 
@@ -77,6 +85,7 @@ class SellStream:
     meta: torch.Tensor            # (ntiles, 8, 128) int16
     vals: Optional[torch.Tensor]  # (ntiles, 8, 128) f32 / bf16 (the hi
     #                               plane in df modes), None for palettes
+    #                               and binary
     vals_lo: Optional[torch.Tensor]  # (ntiles, 8, 128) f32 (df) or int16
     #                                  (df16), else None
     palette: torch.Tensor         # (128,) f32, f64 (hi + lo) in palette_df;
@@ -115,6 +124,22 @@ def chunk_tables(step_block: np.ndarray, nblocks: int, g: int):
     block_chunk_ptr = np.searchsorted(
         sb[starts], np.arange(nblocks + 1), side="left").astype(np.int32)
     return chunk_step_ptr, block_chunk_ptr
+
+
+def binary_v2(packed: Sell8W, g: int = 16) -> Sell8WV2:
+    """COO2's R as a binary row-mode stream, as
+    ``build_sell8w_v2w_fn(packed, g, binary=True)`` builds it: ``plan_v2``'s
+    grouping (tinfo, ginfo), and meta rebuilt from the v1 pack with each
+    slot's validity (value != 0) in bit 15, placed by the same ``dest``.
+    The palette ``plan_v2`` picks for an all-ones R is dropped."""
+    v2 = plan_v2(packed, g=g)
+    valid = packed.vals != 0
+    meta16 = (packed.meta.astype(np.int32)
+              | (valid.astype(np.int32) << 15)) & 0xFFFF
+    meta = np.zeros_like(v2.meta)
+    meta[v2_layout(packed, g)[1]] = meta16.astype(np.uint16).view(np.int16)
+    return dataclasses.replace(v2, value_mode="binary", meta=meta, vals=None,
+                               palette=None)
 
 
 def prepare_sell(packed, device, slot_mode: bool) -> SellStream:
@@ -161,6 +186,8 @@ def prepare_sell(packed, device, slot_mode: bool) -> SellStream:
 
 def _slot_values(st: SellStream) -> torch.Tensor:
     """Every slot's value, (ntiles, 8, 128), in the stream's type."""
+    if st.value_mode == "binary":
+        return ((st.meta.to(torch.int64) & 0x8000) != 0).to(torch.float32)
     if st.value_mode in ("palette", "palette_df"):
         meta = st.meta.to(torch.int64) & 0xFFFF
         lb = st.nw.bit_length() - 1
@@ -209,14 +236,17 @@ def sell_plain(st: SellStream, x: torch.Tensor) -> torch.Tensor:
     """The plain version over the same packed arrays: decode every slot's
     column and value, gather x, and add the products into their rows with
     ``index_add_``.  Returns the (nblocks * 1024,) output, f32 for a K1
-    stream and f64 for a K2 stream."""
+    stream and f64 for a K2 stream (f32 for a binary stream)."""
     x = x.to(st.dtype)
     out = torch.zeros(st.nblocks * WINDOW, dtype=st.dtype, device=x.device)
     if st.n == 0 or st.meta.numel() == 0:
         return out
     rows, col, v = sell_decode(st)
-    inb = col < st.n
-    prod = v * torch.where(inb, x[col.clamp(max=st.n - 1)], 0.0)
+    xg = torch.where(col < st.n, x[col.clamp(max=st.n - 1)], 0.0)
+    # binary: K5 selects x at the valid slots (a padding slot adds 0 even
+    # where x is not finite)
+    prod = (torch.where(v != 0, xg, 0.0) if st.value_mode == "binary"
+            else v * xg)
     if st.slot_mode:
         out.index_add_(0, rows.reshape(-1), prod.reshape(-1))
     else:
@@ -224,11 +254,22 @@ def sell_plain(st: SellStream, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def kernel_name(st: SellStream) -> str:
+    """The name of the kernel that runs ``st``: sell_row, sell_slot, their
+    f64 forms sell_row_df and sell_slot_df, or sell_row_bin."""
+    if st.value_mode == "binary":
+        return "sell_row_bin"
+    return (("sell_slot" if st.slot_mode else "sell_row")
+            + ("_df" if st.value_mode in DF_MODES else ""))
+
+
 def sell_spmv(st: SellStream, x: torch.Tensor) -> torch.Tensor:
     """Tile-stream product, (nblocks * 1024,) output.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel; any other device
-    raises.  x is f32 for a K1 stream and f64 for a K2 stream."""
+    raises.  x is f32 for a K1 or K5 (binary) stream and f64 for a K2
+    stream."""
     global row_launches, slot_launches, row_df_launches, slot_df_launches
+    global row_bin_launches
     if x.device.type == "cpu":
         return sell_plain(st, x)
     if x.device.type != "cuda":
@@ -253,9 +294,10 @@ def sell_spmv(st: SellStream, x: torch.Tensor) -> torch.Tensor:
         st.nchunks, st.nblocks, st.g, st.n, _VALUE_MODES[st.value_mode],
         int(st.slot_mode), st.nw, int(st.cell_w),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, ("sell_slot" if st.slot_mode else "sell_row")
-                 + ("_df" if df else ""))
-    if st.slot_mode and df:
+    _build.check(lib, err, kernel_name(st))
+    if st.value_mode == "binary":
+        row_bin_launches += 1
+    elif st.slot_mode and df:
         slot_df_launches += 1
     elif st.slot_mode:
         slot_launches += 1

@@ -26,6 +26,7 @@ import torch
 
 import spmv_tpu.handle as jh
 from spmv_tpu.io import generate as j_gen
+from spmv_tpu.ops.pallas_coo2 import build_coo2_fn
 from spmv_tpu.ops.pallas_dia import build_dia_fn_from_parts
 from spmv_tpu.ops.pallas_sell import build_sell8d_fn, build_sell8w_v2_fn
 from spmv_tpu.types import Method as JMethod
@@ -52,6 +53,11 @@ MATRICES = {
                 "hybrid(8w+8d)", "bf16"),
     "tiny": (lambda g: g.random_uniform(300, 300, 5, dtype=np.float32,
                                         seed=1), "serial", None),
+    # moderate column scatter: AUTO resolves to Method.CSR5, the two-pass
+    # COO2 plan (474 pass-1 tiles, R over 485,376 product positions)
+    "clustered_csr5": (lambda g: g.clustered(20_000, 20_000, 24,
+                                             spread=2048, dtype=np.float32,
+                                             seed=9), "coo2", None),
     # f64: the same patterns with f64 values, as bench.py's _to_f64 makes
     # them; the powerlaw one folds by x-extension (fold_planes_ext)
     "banded_f64": (lambda g: _to_f64(g.banded(40000, 40000, 4,
@@ -64,6 +70,18 @@ MATRICES = {
         "hybrid(8w+8d)", "df16"),
     "tiny_f64": (lambda g: _to_f64(g.random_uniform(
         300, 300, 5, dtype=np.float32, seed=1)), "serial", None),
+}
+
+#: name → (generator call, the plan Method.CSR5 must build, its value mode)
+CSR5_MATRICES = {
+    "clustered": (MATRICES["clustered_csr5"][0], "coo2", None),
+    # the pass-2 gate refuses: the SELL-8D retry
+    "uniform": (MATRICES["uniform"][0], "sell8d", "bf16"),
+    # heavy-tailed scatter: the hybrid retry
+    "powerlaw": (MATRICES["powerlaw"][0], "hybrid(8w+8d)", "palette"),
+    # f64 never packs COO2: the SELL-8D df retry
+    "clustered_f64": (lambda g: _to_f64(MATRICES["clustered_csr5"][0](g)),
+                      "sell8d", "df16"),
 }
 
 
@@ -103,10 +121,10 @@ def _golden(a, x):
     return st.spmv_golden(a.astype(np.float64), x.astype(np.float64))
 
 
-def _reference_plan(a, monkeypatch):
+def _reference_plan(a, monkeypatch, method=JMethod.AUTO):
     """The JAX package's handle for ``a`` as it is built on a TPU."""
     monkeypatch.setattr(jh, "_is_tpu", lambda: True)
-    return jh.create_handle(a, method=JMethod.AUTO)
+    return jh.create_handle(a, method=method)
 
 
 def _reference_exec(plan, x, m_rows):
@@ -130,6 +148,8 @@ def _reference_exec(plan, x, m_rows):
         fn = build_sell8d_fn(plan["sell8d"], interpret=True)
     elif "sell8w_v2" in plan:
         fn = build_sell8w_v2_fn(plan["sell8w_v2"], interpret=True)
+    elif "coo2" in plan:
+        fn = build_coo2_fn(plan["coo2"], interpret=True)
     else:
         rows = np.asarray(plan["rows"])
         y = np.zeros(m_rows)
@@ -172,12 +192,13 @@ def _same_placed(p, q):
             assert u == v, k
 
 
-@pytest.mark.parametrize("name", sorted(MATRICES))
-def test_main_path_matches_reference_plan(name, monkeypatch, x64):
-    make, kind, value_mode = MATRICES[name]
+def _check_against_reference(name, make, kind, value_mode, method,
+                             monkeypatch):
+    """``create_handle(a, method)`` on the CPU: its plan and output against
+    the JAX planner's (TPU gate on) and against the golden product."""
     a, ja = make(t_gen), make(j_gen)
     x = np.random.default_rng(0).standard_normal(a.n).astype(a.vals.dtype)
-    h = st.create_handle(a, method=st.Method.AUTO, device="cpu")
+    h = st.create_handle(a, method=method, device="cpu")
     assert th.plan_kind(h.plan) == kind
     assert h.plan.get("value_mode") == value_mode
     if name == "powerlaw_f64":
@@ -189,7 +210,7 @@ def test_main_path_matches_reference_plan(name, monkeypatch, x64):
     absax = _abs_ax(a, x)
     np.testing.assert_array_less(np.abs(y - _golden(a, x)), tol * absax)
 
-    jhandle = _reference_plan(ja, monkeypatch)
+    jhandle = _reference_plan(ja, monkeypatch, JMethod(int(method)))
     assert int(jhandle.method) == int(h.method)
     assert jhandle.plan.get("value_mode") == value_mode
     placed = plan_from_reference(jhandle.plan, "cpu")
@@ -211,6 +232,26 @@ def test_main_path_matches_reference_plan(name, monkeypatch, x64):
     np.testing.assert_array_less(np.abs(y_car.numpy() - y_ref),
                                  tol_ref * absax)
     np.testing.assert_array_less(np.abs(y - y_ref), tol_ref * absax)
+    return h
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_main_path_matches_reference_plan(name, monkeypatch, x64):
+    make, kind, value_mode = MATRICES[name]
+    h = _check_against_reference(name, make, kind, value_mode,
+                                 st.Method.AUTO, monkeypatch)
+    if kind == "coo2":
+        assert h.method == st.Method.CSR5
+        c = h.plan["coo2"]
+        assert c.reduce.n == 474 * 1024 and c.ntiles == 480   # 30 groups
+
+
+@pytest.mark.parametrize("name", sorted(CSR5_MATRICES))
+def test_csr5_matches_reference_plan(name, monkeypatch, x64):
+    make, kind, value_mode = CSR5_MATRICES[name]
+    h = _check_against_reference(name, make, kind, value_mode,
+                                 st.Method.CSR5, monkeypatch)
+    assert h.method == st.Method.CSR5
 
 
 def test_straggler_stream_matches_reference():
@@ -315,12 +356,13 @@ def test_not_ported_raises(monkeypatch):
     with pytest.raises(NotImplementedError, match="float16"):
         st.create_handle(a.astype(np.float16), device="cpu")
     for m in (st.Method.BALANCED, st.Method.BALANCED2,
-              st.Method.BALANCED_YID, st.Method.CSR5, st.Method.BCSR):
+              st.Method.BALANCED_YID, st.Method.BCSR):
         with pytest.raises(NotImplementedError):
             st.create_handle(a, method=m, device="cpu")
-    with pytest.raises(NotImplementedError):
-        st.create_handle(a, method=st.Method.SELL_C_SIGMA, device="cpu",
-                         vectorized=st.VectorizedWay.NONE)
+    for m in (st.Method.SELL_C_SIGMA, st.Method.CSR5):
+        with pytest.raises(NotImplementedError):
+            st.create_handle(a, method=m, device="cpu",
+                             vectorized=st.VectorizedWay.NONE)
     with pytest.raises(NotImplementedError):
         st.create_handle(a, reorder="rcm", device="cpu")
     # the graph rung: no SELL tile plan fits; the JAX package falls
@@ -331,12 +373,19 @@ def test_not_ported_raises(monkeypatch):
         st.create_handle(make(t_gen), device="cpu")
     ref = _reference_plan(make(j_gen), monkeypatch).plan
     assert not {"sell8d", "sell8w_v2", "hybrid", "dia_pallas"} & set(ref)
+    # through Method.CSR5: the pass-2 gate refuses and no SELL tile plan
+    # fits; the JAX package falls through to its XLA tiled scan
+    with pytest.raises(NotImplementedError, match="XLA tiled scan"):
+        st.create_handle(make(t_gen), method=st.Method.CSR5, device="cpu")
+    ref = _reference_plan(make(j_gen), monkeypatch, JMethod.CSR5).plan
+    assert not {"coo2", "sell8d", "sell8w_v2", "hybrid"} & set(ref)
 
 
 def test_port_imports_no_jax(tmp_path):
     # spmv_tpu_torch/ alone (no spmv_tpu/ beside it, no build outputs):
     # it imports no JAX, builds its native packer from its own copy of the
-    # source, and runs f32 and f64 SELL plans
+    # source, and runs f32 and f64 SELL plans and a COO2 plan, packed by
+    # the fused C++ pipeline
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     shutil.copytree(os.path.join(root, "spmv_tpu_torch"),
                     tmp_path / "spmv_tpu_torch",
@@ -359,6 +408,16 @@ def test_port_imports_no_jax(tmp_path):
         "    assert y.dtype == dt\n"
         "    g = st.spmv_golden(b.astype(np.float64), np.ones(a.n))\n"
         "    assert np.allclose(y, g, rtol=1e-4, atol=1e-3)\n"
+        "from spmv_tpu_torch.formats import coo2\n"
+        "c = generate.clustered(6000, 6000, 24, spread=2048,"
+        " dtype=np.float32, seed=9)\n"
+        "h = st.create_handle(c, method=st.Method.CSR5, device='cpu')\n"
+        "assert plan_kind(h.plan) == 'coo2', plan_kind(h.plan)\n"
+        "assert coo2.packs == {'native': 1, 'native_place': 0,"
+        " 'python': 0}, coo2.packs\n"
+        "y = st.spmv(h, torch.ones(c.n)).numpy()\n"
+        "g = st.spmv_golden(c.astype(np.float64), np.ones(c.n))\n"
+        "assert np.allclose(y, g, rtol=1e-4, atol=1e-3)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'ml_dtypes', 'spmv_tpu')]\n"
         "assert not bad, bad\n")
