@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's f32 and f64 AUTO main paths and its Method.CSR5 path on
-one NVIDIA card and check them.
+"""Drive the port's f32 and f64 AUTO main paths, its Method.CSR5 path and its
+large-n path (n > 2M: column stripes and windowed streams) on one NVIDIA
+card and check them.
 
 Run from the repository root with no arguments:
 
@@ -17,7 +18,10 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    and their f64 forms ``sell_row_df``, ``sell_slot_df`` (df, df16,
    palette_df, the same nw × cell_w grid) and ``dia_f64``; the COO2
    kernels ``coo2_pass1`` (f32 and bf16 values) and ``sell_row_bin`` (one
-   stream over more than 2M product positions);
+   stream over more than 2M product positions); and the same SELL grid
+   past 2M columns (n = 2.5M), which names the windowed kernels
+   ``sell_row_w`` (K5 values), ``sell_slot_w`` (K6), ``sell_row_df_w`` and
+   ``sell_slot_df_w`` (K7);
 4. main path: the bench's eight families (``bench.py``'s generator calls
    and seeds, ``_to_f64`` seed 7 for the f64 ones) through
    ``create_handle(a, device="cuda")`` and ``spmv``, with the AUTO plan
@@ -25,14 +29,24 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    (the two-pass COO2 plan), clustered200k at spread 4096 with AUTO, which
    must resolve to ``Method.CSR5`` and COO2, and clustered200k_f64 with
    ``Method.CSR5`` (the SELL-8D df16 retry); each COO2 pack must come from
-   the native packer.  The f32 AUTO path, the f64 AUTO path and the CSR5
-   path each run once with every launch count set to 0 just before and
-   read just after, and each family's kernels must have launched.  Then
+   the native packer; and the large-n path: clustered2500k_s64 and its
+   f64 form and uniform250k_4m_d64 (AUTO: column stripes, each stripe a
+   resident stream), and tridiag2500k_sell (``Method.SELL_C_SIGMA``: one
+   windowed slot stream).  The f32 AUTO path, the f64 AUTO path, the CSR5
+   path and the large-n path each run once with every launch count set to
+   0 just before and read just after, and each family's kernels must have
+   launched.  Then
    per family: the result against its reference, CUDA-event times of the
    port, of the same plan on the plain versions and of one cuSPARSE call
    (``torch.sparse_csr_tensor(...) @ x``, timed only: the port never
    calls it), a torch.profiler window, and each kernel against its plain
-   version at the main path's shapes, with its bound.
+   version at the main path's shapes, with its bound;
+5. windowed forms: each striped family packed as one windowed slot stream
+   (as the JAX planner packs it when its gate vetoes the stripes), and
+   clustered2500k_s64 and its f64 form packed as a ``sell8w_v2w`` row
+   stream, each against the family's reference, each stream against its
+   plain version with its bound, and each timed beside the striped plan
+   of the same matrix, per call and on the card.
 
 Bounds, per row i against (|A||x|)_i:
 - f32: 1e-5 against ``spmv_golden``; f32 sums in another order.
@@ -59,8 +73,11 @@ padded output): what the kernel's format makes it move.  Each kernel's
 nonzeros, except ``coo2_pass1``'s: ``x.take(cols) * vals`` over its
 nonzeros, two PyTorch calls (``library_call`` names it).
 
-Output: one JSON line per family and one ``{"kernels": [...]}`` line, the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+Output: one JSON line per family and per windowed form, one
+``{"kernels": [...]}`` line (a kernel's numbers at its largest stream of
+the main path or the windowed forms, its launches those of the main path),
+the wall time, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -132,14 +149,52 @@ FAMILIES = {
     "clustered200k_f64_csr5": (lambda g, np: _to_f64(_clustered200k(g, np),
                                                      np),
                                "sell8d", "df16", ("sell_slot_df",)),
+    # the large-n path (n > 2M): column stripes, and one windowed stream
+    "clustered2500k_s64": (lambda g, np: _clustered2500k(g, np),
+                           "sell8d-striped[2]", "bf16", ("sell_slot",)),
+    "clustered2500k_s64_f64": (lambda g, np: _to_f64(_clustered2500k(g, np),
+                                                     np),
+                               "sell8d-striped[2]", "df16",
+                               ("sell_slot_df",)),
+    "uniform250k_4m_d64": (lambda g, np: g.random_uniform(
+        250_000, 4_000_000, 64, dtype=np.float32, seed=42),
+        "sell8d-striped[3]", "bf16", ("sell_slot",)),
+    "tridiag2500k_sell": (lambda g, np: g.banded(2_500_000, 2_500_000, 1,
+                                                 dtype=np.float32, seed=7),
+                          "sell8d", "palette", ("sell_slot_w",)),
 }
 #: the CSR5 path's families → the method create_handle is asked for
 CSR5_FAMILIES = {"clustered200k_csr5": "CSR5", "clustered200k_w4096": "AUTO",
                  "clustered200k_f64_csr5": "CSR5"}
+#: the large-n path's families → (the method asked for, the plan's nw)
+LARGE_N_FAMILIES = {"clustered2500k_s64": ("AUTO", 8),
+                    "clustered2500k_s64_f64": ("AUTO", 4),
+                    "uniform250k_4m_d64": ("AUTO", 8),
+                    "tridiag2500k_sell": ("SELL_C_SIGMA", 1)}
+#: the striped families whose windowed forms the windowed phase runs, and
+#: those it also packs as a sell8w_v2w row stream
+WINDOWED_FORMS = ("clustered2500k_s64", "clustered2500k_s64_f64",
+                  "uniform250k_4m_d64")
+ROW_FORMS = ("clustered2500k_s64", "clustered2500k_s64_f64")
+
+
+def _clustered2500k(g, np):
+    """clustered at 2.5M rows and columns, 8 a row within ±64 columns."""
+    return g.clustered(2_500_000, 2_500_000, 8, spread=64,
+                       dtype=np.float32, seed=9)
+
+
+def method_of(name):
+    """The method create_handle is asked for."""
+    if name in LARGE_N_FAMILIES:
+        return LARGE_N_FAMILIES[name][0]
+    return CSR5_FAMILIES.get(name, "AUTO")
 
 
 def path_of(name):
-    """The counted run a family belongs to: csr5, f64 or f32."""
+    """The counted run a family belongs to: large_n, csr5, f64 or f32."""
+    if name in LARGE_N_FAMILIES:
+        return "large_n"
     if name in CSR5_FAMILIES:
         return "csr5"
     return "f64" if name.endswith("_f64") else "f32"
@@ -161,6 +216,14 @@ KERNELS = {
                    "spmv_tpu/ops/pallas_coo2.py:29"),
     "sell_row_bin": ("spmv_tpu_torch/csrc/sell.cu",
                      "spmv_tpu/ops/pallas_sell.py:339"),
+    "sell_row_w": ("spmv_tpu_torch/csrc/sell.cu",
+                   "spmv_tpu/ops/pallas_sell.py:339"),
+    "sell_slot_w": ("spmv_tpu_torch/csrc/sell.cu",
+                    "spmv_tpu/ops/pallas_sell.py:430"),
+    "sell_row_df_w": ("spmv_tpu_torch/csrc/sell.cu",
+                      "spmv_tpu/ops/pallas_sell.py:538"),
+    "sell_slot_df_w": ("spmv_tpu_torch/csrc/sell.cu",
+                       "spmv_tpu/ops/pallas_sell.py:538"),
 }
 
 
@@ -186,7 +249,11 @@ def read_counts():
             "sell_slot_df": sell.slot_df_launches,
             "dia_f64": dia.f64_launches,
             "coo2_pass1": coo2.coo2_launches,
-            "sell_row_bin": sell.row_bin_launches}
+            "sell_row_bin": sell.row_bin_launches,
+            "sell_row_w": sell.row_w_launches,
+            "sell_slot_w": sell.slot_w_launches,
+            "sell_row_df_w": sell.row_df_w_launches,
+            "sell_slot_df_w": sell.slot_df_w_launches}
 
 
 def zero_counts():
@@ -194,6 +261,8 @@ def zero_counts():
     sell.row_launches = sell.slot_launches = 0
     sell.row_df_launches = sell.slot_df_launches = 0
     sell.row_bin_launches = 0
+    sell.row_w_launches = sell.slot_w_launches = 0
+    sell.row_df_w_launches = sell.slot_df_w_launches = 0
     dia.launches = dia.f64_launches = 0
     coo2.coo2_launches = 0
 
@@ -350,9 +419,15 @@ def stream_csr(st):
         rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
         shape = (st.m, st.n)
     else:
-        r, c, v = sell.sell_decode(st)
-        keep = (v != 0) & (c < st.n)
-        rows, cols, vals = r[keep], c[keep], v[keep]
+        rows, cols, vals = [], [], []
+        for t0 in range(0, st.meta.shape[0], sell.PLAIN_TILES):
+            r, c, v = sell.sell_decode(st, t0, t0 + sell.PLAIN_TILES)
+            keep = (v != 0) & (c < st.n)
+            rows.append(r[keep])
+            cols.append(c[keep])
+            vals.append(v[keep])
+            del r, c, v, keep
+        rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
         shape = (st.nblocks * 1024, st.n)
     coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape)
     return coo.coalesce().to_sparse_csr()
@@ -457,32 +532,41 @@ def kernel_phase(dev):
         return torch.from_numpy(rng.standard_normal(n).astype(dt)).to(dev)
 
     rows = []
-    base = generate.clustered(50_000, 50_000, 24, spread=400,
-                              dtype=np.float32, seed=1)
-    scat = generate.random_uniform(30_000, 300_000, 10, dtype=np.float32,
-                                   seed=2)
-    for modes, dt in ((("f32", "bf16", "palette"), np.float32),
-                      (sell.DF_MODES, np.float64)):
-        for mode in modes:
-            v2 = row_plan(revalue(base, mode, 64), mode)
-            assert v2.value_mode == mode, (mode, v2.value_mode)
-            st = sell.prepare_sell(v2, dev, slot_mode=False)
-            rec = check_stream(st, xvec(base.n, dt))
-            rows.append({"kernel": kernel_of(st), "value_mode": mode,
-                         **rec})
-        for nw in (1, 2, 4, 8):
-            for cell_w in ((False,) if nw == 1 else (False, True)):
-                for mode in modes:
-                    a = revalue(scat, mode, 64 >> (nw.bit_length() - 1))
-                    pk, _ = pack_sell8d(a, g="auto", max_pad_ratio=256.0,
-                                        max_spill=0.05, nw=nw,
-                                        cell_w=cell_w,
-                                        force_value_mode=mode)
-                    st = sell.prepare_sell(pk, dev, slot_mode=True)
-                    rec = check_stream(st, xvec(a.n, dt))
-                    rows.append({"kernel": kernel_of(st), "nw": nw,
-                                 "cell_w": cell_w, "value_mode": mode,
-                                 **rec})
+    # resident (n ≤ 2M: K1, K2) and windowed (n = 2.5M: K5 values, K6,
+    # K7) streams of every value mode, bundle width and cell_w setting
+    grids = (
+        (generate.clustered(50_000, 50_000, 24, spread=400,
+                            dtype=np.float32, seed=1),
+         generate.random_uniform(30_000, 300_000, 10, dtype=np.float32,
+                                 seed=2)),
+        (generate.clustered(30_000, 2_500_000, 24, spread=400,
+                            dtype=np.float32, seed=1),
+         generate.clustered(30_000, 2_500_000, 10, spread=20_000,
+                            dtype=np.float32, seed=2)))
+    for base, scat in grids:
+        for modes, dt in ((("f32", "bf16", "palette"), np.float32),
+                          (sell.DF_MODES, np.float64)):
+            for mode in modes:
+                v2 = row_plan(revalue(base, mode, 64), mode)
+                assert v2.value_mode == mode, (mode, v2.value_mode)
+                st = sell.prepare_sell(v2, dev, slot_mode=False)
+                rec = check_stream(st, xvec(base.n, dt))
+                rows.append({"kernel": kernel_of(st), "n": base.n,
+                             "value_mode": mode, **rec})
+            for nw in (1, 2, 4, 8):
+                for cell_w in ((False,) if nw == 1 else (False, True)):
+                    for mode in modes:
+                        a = revalue(scat, mode, 64 >> (nw.bit_length() - 1))
+                        pk, _ = pack_sell8d(a, g="auto",
+                                            max_pad_ratio=256.0,
+                                            max_spill=0.05, nw=nw,
+                                            cell_w=cell_w,
+                                            force_value_mode=mode)
+                        st = sell.prepare_sell(pk, dev, slot_mode=True)
+                        rec = check_stream(st, xvec(a.n, dt))
+                        rows.append({"kernel": kernel_of(st), "n": a.n,
+                                     "nw": nw, "cell_w": cell_w,
+                                     "value_mode": mode, **rec})
     band = generate.banded(1_000_000, 1_000_200, 6, dtype=np.float32,
                            seed=3, exact=False)
     for mode in ("f32", "bf16", "f64"):
@@ -550,15 +634,40 @@ def profile_calls(fn, x, calls=20):
 
 
 def family_streams(plan):
-    """The placed streams of a plan (a COO2 plan: pass 1, then R)."""
+    """The placed streams of a plan (a COO2 plan: pass 1, then R), each
+    with the columns of x it reads: a stripe's slice, else None."""
     if "hybrid" in plan:
         return [s for p in plan["hybrid"] for s in family_streams(p)]
     if "coo2" in plan:
-        return [plan["coo2"], plan["coo2"].reduce]
-    for key in ("sell8d", "sell8w_v2", "dia"):
+        return [(plan["coo2"], None), (plan["coo2"].reduce, None)]
+    if "sell8d_stripes" in plan:
+        return [(st, slice(lo, hi))
+                for lo, hi, _vis, st in plan["sell8d_stripes"]]
+    for key in ("sell8d", "sell8w_v2", "sell8w_v2w", "dia"):
         if key in plan:
-            return [plan[key]]
+            return [(plan[key], None)]
     return []
+
+
+def keep_kernel(kern, k, rec, stream, family):
+    """Keep a kernel's numbers at its largest stream."""
+    kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], rec["max_abs_err"])
+    size = stream.data.numel() if is_dia(stream) else stream.meta.numel()
+    if size >= kern[k].get("size", -1):
+        kern[k].update(size=size, family=family, **{
+            f: rec[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "library_call",
+                                "bytes", "stream_bound_ms", "stream_bytes")})
+
+
+def stream_record(stream, rec):
+    """A stream's line in a family's ``streams``."""
+    return {"kernel": kernel_of(stream), "value_mode": value_mode_of(stream),
+            "nw": getattr(stream, "nw", None),
+            "cell_w": getattr(stream, "cell_w", None),
+            "g": getattr(stream, "g", None), "n": stream.n,
+            "tiles": None if is_dia(stream) else stream.meta.shape[0],
+            **rec}
 
 
 def value_mode_of(stream):
@@ -604,7 +713,7 @@ def main_path(dev):
         t0 = time.perf_counter()
         a = make(generate, np)
         t_gen = time.perf_counter() - t0
-        method = CSR5_FAMILIES.get(name, "AUTO")
+        method = method_of(name)
         native_packs = coo2_fmt.packs["native"]
         t0 = time.perf_counter()
         with predeal_profile() as laps:
@@ -619,6 +728,10 @@ def main_path(dev):
         if name in CSR5_FAMILIES and h.method != st.Method.CSR5:
             raise AssertionError(f"{name}: {method} resolved to "
                                  f"{h.method_name}, not Method.CSR5")
+        if (name in LARGE_N_FAMILIES
+                and h.plan.get("nw") != LARGE_N_FAMILIES[name][1]):
+            raise AssertionError(f"{name}: nw {h.plan.get('nw')}, expected "
+                                 f"{LARGE_N_FAMILIES[name][1]}")
         if kind == "coo2" and coo2_fmt.packs["native"] != native_packs + 1:
             raise AssertionError(f"{name}: the COO2 pack did not come from "
                                  f"the native packer ({coo2_fmt.packs})")
@@ -640,11 +753,11 @@ def main_path(dev):
                              pad2=h.plan["pad2"])
         log(f"# {name}: {h!r} predeal {predeal * 1e3:.0f} ms")
 
-    # the counted runs, one a path (f32 AUTO, f64 AUTO, CSR5): every count
-    # to 0, the path's families once, the counts read back; a kernel's
-    # launches add up over the paths
+    # the counted runs, one a path (f32 AUTO, f64 AUTO, CSR5, large n):
+    # every count to 0, the path's families once, the counts read back; a
+    # kernel's launches add up over the paths
     launches, ys = {k: 0 for k in KERNELS}, {}
-    for path in ("f32", "f64", "csr5"):
+    for path in ("f32", "f64", "csr5", "large_n"):
         names = [n for n in FAMILIES if path_of(n) == path]
         zero_counts()
         for name in names:
@@ -662,12 +775,13 @@ def main_path(dev):
             launches[k] += c
 
     kern = {k: {"max_abs_err": 0.0} for k in KERNELS}
+    windowed_ctx = {}
     for name, h in handles.items():
         a, x = mats[name], xs[name]
         xh = x.cpu().numpy().astype(np.float64)
         ref, absref, bound, ref_name = reference(a, xh, np)
         ref, absref = torch.from_numpy(ref), torch.from_numpy(absref)
-        y = ys[name].cpu()
+        y = ys.pop(name).cpu()
         if (y.shape != (a.m,) or y.dtype != x.dtype
                 or not bool(torch.isfinite(y).all())):
             raise AssertionError(f"{name}: bad output {y.dtype} "
@@ -679,6 +793,7 @@ def main_path(dev):
         gold = torch.from_numpy(st.spmv_golden(a.astype(np.float64), xh))
         rel_gold = scaled_err(y, gold, absref, bound)[0]
         gold_self = scaled_err(gold, ref, absref, bound)[0]
+        del gold
         ms = cuda_ms(h, x)
         with plain_kernels():
             y_plain = h(x)
@@ -687,18 +802,21 @@ def main_path(dev):
         if not ok_p:
             raise AssertionError(f"{name}: plain path scaled error "
                                  f"{rel_p:.3g}")
+        del y_plain
         csr = matrix_csr(a, dev)
         library_ms = cuda_ms(lambda v: csr @ v, x)
         rel_lib = scaled_err((csr @ x).cpu(), ref, absref, bound)[0]
         del csr
         prof = profile_calls(h, x)
         streams = []
-        for stream in family_streams(h.plan):
+        for stream, cols in family_streams(h.plan):
             k = kernel_of(stream)
             if k == "sell_row_bin":
                 # COO2's pass 2 reads the pass-1 product stream
                 xin = coo2_ops.coo2_pass1_plain(h.plan["coo2"],
                                                 x)[:stream.n]
+            elif cols is not None:
+                xin = x[cols]               # a column stripe's slice
             elif stream.n == a.n:
                 xin = x
             else:
@@ -706,25 +824,8 @@ def main_path(dev):
                 # dense part's output
                 xin = light_part_input(h, x)
             rec = check_stream(stream, xin, timing=True)
-            kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"],
-                                         rec["max_abs_err"])
-            # per kernel, keep the numbers at its largest main-path stream
-            size = (stream.data.numel() if is_dia(stream)
-                    else stream.meta.numel())
-            if size >= kern[k].get("size", -1):
-                kern[k].update(size=size, family=name, **{
-                    f: rec[f] for f in ("ms", "device_ms", "plain_ms",
-                                        "bound_ms", "bound_by",
-                                        "library_ms", "library_call",
-                                        "bytes", "stream_bound_ms",
-                                        "stream_bytes")})
-            streams.append({"kernel": k, "value_mode": value_mode_of(stream),
-                            "nw": getattr(stream, "nw", None),
-                            "cell_w": getattr(stream, "cell_w", None),
-                            "g": getattr(stream, "g", None),
-                            "n": stream.n,
-                            "tiles": (None if is_dia(stream)
-                                      else stream.meta.shape[0]), **rec})
+            keep_kernel(kern, k, rec, stream, name)
+            streams.append(stream_record(stream, rec))
         nnz = a.nnz
         log(json.dumps({
             "family": name, "plan": plan_kind(h.plan),
@@ -738,7 +839,116 @@ def main_path(dev):
             "golden_scaled_err": rel_gold, "golden_vs_reference": gold_self,
             "plain_scaled_err": rel_p, "library_scaled_err": rel_lib,
             "profile": prof, "streams": streams}))
-    return launches, kern
+        if name in WINDOWED_FORMS:
+            windowed_ctx[name] = (h, a, x, ref, absref, bound)
+    return launches, kern, windowed_ctx
+
+
+def windowed_phase(dev, kern, ctx):
+    """The windowed forms of the striped families at full size: one
+    windowed slot stream (K6, K7 slot) as the JAX planner packs it when its
+    gate vetoes the stripes (``pack_sell8d`` with the nw of
+    ``estimate_sell8d_auto(windowed=True)`` and the striped spill budget),
+    and a ``sell8w_v2w`` row stream (K5 values, K7 row; ``pack_sell8w`` at
+    ``max_pad_ratio=8`` and ``plan_v2``, f64 packed twice, hi and lo).
+    Each form's y against the family's reference, its stream against its
+    plain version, and its time beside the striped plan's, per call and on
+    the card, timed in turns (striped, windowed, windowed, striped)."""
+    import numpy as np
+    from spmv_tpu_torch import handle as th
+    from spmv_tpu_torch.formats import sell8w as s8w
+    from spmv_tpu_torch.formats.sell8d import (MAX_SPILL_STRIPED,
+                                               estimate_sell8d_auto,
+                                               pack_sell8d,
+                                               slot_stream_budget)
+    from spmv_tpu_torch.types import CsrMatrix, Method
+
+    def slot_form(a):
+        df = a.vals.dtype == np.float64
+        _t, _c, _sp, nw = estimate_sell8d_auto(
+            a, nw=None, windowed=True, max_spill=MAX_SPILL_STRIPED)
+        allow = th._pad_allow(
+            32.0, slot_stream_budget(a.vals, nw, df) / max(a.nnz, 1))
+        packed, rest = pack_sell8d(a, max_pad_ratio=allow, nw=nw, g="auto",
+                                   max_spill=MAX_SPILL_STRIPED,
+                                   cell_w=nw > 1)
+        plan = {"sell8d": packed, "pad_ratio": packed.pad_ratio}
+        if rest is not None:
+            plan.update(rest_rows=rest[0], rest_cols=rest[1],
+                        rest_vals=rest[2])
+        return plan
+
+    def row_form(a):
+        packed = s8w.pack_sell8w(a, max_pad_ratio=8.0)
+        lo = None
+        if a.vals.dtype == np.float64:
+            lo = s8w.pack_sell8w(CsrMatrix(
+                a.m, a.n, a.rowptr, a.colidx,
+                (a.vals - a.vals.astype(np.float32).astype(np.float64))
+                .astype(np.float32))).vals
+        return {"sell8w_v2w": s8w.plan_v2(packed, lo_tiles=lo),
+                "pad_ratio": packed.pad_ratio}
+
+    rows = []
+    for name, (h, a, x, ref, absref, bound) in ctx.items():
+        forms = [("sell8d windowed", slot_form)]
+        if name in ROW_FORMS:
+            forms.append(("sell8w_v2w", row_form))
+        for form, build in forms:
+            t0 = time.perf_counter()
+            plan = build(a)
+            pack_s = time.perf_counter() - t0
+            placed = th._place(plan, dev)
+            fn = th._make_bound(Method.SELL_C_SIGMA, placed, a.m)
+            stream = placed.get("sell8d", placed.get("sell8w_v2w"))
+            if not stream.n > 2_000_000:
+                raise AssertionError(f"{name} {form}: n {stream.n}")
+            y = fn(x)
+            rel, mabs, ok = scaled_err(y.cpu(), ref, absref, bound)
+            if not ok:
+                raise AssertionError(f"{name} {form}: max scaled error "
+                                     f"{rel:.3g} against the reference")
+            striped_ms = [cuda_ms(h, x)]
+            ms = [cuda_ms(fn, x), cuda_ms(fn, x)]
+            striped_ms.append(cuda_ms(h, x))
+            prof_striped, prof = profile_calls(h, x), profile_calls(fn, x)
+            rec = check_stream(stream, x, timing=True)
+            keep_kernel(kern, kernel_of(stream), rec, stream,
+                        f"{name} ({form})")
+            row = {"phase": "windowed", "family": name, "form": form,
+                   "kernel": kernel_of(stream), "pack_s": pack_s,
+                   "pad_ratio": plan["pad_ratio"],
+                   "rest": len(plan.get("rest_rows", ())),
+                   "ms": ms, "device_ms": prof["device_ms"],
+                   "idle_share": prof["idle_share"],
+                   "striped_ms": striped_ms,
+                   "striped_device_ms": prof_striped["device_ms"],
+                   "striped_idle_share": prof_striped["idle_share"],
+                   "max_scaled_err": rel, "max_abs_err": mabs,
+                   "profile": prof, "stream": stream_record(stream, rec)}
+            log(json.dumps(row))
+            rows.append(row)
+            del placed, fn, stream, y
+    return rows
+
+
+def kernels_line(launches, kern):
+    """The ``kernels`` line's entries, one a kernel."""
+    kernels = []
+    for name, (src, rep) in KERNELS.items():
+        k = kern[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": launches[name],
+                        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                        "bound_by": k["bound_by"],
+                        "library_ms": k["library_ms"],
+                        "library_call": k["library_call"],
+                        "device_ms": k["device_ms"], "bytes": k["bytes"],
+                        "stream_bound_ms": k["stream_bound_ms"],
+                        "stream_bytes": k["stream_bytes"],
+                        "family": k["family"]})
+    return kernels
 
 
 def main() -> int:
@@ -751,6 +961,7 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     smi = _cmd_line(["nvidia-smi", "--query-gpu=name,power.limit",
                      "--format=csv,noheader"])
@@ -790,22 +1001,13 @@ def main() -> int:
                     "spill_bytes": sum(spills)}))
 
     kernel_phase(dev)
-    launches, kern = main_path(dev)
-    kernels = []
-    for name, (src, rep) in KERNELS.items():
-        k = kern[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[name],
-                        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                        "bound_by": k["bound_by"],
-                        "library_ms": k["library_ms"],
-                        "library_call": k["library_call"],
-                        "device_ms": k["device_ms"], "bytes": k["bytes"],
-                        "stream_bound_ms": k["stream_bound_ms"],
-                        "stream_bytes": k["stream_bytes"],
-                        "family": k["family"]})
+    launches, kern, ctx = main_path(dev)
+    windowed_phase(dev, kern, ctx)
+    del ctx
+    kernels = kernels_line(launches, kern)
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"phase": "wall", "seconds":
+                    time.perf_counter() - t_start}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

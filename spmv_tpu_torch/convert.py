@@ -25,8 +25,8 @@ __all__ = ["plan_from_reference"]
 
 _ARRAYS = ("rest_rows", "rest_cols", "rest_vals", "fold_rows",
            "mega_sub_rows", "rows", "colidx", "vals")
-_OUT_OF_SLICE = {"graph": 5, "sell8d_stripes": 2, "sell8w_v2w": 2,
-                 "colidx_pad": 6, "blocks": 6, "cols": 6}
+#: plan keys of plans the port does not run yet → their ROADMAP item
+_OUT_OF_SLICE = {"graph": 5, "colidx_pad": 6, "blocks": 6, "cols": 6}
 
 
 def _host_array(v) -> np.ndarray:
@@ -67,10 +67,14 @@ def _host_plan(p: Dict[str, Any]) -> Dict[str, Any]:
                               _OUT_OF_SLICE[k])
         if k == "hybrid":
             out[k] = tuple(_host_plan(q) for q in v)
-        elif k == "sell8w_v2":
+        elif k in ("sell8w_v2", "sell8w_v2w"):
             out[k] = _dataclass_like(Sell8WV2, v)
         elif k == "sell8d":
             out[k] = _dataclass_like(Sell8D, v)
+        elif k == "sell8d_stripes":
+            out[k] = [(int(lo), int(hi), np.asarray(vis, dtype=np.int64),
+                       _dataclass_like(Sell8D, pk))
+                      for lo, hi, vis, pk in v]
         elif k == "coo2":
             out[k] = dataclasses.replace(
                 _dataclass_like(Coo2, v),

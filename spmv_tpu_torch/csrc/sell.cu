@@ -1,8 +1,9 @@
 // SELL tile-stream SpMV over the JAX package's grouped (8, 128) tiles, in
 // its row mode (SELL-8W v2) and slot mode (SELL-8D), for f32 and f64.
 //
-// Replaces two TPU kernels, launched there by build_sell8w_v2_fn (row
-// mode) and the resident branch of build_sell8d_fn (slot mode):
+// Replaces the TPU's SELL tile kernels, launched there by
+// build_sell8w_v2_fn and build_sell8w_v2w_fn (row mode) and
+// build_sell8d_fn (slot mode):
 //   * spmv_tpu/ops/pallas_sell.py::_kernel_v2 (K1, via _run_v2): f32, bf16
 //     and palette values, f32 x and y;
 //   * spmv_tpu/ops/pallas_sell.py::_kernel_v2_df (K2, via _run_v2_df): the
@@ -19,8 +20,23 @@
 //     so there is no values stream; x is the f32 pass-1 product stream.
 //     K5 selects x where the bit is set (jnp.where(m < 0, xg, 0)); here a
 //     padding slot loads nothing and adds nothing, and a valid one adds x
-//     (fma(1, x, acc) is acc + x rounded once).  K5 DMAs a window of x per
-//     tile because x does not fit in VMEM; here x stays in device memory.
+//     (fma(1, x, acc) is acc + x rounded once);
+//   * the TPU's windowed kernels, which compute what K1 and K2 compute for
+//     n past V2_MAX_N = 2M columns (the same decode, column formula and
+//     row/slot sums): _make_kernel_v2w (K5, via _run_v2w) with values, K1's
+//     row mode; _make_kernel_v2w_slot (K6, via _run_v2w_slot), K1's slot
+//     mode; _make_kernel_v2w_df (K7, via _run_v2w_df), K2 in both modes.
+//     They DMA one x window (row mode) or bundle of nw windows (slot mode)
+//     a tile because x does not fit in VMEM.  That is a VMEM workaround and
+//     is not carried over: here every mode reads x from device memory at
+//     any column, so the windowed streams run this same template.
+//
+// Index widths, for n past 2^21 and streams past 2^31 slots: a slot's
+// offset (t * kTile + tid), its column (tinfo >> 3 is a window or bundle
+// index, at most 2^28, times nw * 1024) and the partial/output offsets are
+// int64.  tinfo, chunk_step_ptr and block_chunk_ptr are int32: they count
+// bundles, steps and chunks, each far below 2^31 for any stream that fits
+// in device memory.
 //
 // Decode, per slot (i, l) of tile t (meta read as uint16):
 //   r    = meta[t, i, l] & 127                       (at the slot)
@@ -237,7 +253,9 @@ int dispatch(const Args& a, bool slot, int64_t nw, bool cell_w) {
   return dispatch_slot<kVM>(a, nw, cell_w);
 }
 
-// The binary mode exists in row mode only (COO2's R is a SELL-8W pack).
+// Row mode has one window a tile (nw == 1), windowed streams (K5, K7 row)
+// included.  The binary mode exists in row mode only (COO2's R is a
+// SELL-8W pack).
 template <>
 int dispatch<kBinary>(const Args& a, bool slot, int64_t nw, bool cell_w) {
   return !slot && nw == 1 && !cell_w ? launch<kBinary, false, 1, false>(a)

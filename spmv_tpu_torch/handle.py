@@ -8,17 +8,25 @@ work.  Planning does not depend on the device: the CPU runs the same plans
 as the card, through each kernel's plain PyTorch version, so the CPU tests
 cover the plans the card runs.
 
-Ported plans (the slice the bench's f32 and f64 families run):
+Ported plans (the slice the bench's f32 and f64 families and the n > 2M
+SELL tiers run):
 
 =================  ==========================================================
 DIA                ``ops/dia.py`` (K3, K4 for f64; also the JAX package's XLA
                    DIA plan)
 SELL-8W v2 rows    ``ops/sell.py`` row mode (K1, K2 for f64), with the
-                   mega-row fold
+                   mega-row fold; past 2M columns ``sell8w_v2w`` (K5
+                   values, K7 for f64)
 SELL-8D slots      ``ops/sell.py`` slot mode (K1, K2 for f64), nw 1/2/4/8,
-                   cell_w
+                   cell_w; past 2M columns the one windowed stream (K6, K7
+                   for f64) or column stripes (below)
+column stripes     n > 2M: stripes of at most 2M columns, each a slot
+                   stream over its slice of x (K1, K2), whose compact
+                   outputs add into y; the router prices them against the
+                   windowed stream with the JAX package's TPU constants
 row-split hybrid   8W heavy rows + 8D light rows; the heavy output folds
-                   back by a scatter-add (f32) or by x-extension (f64)
+                   back by a scatter-add (f32, and f64 past 2M columns) or
+                   by x-extension (f64)
 stragglers         compact per-row sums + one scatter-add (plain PyTorch)
 COO2 (CSR5, f32)   ``ops/coo2.py``: pass 1 (K8) writes one product a slot,
                    pass 2 sums them by the SELL row-mode kernel in binary
@@ -27,7 +35,8 @@ Serial             gather + scatter-add (plain PyTorch, AUTO's nnz < 10k)
 =================  ==========================================================
 
 Method.CSR5 packs COO2 in f32; when the pass-2 gate refuses, and for every
-f64 matrix, it retries the SELL tiers above (n ≤ 2M).
+f64 matrix, it retries the SELL tiers above (n ≤ 2M, as the JAX package
+does).
 
 An f64 matrix runs in native f64 end to end: x, the kernels' sums and y.
 
@@ -136,11 +145,12 @@ def plan_kind(plan: Dict[str, Any]) -> str:
         return "hybrid(8w+8d)"
     if "coo2" in plan:
         return "coo2"
-    for key, name in (("sell8d", "sell8d"), ("sell8w_v2", "sell8w_v2"),
-                      ("dia", "dia")):
+    rest = "+rest" if ("rest_rows" in plan or "rest" in plan) else ""
+    if "sell8d_stripes" in plan:
+        return f"sell8d-striped[{len(plan['sell8d_stripes'])}]" + rest
+    for key in ("sell8d", "sell8w_v2", "sell8w_v2w", "dia"):
         if key in plan:
-            return name + ("+rest" if ("rest_rows" in plan
-                                       or "rest" in plan) else "")
+            return key + rest
     return "serial" if "rows" in plan else "none"
 
 
@@ -162,9 +172,6 @@ def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
         if vectorized == VectorizedWay.NONE:
             raise _not_ported("the XLA chunked-SELL plan "
                               "(VectorizedWay.NONE)", 6)
-        if a.n > V2_MAX_N:
-            raise _not_ported("SELL tiers for n > 2M (K5-K7, column "
-                              "stripes, sell8w_v2w)", 2)
         return _plan_sell(a, hints or {})
     if method == Method.SERIAL:
         return {
@@ -270,13 +277,18 @@ def _append_fold_entries(mat: CsrMatrix, fold_rows: np.ndarray,
 
 
 def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
-    """SELL_C_SIGMA / PARALLEL with n ≤ V2_MAX_N: row mode (SELL-8W v2)
-    vs slot mode (SELL-8D) vs the row-split hybrid, by estimated tile count
-    (f32) or estimated cost (the f64 hybrid gate) — the JAX planner's
-    ``_plan_windowed`` ladder."""
-    from .formats.sell8d import (cost_tables, dense_tile_ns,
-                                 estimate_sell8d_auto, pack_sell8d,
-                                 prepare_hybrid, slot_stream_budget)
+    """SELL_C_SIGMA / PARALLEL: row mode (SELL-8W v2) vs slot mode
+    (SELL-8D) vs the row-split hybrid, by estimated tile count (f32) or
+    estimated cost (the f64 hybrid gate) — the JAX planner's
+    ``_plan_windowed`` ladder.  Past V2_MAX_N columns slot mode is column
+    stripes or one windowed stream, by the JAX planner's cost gate, and
+    row mode is a windowed ``sell8w_v2w`` stream."""
+    from .formats.sell8d import (MAX_SPILL_STRIPED, MAX_STRIPES,
+                                 column_stripe_bounds, cost_tables,
+                                 dense_tile_ns, estimate_sell8d_auto,
+                                 pack_sell8d, pack_sell8d_striped,
+                                 prepare_hybrid, slot_stream_budget,
+                                 stripe_overhead_ns)
     WINDOW = sell8w_fmt.WINDOW
     df = np.dtype(a.dtype) == np.dtype(np.float64)
 
@@ -301,6 +313,18 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
         nw = extra.get("sell8d_nw", 1)
         mem_cap = slot_stream_budget(mat.vals, nw, df) / max(mat.nnz, 1)
         allow = extra.get("sell8d_allow", _pad_allow(32.0, mem_cap))
+        if (mat.n > V2_MAX_N
+                and len(column_stripe_bounds(mat.n)) <= MAX_STRIPES
+                and extra.get("sell8d_striped", True)):
+            # column stripes of ≤ V2_MAX_N columns, each packed as its own
+            # slot stream over the slices it touches; the rest gets global
+            # columns
+            stripes, rest8d, pad = pack_sell8d_striped(
+                mat, max_pad_ratio=allow, nw=nw, cell_w=nw > 1)
+            vm = max(stripes, key=lambda s: s[3].ntiles)[3].value_mode
+            plan = {"sell8d_stripes": stripes, "pad_ratio": pad,
+                    "value_mode": vm, "nw": nw}
+            return _finish_rest(plan, [rest8d, extra.get("rest_host")])
         packed, rest8d = pack_sell8d(
             mat, max_pad_ratio=allow, nw=nw, g="auto",
             max_spill=extra.get("sell8d_max_spill", 0.02), cell_w=nw > 1)
@@ -316,7 +340,9 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
                 < sell8w_fmt.estimate_sell8w_tiles(mat)):
             mat = mat2
             extra = {**extra, "mega_sub_rows": sub_rows}
-        allow = _pad_allow(32.0, 6.7e8 / max(mat.nnz, 1))
+        # a windowed stream (past V2_MAX_N) gets a tighter pad allowance
+        allow = _pad_allow(32.0 if mat.n <= V2_MAX_N else 8.0,
+                           6.7e8 / max(mat.nnz, 1))
         packed = sell8w_fmt.pack_sell8w(mat, max_pad_ratio=allow)
         if df:
             # the greedy placement is value-independent, so packing the lo
@@ -328,8 +354,9 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
             v2 = sell8w_fmt.plan_v2(packed, lo_tiles=lo.vals)
         else:
             v2 = sell8w_fmt.plan_v2(packed)
+        key = "sell8w_v2" if mat.n <= V2_MAX_N else "sell8w_v2w"
         plan = {"sell8w": packed, "pad_ratio": packed.pad_ratio,
-                "value_mode": v2.value_mode, "sell8w_v2": v2}
+                "value_mode": v2.value_mode, key: v2}
         extra = dict(extra)
         rest_host = extra.pop("rest_host", None)
         plan.update(extra)
@@ -359,16 +386,46 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
                     nnz_h = int(np.count_nonzero(hmask))
                     if nnz_h == 0 or ph * WINDOW / nnz_h > 96:
                         return _sell8w_plan(mat, extra)
+        striped = False
         max_sp = 0.02
-        t8d, _cap, spilled, nw = estimate_sell8d_auto(mat, nw=None,
-                                                      max_spill=max_sp)
-        if spilled > max_sp * mat.nnz:
-            t8d = 0                       # 8D alone not viable
+        if (mat.n > V2_MAX_N
+                and len(column_stripe_bounds(mat.n)) <= MAX_STRIPES):
+            # past V2_MAX_N: column stripes (resident tiles plus a per-
+            # stripe overhead) against one windowed stream, each with its
+            # own bundle width and the striped spill budget, priced by the
+            # JAX package's TPU cost tables
+            t_res, _cr, sp_res, nw_res = estimate_sell8d_auto(
+                mat, nw=None, windowed=False, max_spill=MAX_SPILL_STRIPED)
+            if sp_res > MAX_SPILL_STRIPED * mat.nnz:
+                t_res = 0
+            t_win, _cw, sp_win, nw_win = estimate_sell8d_auto(
+                mat, nw=None, windowed=True, max_spill=MAX_SPILL_STRIPED)
+            if sp_win > MAX_SPILL_STRIPED * mat.nnz:
+                t_win = 0
+            ts_res, sns = cost_tables(False, df)
+            ts_win, _s2 = cost_tables(True, df)
+            inf = float("inf")
+            cost_res = (t_res * ts_res[nw_res] + sp_res * sns
+                        + stripe_overhead_ns(mat.n)) if t_res else inf
+            cost_win = (t_win * ts_win[nw_win] + sp_win * sns
+                        ) if t_win else inf
+            striped = cost_res < cost_win
+            max_sp = MAX_SPILL_STRIPED
+            if striped:
+                t8d, spilled, nw = t_res, sp_res, nw_res
+            else:
+                t8d, spilled, nw = t_win, sp_win, nw_win
+        else:
+            t8d, _cap, spilled, nw = estimate_sell8d_auto(
+                mat, nw=None, max_spill=max_sp)
+            if spilled > max_sp * mat.nnz:
+                t8d = 0                   # 8D alone not viable
         tried_8d = False
         if t8d and t8d * WINDOW / mat.nnz <= 4.5:
             # clearly good slot-mode pack: skip the row-mode estimate
             try:
                 return _sell8d_plan(mat, {**extra, "sell8d_nw": nw,
+                                          "sell8d_striped": striped,
                                           "sell8d_max_spill": max_sp})
             except ValueError:
                 tried_8d = True
@@ -384,7 +441,8 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
             elif df:
                 # f64 compares estimated costs, not tile counts: dense
                 # (8W) and slot (8D) double-float tiles price differently
-                ts_tab, spill_ns = cost_tables(False, True)
+                ts_tab, spill_ns = cost_tables(
+                    mat.n > V2_MAX_N and not striped, True)
                 cost_8w = (t8w * dense_tile_ns(True) if t8w
                            else float("inf"))
                 cost_8d = (t8d * ts_tab[nw] + spilled * spill_ns if t8d
@@ -399,12 +457,14 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
                     pd["m_rows"] = prep.dense_sorted.m
                     pd["fold_rows"] = prep.fold_rows.astype(INT_DTYPE)
                     sparse = prep.sparse
-                    if (df and "mega_sub_rows" not in pd
+                    if (df and "sell8w_v2" in pd
+                            and "mega_sub_rows" not in pd
                             and "rest_rows" not in pd):
                         # f64 folds by x-extension: the light plan gains a
                         # 1.0-valued entry (row fold_rows[j], column n + j)
                         # per compact heavy row, and the executor appends
-                        # the heavy output to x
+                        # the heavy output to x; a windowed dense part
+                        # (past V2_MAX_N) folds by the scatter-add
                         pd["fold_planes_ext"] = True
                         sparse = _append_fold_entries(
                             prep.sparse, prep.fold_rows, np.float64)
@@ -418,6 +478,7 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
                         sparse,
                         {**extra, "sell8d_nw": prep.nw,
                          "sell8d_allow": allow_s,
+                         "sell8d_striped": striped,
                          "sell8d_max_spill": max_sp})
                     return {"hybrid": (pd, psp),
                             "pad_ratio": prep.tiles * WINDOW / mat.nnz,
@@ -428,6 +489,7 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
         if t8d and not tried_8d and t8d < 0.7 * t8w:
             try:
                 return _sell8d_plan(mat, {**extra, "sell8d_nw": nw,
+                                          "sell8d_striped": striped,
                                           "sell8d_max_spill": max_sp})
             except ValueError:
                 pass
@@ -475,6 +537,16 @@ def _prepare_rest(rows, cols, vals, device) -> Dict[str, Any]:
             "nseg": int(seg[-1]) + 1 if len(seg) else 0}
 
 
+def _stripe_slices(vis, device) -> Optional[torch.Tensor]:
+    """The 1024-row slices a stripe's compact output lands on, as an int64
+    tensor on ``device``; None when they are the first len(vis) slices
+    (a stripe that touches every slice), which a plain add places."""
+    vis = np.asarray(vis, dtype=np.int64)
+    if np.array_equal(vis, np.arange(len(vis))):
+        return None
+    return dev_put(vis, device)
+
+
 def _place(plan: Dict[str, Any], device) -> Dict[str, Any]:
     """Host plan → the same plan with its arrays on ``device`` (packs
     become kernel streams).  The v1 SELL-8W pack is host-only."""
@@ -484,7 +556,11 @@ def _place(plan: Dict[str, Any], device) -> Dict[str, Any]:
             out[k] = tuple(_place(p, device) for p in v)
         elif k == "sell8d":
             out[k] = sell_ops.prepare_sell(v, device, slot_mode=True)
-        elif k == "sell8w_v2":
+        elif k == "sell8d_stripes":
+            out[k] = [(int(lo), int(hi), _stripe_slices(vis, device),
+                       sell_ops.prepare_sell(pk, device, slot_mode=True))
+                      for lo, hi, vis, pk in v]
+        elif k in ("sell8w_v2", "sell8w_v2w"):
             out[k] = sell_ops.prepare_sell(v, device, slot_mode=False)
         elif k == "dia":
             out[k] = dia_ops.prepare_dia(v, device)
@@ -522,6 +598,35 @@ def light_part_input(handle: "SpmvHandle", x: torch.Tensor) -> torch.Tensor:
                                  pd.get("m_rows", handle.m)), x)
 
 
+#: the plan keys of SELL tile streams
+_SELL_KEYS = ("sell8d", "sell8d_stripes", "sell8w_v2", "sell8w_v2w")
+
+
+def _sell_fn(p: Dict[str, Any], m_rows: int):
+    """``x -> y`` over a placed plan's SELL streams, before its folds."""
+    if "sell8d_stripes" not in p:
+        st = next(p[k] for k in _SELL_KEYS if k in p)
+        return lambda x: sell_ops.sell_spmv(st, x)[:st.m]
+    # one slot stream per column stripe on its slice of x (a view); each
+    # compact output adds into the 1024-row slices it touched, and y is
+    # cut to m_rows once, after the stripes
+    parts = p["sell8d_stripes"]
+    window = sell8w_fmt.WINDOW
+    nsl = max(-(-m_rows // window), 1)
+
+    def striped(x):
+        out = torch.zeros(nsl, window, dtype=x.dtype, device=x.device)
+        for lo, hi, vis, st in parts:
+            o = sell_ops.sell_spmv(st, x[lo:hi]).view(-1, window)
+            if vis is None:
+                out[:o.shape[0]] += o
+            else:
+                out.index_add_(0, vis, o)
+        return out.view(-1)[:m_rows]
+
+    return striped
+
+
 def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
     """Bind a placed plan into an ``x -> y`` closure.  Outputs are fresh
     tensors, so the folds add into them in place."""
@@ -540,12 +645,8 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
             fr = pd["fold_rows"]
             return lambda x: f2(x).index_add_(0, fr, f1(x))
         return lambda x: f1(x) + f2(x)
-    if "sell8d" in p or "sell8w_v2" in p:
-        st = p["sell8d"] if "sell8d" in p else p["sell8w_v2"]
-
-        def inner(x):
-            return sell_ops.sell_spmv(st, x)[:st.m]
-
+    if any(k in p for k in _SELL_KEYS):
+        inner = _sell_fn(p, m_rows)
         fn = inner
         if "mega_sub_rows" in p:
             # fold virtual sub-row outputs back into their origin rows

@@ -1,22 +1,36 @@
 """SELL tile-stream SpMV: the kernel ``csrc/sell.cu`` and its plain version.
 
-Replaces two TPU kernels, each in both of its modes: row mode over a
-SELL-8W v2 stream (``build_sell8w_v2_fn``) and slot mode over a SELL-8D
-stream (the resident branch of ``build_sell8d_fn``), with window bundles
-of 1, 2, 4 or 8 and the cell-shared window select (``cell_w``):
+Replaces the TPU's SELL tile kernels, each in both of its modes: row mode
+over a SELL-8W v2 stream (``build_sell8w_v2_fn``, ``build_sell8w_v2w_fn``)
+and slot mode over a SELL-8D stream (``build_sell8d_fn``), with window
+bundles of 1, 2, 4 or 8 and the cell-shared window select (``cell_w``).
+The TPU keeps x in VMEM up to :data:`V2_MAX_N` columns (K1, K2) and past
+it DMAs one x window, or bundle of windows, a tile (K5-K7); the card reads
+x from device memory at any column, so one kernel serves both, and
+:func:`kernel_name` and the launch counts tell them apart by the stream's
+n:
 
-* ``spmv_tpu/ops/pallas_sell.py::_kernel_v2`` (K1): f32, bf16 or palette
-  values, f32 x and y;
-* ``spmv_tpu/ops/pallas_sell.py::_kernel_v2_df`` (K2): the double-float
-  packs of f64 matrices (``df``, ``df16``, ``palette_df`` values), f64 x
-  and y.  Each slot's value is decoded to one f64 (hi + lo, rounded once) and
-  summed in native f64: the TPU's error-free transforms are not carried
-  over;
-* ``spmv_tpu/ops/pallas_sell.py::_make_kernel_v2w`` (K5) in its ``binary``
-  mode, row mode only: COO2's pass-2 reduce, every value 1 with validity in
-  meta bit 15 and no values stream (:func:`binary_v2` builds the stream as
-  ``build_sell8w_v2w_fn(binary=True)`` does), f32 x (the pass-1 products)
-  and y.  K5's window DMAs are not carried over: x stays in device memory.
+* ``spmv_tpu/ops/pallas_sell.py::_kernel_v2`` (K1, ``sell_row`` and
+  ``sell_slot``): f32, bf16 or palette values, f32 x and y, n ≤ V2_MAX_N;
+* ``spmv_tpu/ops/pallas_sell.py::_kernel_v2_df`` (K2, ``sell_row_df`` and
+  ``sell_slot_df``): the double-float packs of f64 matrices (``df``,
+  ``df16``, ``palette_df`` values), f64 x and y, n ≤ V2_MAX_N.  Each
+  slot's value is decoded to one f64 (hi + lo, rounded once) and summed in
+  native f64: the TPU's error-free transforms are not carried over;
+* ``spmv_tpu/ops/pallas_sell.py::_make_kernel_v2w`` (K5): with values
+  (``sell_row_w``), K1's row mode past V2_MAX_N; in its ``binary`` mode
+  (``sell_row_bin``, any n), COO2's pass-2 reduce, every value 1 with
+  validity in meta bit 15 and no values stream (:func:`binary_v2` builds
+  the stream as ``build_sell8w_v2w_fn(binary=True)`` does), f32 x (the
+  pass-1 products) and y;
+* ``spmv_tpu/ops/pallas_sell.py::_make_kernel_v2w_slot`` (K6,
+  ``sell_slot_w``): K1's slot mode past V2_MAX_N;
+* ``spmv_tpu/ops/pallas_sell.py::_make_kernel_v2w_df`` (K7,
+  ``sell_row_df_w`` and ``sell_slot_df_w``): K2 past V2_MAX_N.
+
+A column stripe of a striped plan has the stripe's width as its n (at most
+V2_MAX_N), so it runs as K1 or K2, as the JAX package runs ``_run_v2``
+there.
 
 On the H100 the kernel is bound by the bytes of each padded slot (2 B of
 meta, plus 2 B bf16, 4 B f32, 6 B df16 or 8 B df values; none for the
@@ -26,9 +40,11 @@ of at most ``CHUNK_TILES`` tiles inside one output block, one CUDA block
 per chunk, and adds each block's chunks in a second, ordered pass: no
 atomics.
 
-Not carried over from the TPU: the SMEM scalar-prefetch chunking of
-``_slot_chunks`` (one launch takes the whole stream here) and the zero
-padding of x to a whole window bundle (columns >= n read 0 instead).
+Not carried over from the TPU: the per-tile window DMAs of K5-K7 (a VMEM
+workaround; the kernel's gathers read x where it lies), the SMEM
+scalar-prefetch chunking of ``_slot_chunks`` (one launch takes the whole
+stream here) and the zero padding of x to a whole window bundle (columns
+>= n read 0 instead).
 """
 
 from __future__ import annotations
@@ -48,21 +64,31 @@ from ..utils.profiling import dev_put
 __all__ = ["SellStream", "prepare_sell", "binary_v2", "sell_spmv",
            "sell_plain", "sell_decode", "kernel_name", "row_launches",
            "slot_launches", "row_df_launches", "slot_df_launches",
-           "row_bin_launches", "V2_MAX_N", "CHUNK_TILES"]
+           "row_bin_launches", "row_w_launches", "slot_w_launches",
+           "row_df_w_launches", "slot_df_w_launches", "V2_MAX_N",
+           "CHUNK_TILES"]
 
-#: the JAX package's VMEM-resident-x bound; the port keeps it as the edge
-#: of the slice (n > 2M SELL tiers are not ported yet)
+#: the JAX package's VMEM-resident-x bound: streams up to it replace the
+#: resident kernels (K1, K2), streams past it the windowed ones (K5-K7)
 V2_MAX_N = 2_000_000
 #: most tiles one CUDA block takes (a chunk never straddles output blocks)
 CHUNK_TILES = 64
+#: most tiles the plain version decodes at once (its int64 temporaries
+#: stay near 0.5 GB each on full-size streams)
+PLAIN_TILES = 1 << 16
 
-#: kernel launches made by :func:`sell_spmv` in each mode, f32 (K1), f64
-#: (K2) and binary (K5) streams apart
+#: kernel launches made by :func:`sell_spmv` for each kernel name: f32
+#: (K1) and f64 (K2) streams up to V2_MAX_N, their windowed counterparts
+#: (K5 values, K6, K7) past it, and binary (K5 binary) streams
 row_launches = 0
 slot_launches = 0
 row_df_launches = 0
 slot_df_launches = 0
 row_bin_launches = 0
+row_w_launches = 0
+slot_w_launches = 0
+row_df_w_launches = 0
+slot_df_w_launches = 0
 
 _VALUE_MODES = {"f32": 0, "bf16": 1, "palette": 2,
                 "df": 3, "df16": 4, "palette_df": 5, "binary": 6}
@@ -184,43 +210,48 @@ def prepare_sell(packed, device, slot_mode: bool) -> SellStream:
         block_chunk_ptr=dev_put(bcp, device))
 
 
-def _slot_values(st: SellStream) -> torch.Tensor:
-    """Every slot's value, (ntiles, 8, 128), in the stream's type."""
+def _slot_values(st: SellStream, t0: int, t1: int) -> torch.Tensor:
+    """The value of every slot of tiles [t0, t1), (t1 - t0, 8, 128), in
+    the stream's type."""
+    meta = st.meta[t0:t1]
     if st.value_mode == "binary":
-        return ((st.meta.to(torch.int64) & 0x8000) != 0).to(torch.float32)
+        return ((meta.to(torch.int64) & 0x8000) != 0).to(torch.float32)
     if st.value_mode in ("palette", "palette_df"):
-        meta = st.meta.to(torch.int64) & 0xFFFF
         lb = st.nw.bit_length() - 1
-        return st.palette[(meta >> (10 + lb)) & (63 >> lb)]
+        return st.palette[((meta.to(torch.int64) & 0xFFFF) >> (10 + lb))
+                          & (63 >> lb)]
+    vals = st.vals[t0:t1]
     if st.value_mode not in DF_MODES:
-        return st.vals.to(torch.float32)
-    hi = st.vals.to(torch.float64)
+        return vals.to(torch.float32)
+    hi = vals.to(torch.float64)
     if st.value_mode == "df":
-        return hi + st.vals_lo.to(torch.float64)
+        return hi + st.vals_lo[t0:t1].to(torch.float64)
     # df16: lo = q · floor-pow2(|hi|) · 2^-39, the scale from hi's exponent
     # bits (0 for a zero or subnormal hi), as _df16_decode computes it
-    pulse = (st.vals.view(torch.int32) & 0x7F800000).view(torch.float32)
+    pulse = (vals.view(torch.int32) & 0x7F800000).view(torch.float32)
     scale = (pulse * 2.0 ** -39).to(torch.float64)
-    return hi + st.vals_lo.to(torch.float64) * scale
+    return hi + st.vals_lo[t0:t1].to(torch.float64) * scale
 
 
-def sell_decode(st: SellStream):
-    """(rows, cols, values) of every slot of the stream, each
-    (ntiles, 8, 128): rows index the (nblocks * 1024,) output (in row mode
-    the 8 sublanes of a slot column share one row); columns may be >= n
-    on padding slots."""
+def sell_decode(st: SellStream, t0: int = 0, t1: Optional[int] = None):
+    """(rows, cols, values) of every slot of tiles [t0, t1) (all tiles by
+    default), each (t1 - t0, 8, 128): rows index the (nblocks * 1024,)
+    output (in row mode the 8 sublanes of a slot column share one row);
+    columns may be >= n on padding slots."""
+    t1 = st.meta.shape[0] if t1 is None else min(t1, st.meta.shape[0])
     dev = st.meta.device
-    meta = st.meta.to(torch.int64) & 0xFFFF                  # (T, 8, 128)
+    meta = st.meta[t0:t1].to(torch.int64) & 0xFFFF           # (T, 8, 128)
     r = meta & 127
     cell = torch.gather(meta, 2, r)                           # meta[t, i, r]
     s = (cell >> 7) & 7
-    ti = st.tinfo.to(torch.int64)[:, None, None]
+    ti = st.tinfo[t0:t1].to(torch.int64)[:, None, None]
     if st.slot_mode:
         wsel = ((cell if st.cell_w else meta) >> 10) & (st.nw - 1)
         col = (ti >> 3) * (st.nw * WINDOW) + wsel * WINDOW + s * LANES + r
     else:
         col = (ti >> 3) * WINDOW + s * LANES + r
-    tile_block = st.step_block.repeat_interleave(st.g)[:, None, None]
+    step = torch.arange(t0, t1, device=dev) // st.g
+    tile_block = st.step_block[step][:, None, None]
     lane = torch.arange(LANES, device=dev)
     if st.slot_mode:
         rows = (tile_block * WINDOW
@@ -229,47 +260,52 @@ def sell_decode(st: SellStream):
     else:
         rows = (tile_block * WINDOW + (ti & 7) * LANES
                 + lane).expand(-1, SUB, -1)
-    return rows, col, _slot_values(st)
+    return rows, col, _slot_values(st, t0, t1)
 
 
 def sell_plain(st: SellStream, x: torch.Tensor) -> torch.Tensor:
     """The plain version over the same packed arrays: decode every slot's
     column and value, gather x, and add the products into their rows with
-    ``index_add_``.  Returns the (nblocks * 1024,) output, f32 for a K1
-    stream and f64 for a K2 stream (f32 for a binary stream)."""
+    ``index_add_``, :data:`PLAIN_TILES` tiles at a time.  Returns the
+    (nblocks * 1024,) output, f32 for an f32 stream and f64 for a
+    double-float one (f32 for a binary stream)."""
     x = x.to(st.dtype)
     out = torch.zeros(st.nblocks * WINDOW, dtype=st.dtype, device=x.device)
-    if st.n == 0 or st.meta.numel() == 0:
+    if st.n == 0:
         return out
-    rows, col, v = sell_decode(st)
-    xg = torch.where(col < st.n, x[col.clamp(max=st.n - 1)], 0.0)
-    # binary: K5 selects x at the valid slots (a padding slot adds 0 even
-    # where x is not finite)
-    prod = (torch.where(v != 0, xg, 0.0) if st.value_mode == "binary"
-            else v * xg)
-    if st.slot_mode:
-        out.index_add_(0, rows.reshape(-1), prod.reshape(-1))
-    else:
-        out.index_add_(0, rows[:, 0].reshape(-1), prod.sum(1).reshape(-1))
+    for t0 in range(0, st.meta.shape[0], PLAIN_TILES):
+        rows, col, v = sell_decode(st, t0, t0 + PLAIN_TILES)
+        xg = torch.where(col < st.n, x[col.clamp(max=st.n - 1)], 0.0)
+        del col
+        # binary: K5 selects x at the valid slots (a padding slot adds 0
+        # even where x is not finite)
+        prod = (torch.where(v != 0, xg, 0.0) if st.value_mode == "binary"
+                else v * xg)
+        if st.slot_mode:
+            out.index_add_(0, rows.reshape(-1), prod.reshape(-1))
+        else:
+            out.index_add_(0, rows[:, 0].reshape(-1),
+                           prod.sum(1).reshape(-1))
     return out
 
 
 def kernel_name(st: SellStream) -> str:
     """The name of the kernel that runs ``st``: sell_row, sell_slot, their
-    f64 forms sell_row_df and sell_slot_df, or sell_row_bin."""
+    f64 forms sell_row_df and sell_slot_df, each with the suffix ``_w``
+    past V2_MAX_N (K5 values, K6, K7), or sell_row_bin."""
     if st.value_mode == "binary":
         return "sell_row_bin"
     return (("sell_slot" if st.slot_mode else "sell_row")
-            + ("_df" if st.value_mode in DF_MODES else ""))
+            + ("_df" if st.value_mode in DF_MODES else "")
+            + ("_w" if st.n > V2_MAX_N else ""))
 
 
 def sell_spmv(st: SellStream, x: torch.Tensor) -> torch.Tensor:
     """Tile-stream product, (nblocks * 1024,) output.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel; any other device
-    raises.  x is f32 for a K1 or K5 (binary) stream and f64 for a K2
-    stream."""
-    global row_launches, slot_launches, row_df_launches, slot_df_launches
-    global row_bin_launches
+    raises.  x is f32 for an f32 or binary stream and f64 for a
+    double-float one.  Each launch adds one to the count of its kernel
+    name."""
     if x.device.type == "cpu":
         return sell_plain(st, x)
     if x.device.type != "cuda":
@@ -283,7 +319,6 @@ def sell_spmv(st: SellStream, x: torch.Tensor) -> torch.Tensor:
     partial = torch.empty(st.nchunks * WINDOW, dtype=st.dtype,
                           device=x.device)
     out = torch.empty(st.nblocks * WINDOW, dtype=st.dtype, device=x.device)
-    df = st.value_mode in DF_MODES
     err = lib.spmv_sell_launch(
         st.meta.data_ptr(),
         st.vals.data_ptr() if st.vals is not None else None,
@@ -294,15 +329,17 @@ def sell_spmv(st: SellStream, x: torch.Tensor) -> torch.Tensor:
         st.nchunks, st.nblocks, st.g, st.n, _VALUE_MODES[st.value_mode],
         int(st.slot_mode), st.nw, int(st.cell_w),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, kernel_name(st))
-    if st.value_mode == "binary":
-        row_bin_launches += 1
-    elif st.slot_mode and df:
-        slot_df_launches += 1
-    elif st.slot_mode:
-        slot_launches += 1
-    elif df:
-        row_df_launches += 1
-    else:
-        row_launches += 1
+    name = kernel_name(st)
+    _build.check(lib, err, name)
+    globals()[_COUNTERS[name]] += 1
     return out
+
+
+#: kernel name → the module-level count of its launches
+_COUNTERS = {"sell_row": "row_launches", "sell_slot": "slot_launches",
+             "sell_row_df": "row_df_launches",
+             "sell_slot_df": "slot_df_launches",
+             "sell_row_bin": "row_bin_launches",
+             "sell_row_w": "row_w_launches", "sell_slot_w": "slot_w_launches",
+             "sell_row_df_w": "row_df_w_launches",
+             "sell_slot_df_w": "slot_df_w_launches"}

@@ -1,7 +1,8 @@
 """The port's host layer (jax-free copies in spmv_tpu_torch) pinned to the
 JAX package's originals: generators, packers (bit-identical arrays, bf16
-compared as its uint16 bits), the numpy bf16 conversion, and the AUTO
-method choice."""
+compared as its uint16 bits; past 2M columns too: column stripes, the
+windowed slot pack, SELL-8W), the numpy bf16 conversion, the cost gate's
+estimates and constants, and the AUTO method choice."""
 
 import dataclasses
 
@@ -259,3 +260,102 @@ def test_pack_dia_identical_f64():
     dj, dt = j_dia.pack_dia(j), t_dia.pack_dia(t)
     assert dt.data.dtype == np.float64
     _same(dj, dt)
+
+
+# -- n > 2M: column stripes, the windowed slot pack, SELL-8W -----------------
+
+def _wide(g, value_mode, seed=4):
+    """Uniform scatter, 4096 rows of 64 nonzeros over 2.5M columns, with
+    values the packers store as ``value_mode``."""
+    j = g.random_uniform(4096, 2_500_000, 64, dtype=np.float32, seed=seed)
+    rng = np.random.default_rng(seed)
+    if value_mode in ("df16", "palette_df"):
+        v = (rng.standard_normal(7)[rng.integers(0, 7, j.nnz)]
+             if value_mode == "palette_df" else rng.standard_normal(j.nnz))
+        return g.CsrMatrix(j.m, j.n, j.rowptr, j.colidx, v)
+    if value_mode == "palette":
+        return j
+    v = rng.integers(1, 256, j.nnz) / 32.0
+    return g.CsrMatrix(j.m, j.n, j.rowptr, j.colidx, v.astype(np.float32))
+
+
+def test_stripe_constants_and_bounds_identical():
+    assert (t_8d.MAX_STRIPES, t_8d.MAX_SPILL_STRIPED, t_8d.STRIPE_ALIGN) \
+        == (j_8d.MAX_STRIPES, j_8d.MAX_SPILL_STRIPED, j_8d.STRIPE_ALIGN)
+    for n in (1_000_000, 2_000_000, 2_000_001, 2_500_000, 4_000_000,
+              9_999_999, 128_000_000, 200_000_000):
+        assert t_8d.column_stripe_bounds(n) == j_8d.column_stripe_bounds(n)
+        assert t_8d.stripe_overhead_ns(n) == j_8d.stripe_overhead_ns(n)
+    rng = np.random.default_rng(3)
+    for windowed in (False, True):
+        for _ in range(20):
+            tiles = rng.integers(0, 300, rng.integers(1, 40))
+            assert (t_8d._choose_g(tiles, 20.0, windowed)
+                    == j_8d._choose_g(tiles, 20.0, windowed))
+
+
+@pytest.mark.parametrize("value_mode,nw", [("bf16", 8), ("palette", 4),
+                                           ("df16", 8), ("palette_df", 2)])
+def test_pack_sell8d_striped_identical(value_mode, nw):
+    # stripe by stripe: (lo, hi, vis), meta, values, tinfo, ginfo rebased
+    # to vis, and the merged rest with global columns
+    j, t = _wide(j_gen, value_mode), _wide(t_gen, value_mode)
+    _same((j.rowptr, j.colidx, j.vals), (t.rowptr, t.colidx, t.vals))
+    sj, rj, pj = j_8d.pack_sell8d_striped(j, max_pad_ratio=64.0, nw=nw,
+                                          cell_w=nw > 1)
+    st, rt, pt = t_8d.pack_sell8d_striped(t, max_pad_ratio=64.0, nw=nw,
+                                          cell_w=nw > 1)
+    assert len(st) == 2 and pt == pj
+    assert {q[3].value_mode for q in st} == {value_mode}
+    _same(sj, st)
+    _same(rj, rt)
+    for windowed in (False, True):
+        for w in (None, nw):
+            assert (j_8d.estimate_sell8d_auto(
+                j, nw=w, windowed=windowed, max_spill=j_8d.MAX_SPILL_STRIPED)
+                == t_8d.estimate_sell8d_auto(
+                t, nw=w, windowed=windowed,
+                max_spill=t_8d.MAX_SPILL_STRIPED))
+
+
+@pytest.mark.parametrize("value_mode,nw", [("palette", 1), ("bf16", 2),
+                                           ("df16", 1), ("palette_df", 2)])
+def test_windowed_pack_sell8d_identical(value_mode, nw):
+    # one slot stream past 2M columns: the windowed cost table and g
+    j, t = _wide(j_gen, value_mode, seed=5), _wide(t_gen, value_mode, seed=5)
+    kw = dict(g="auto", max_pad_ratio=256.0, max_spill=0.05, nw=nw,
+              cell_w=nw > 1)
+    pj, rj = j_8d.pack_sell8d(j, **kw)
+    pt, rt = t_8d.pack_sell8d(t, **kw)
+    assert pt.n > 2_000_000 and pt.value_mode == value_mode
+    assert pt.g in (8, 16)
+    _same(pj, pt)
+    _same(rj, rt)
+
+
+@pytest.mark.parametrize("f64", [False, True])
+def test_pack_sell8w_and_plan_v2_identical_past_2m(f64):
+    # SELL-8W at max_pad_ratio=8 (the windowed row allowance) and plan_v2,
+    # f32 and the f64 double pack (hi, lo)
+    j, t = _both(lambda g: g.clustered(4000, 2_500_000, 10, spread=400,
+                                       dtype=np.float32, seed=3))
+    if f64:
+        j, t = _f64_values(j, t, "df16")
+
+    def pack(mod, a, cls):
+        hi = mod.pack_sell8w(a, max_pad_ratio=1e9)
+        if not f64:
+            return hi, mod.plan_v2(hi)
+        lo = mod.pack_sell8w(cls(a.m, a.n, a.rowptr, a.colidx,
+                                 (a.vals - a.vals.astype(np.float32))
+                                 .astype(np.float32)))
+        return hi, mod.plan_v2(hi, lo_tiles=lo.vals)
+
+    (hj, vj), (ht, vt) = pack(j_8w, j, JaxCsr), pack(t_8w, t, TorchCsr)
+    assert vt.n > 2_000_000
+    assert vt.value_mode == ("df16" if f64 else "palette")
+    _same(hj, ht)
+    _same(vj, vt)
+    assert j_8w.estimate_sell8w_tiles(j) == t_8w.estimate_sell8w_tiles(t)
+    with pytest.raises(ValueError):
+        t_8w.pack_sell8w(t, max_pad_ratio=1.0)

@@ -1,9 +1,10 @@
 """The port's main path end to end on device="cpu": create_handle + spmv
 against the JAX package's own plan for the same matrix (built as it is
 built on a TPU, run in interpret mode, and carried across with
-plan_from_reference) and against the golden product; plan parity; the
-handle lifecycle; what is not ported yet; and that the port imports no
-JAX.
+plan_from_reference) and against the golden product; plan parity, past
+2M columns too (column stripes, the windowed slot stream, sell8w_v2w and
+the hybrid over them); the handle lifecycle; what is not ported yet; and
+that the port imports no JAX.
 
 Tolerance per row against (|A||x|)_i:
 - f32: 1e-5 — the f32 sums are taken in another order;
@@ -28,12 +29,15 @@ import spmv_tpu.handle as jh
 from spmv_tpu.io import generate as j_gen
 from spmv_tpu.ops.pallas_coo2 import build_coo2_fn
 from spmv_tpu.ops.pallas_dia import build_dia_fn_from_parts
-from spmv_tpu.ops.pallas_sell import build_sell8d_fn, build_sell8w_v2_fn
+from spmv_tpu.ops.pallas_sell import (build_sell8d_fn, build_sell8w_v2_fn,
+                                      build_sell8w_v2w_fn)
 from spmv_tpu.types import Method as JMethod
 import spmv_tpu_torch as st
 from spmv_tpu_torch import handle as th
 from spmv_tpu_torch.convert import plan_from_reference
 from spmv_tpu_torch.io import generate as t_gen
+from spmv_tpu_torch.ops import sell as tsell
+from spmv_tpu_torch.ops.sell import V2_MAX_N
 
 #: name → (generator call, the plan AUTO must pick, its value mode)
 MATRICES = {
@@ -85,6 +89,81 @@ CSR5_MATRICES = {
 }
 
 
+def _local(g, seed=3):
+    """4096 rows of 8 nonzeros over the first 16 windows of 2.5M columns:
+    few tiles, so one windowed slot stream beats two stripes' overhead."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(4096), 8)
+    cols = rng.integers(0, 16384, rows.size)
+    return g.CsrMatrix.from_coo(4096, 2_500_000, rows, cols,
+                                rng.standard_normal(rows.size)
+                                .astype(np.float32))
+
+
+def _blocks(g, seed=3):
+    """4096 rows of 8 nonzeros; each 128-row slice's in one window of its
+    own, the windows spread over 2.5M columns: row mode (8W) packs it at
+    pad 2, slot mode (8D) at 8 a slice."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(4096), 8)
+    cols = (rows // 128) * 76 * 1024 + rng.integers(0, 1024, rows.size)
+    return g.CsrMatrix.from_coo(4096, 2_500_000, rows, cols,
+                                rng.standard_normal(rows.size)
+                                .astype(np.float32))
+
+
+def _heavy_light(g, nh, dh, hw, dl, width, seed=3):
+    """``nh`` heavy rows of ``dh`` nonzeros within ``hw`` columns of a
+    window of their 128-row slice (spread over 2.5M columns), then light
+    rows of ``dl`` nonzeros over the first ``width`` columns: the
+    row-split hybrid's shape past 2M columns."""
+    rng = np.random.default_rng(seed)
+    rh = np.repeat(np.arange(nh), dh)
+    ch = ((rh // 128) * 37 + 100) * 1024 + rng.integers(0, hw, rh.size)
+    rl = np.repeat(np.arange(nh, 4096), dl)
+    cl = rng.integers(0, width, rl.size)
+    rows, cols = np.concatenate([rh, rl]), np.concatenate([ch, cl])
+    return g.CsrMatrix.from_coo(4096, 2_500_000, rows, cols,
+                                rng.standard_normal(rows.size)
+                                .astype(np.float32))
+
+
+#: n > 2M, past the TPU's VMEM-resident x: name → (generator call, method,
+#: the plan it must build, its value mode, the kernels its streams name).
+#: m = 4096 over n = 2.5M.
+LARGE_N = {
+    # uniform scatter: the cost gate picks two column stripes, each a
+    # resident stream (K1, K2)
+    "uniform_striped": (lambda g: g.random_uniform(
+        4096, 2_500_000, 64, dtype=np.float32, seed=4), st.Method.AUTO,
+        "sell8d-striped[2]", "bf16", {"sell_slot"}),
+    "uniform_striped_f64": (lambda g: _to_f64(g.random_uniform(
+        4096, 2_500_000, 64, dtype=np.float32, seed=4)), st.Method.AUTO,
+        "sell8d-striped[2]", "df16", {"sell_slot_df"}),
+    # few tiles: one windowed slot stream (K6, K7 slot)
+    "local_windowed": (_local, st.Method.SELL_C_SIGMA, "sell8d+rest", "f32",
+                       {"sell_slot_w"}),
+    "local_windowed_f64": (lambda g: _to_f64(_local(g)),
+                           st.Method.SELL_C_SIGMA, "sell8d", "df16",
+                           {"sell_slot_df_w"}),
+    # row mode past 2M columns: sell8w_v2w (K5 values, K7 row)
+    "blocks_v2w": (_blocks, st.Method.SELL_C_SIGMA, "sell8w_v2w", "f32",
+                   {"sell_row_w"}),
+    "blocks_v2w_f64": (lambda g: _to_f64(_blocks(g)),
+                       st.Method.SELL_C_SIGMA, "sell8w_v2w", "df16",
+                       {"sell_row_df_w"}),
+    # the hybrid over sell8w_v2w and a windowed slot stream; its f64 form
+    # folds by the scatter-add, not by x-extension
+    "hybrid": (lambda g: _heavy_light(g, 512, 128, 1024, 6, 32768),
+               st.Method.SELL_C_SIGMA, "hybrid(8w+8d)", "f32",
+               {"sell_row_w", "sell_slot_w"}),
+    "hybrid_f64": (lambda g: _to_f64(_heavy_light(g, 128, 1024, 2048, 6,
+                                                  65536)),
+                   st.Method.SELL_C_SIGMA, "hybrid(8w+8d)", "df16",
+                   {"sell_row_df_w", "sell_slot_df_w"}),
+}
+
+
 def _to_f64(a, seed=7):
     """``a``'s pattern with standard-normal f64 values (bench.py)."""
     vals = np.random.default_rng(seed).standard_normal(a.nnz)
@@ -127,6 +206,18 @@ def _reference_plan(a, monkeypatch, method=JMethod.AUTO):
     return jh.create_handle(a, method=method)
 
 
+def _striped_reference(stripes, x, m_rows):
+    """The JAX striped executor: the resident slot kernel in interpret
+    mode on each stripe's slice of x, its compact output added into the
+    slices it touched."""
+    out = np.zeros((-(-m_rows // 1024), 1024))
+    for lo, hi, vis, pk in stripes:
+        o = np.asarray(build_sell8d_fn(pk, interpret=True)(x[lo:hi]),
+                       dtype=np.float64)
+        np.add.at(out, np.asarray(vis), o.reshape(-1, 1024))
+    return out.reshape(-1)[:m_rows]
+
+
 def _reference_exec(plan, x, m_rows):
     """The JAX plan's executor with every Pallas kernel in interpret mode
     (the glue of spmv_tpu.handle._make_bound, in numpy)."""
@@ -148,6 +239,11 @@ def _reference_exec(plan, x, m_rows):
         fn = build_sell8d_fn(plan["sell8d"], interpret=True)
     elif "sell8w_v2" in plan:
         fn = build_sell8w_v2_fn(plan["sell8w_v2"], interpret=True)
+    elif "sell8w_v2w" in plan:
+        fn = build_sell8w_v2w_fn(plan["sell8w_v2w"], interpret=True)
+    elif "sell8d_stripes" in plan:
+        def fn(v):
+            return _striped_reference(plan["sell8d_stripes"], v, m_rows)
     elif "coo2" in plan:
         fn = build_coo2_fn(plan["coo2"], interpret=True)
     else:
@@ -172,24 +268,29 @@ def _same_placed(p, q):
     """Two placed plans hold the same arrays."""
     assert sorted(p) == sorted(q)
     for k in p:
-        u, v = p[k], q[k]
-        if k == "hybrid":
-            for a, b in zip(u, v):
-                _same_placed(a, b)
-        elif isinstance(u, dict):
-            _same_placed(u, v)
-        elif isinstance(u, torch.Tensor) and k == "data" \
-                and u.dtype == torch.float64:
-            # an f64 DIA plan: the port keeps the pack's f64 diagonals, the
-            # JAX plan hi + lo f32 planes, which hold 48 of the 53 bits
-            assert v.dtype == u.dtype and u.shape == v.shape
-            assert bool(((u - v).abs() <= 2.0 ** -48 * u.abs()).all())
-        elif isinstance(u, torch.Tensor):
-            assert u.dtype == v.dtype and torch.equal(u, v), k
-        elif hasattr(u, "__dataclass_fields__"):      # SellStream, DiaPlan
-            _same_placed(vars(u), vars(v))
-        elif k not in ("pad_ratio", "rest_frac", "dense_frac", "fill"):
-            assert u == v, k
+        _same_value(k, p[k], q[k])
+
+
+def _same_value(k, u, v):
+    """Two values of a placed plan's key ``k`` are the same."""
+    if isinstance(u, (list, tuple)):        # hybrid parts, stripes
+        assert type(u) is type(v) and len(u) == len(v), k
+        for a, b in zip(u, v):
+            _same_value(k, a, b)
+    elif isinstance(u, dict):
+        _same_placed(u, v)
+    elif isinstance(u, torch.Tensor) and k == "data" \
+            and u.dtype == torch.float64:
+        # an f64 DIA plan: the port keeps the pack's f64 diagonals, the
+        # JAX plan hi + lo f32 planes, which hold 48 of the 53 bits
+        assert v.dtype == u.dtype and u.shape == v.shape
+        assert bool(((u - v).abs() <= 2.0 ** -48 * u.abs()).all())
+    elif isinstance(u, torch.Tensor):
+        assert u.dtype == v.dtype and torch.equal(u, v), k
+    elif hasattr(u, "__dataclass_fields__"):      # SellStream, DiaPlan
+        _same_placed(vars(u), vars(v))
+    elif k not in ("pad_ratio", "rest_frac", "dense_frac", "fill"):
+        assert u == v, k
 
 
 def _check_against_reference(name, make, kind, value_mode, method,
@@ -252,6 +353,59 @@ def test_csr5_matches_reference_plan(name, monkeypatch, x64):
     h = _check_against_reference(name, make, kind, value_mode,
                                  st.Method.CSR5, monkeypatch)
     assert h.method == st.Method.CSR5
+
+
+def _streams(plan):
+    """The SELL streams of a placed plan."""
+    if "hybrid" in plan:
+        return [s for p in plan["hybrid"] for s in _streams(p)]
+    if "sell8d_stripes" in plan:
+        return [part[3] for part in plan["sell8d_stripes"]]
+    return [plan[k] for k in ("sell8d", "sell8w_v2", "sell8w_v2w")
+            if k in plan]
+
+
+@pytest.mark.parametrize("name", sorted(LARGE_N))
+def test_large_n_matches_reference_plan(name, monkeypatch, x64):
+    make, method, kind, value_mode, kernels = LARGE_N[name]
+    h = _check_against_reference(name, make, kind, value_mode, method,
+                                 monkeypatch)
+    assert h.n > V2_MAX_N
+    streams = _streams(h.plan)
+    assert {tsell.kernel_name(q) for q in streams} == kernels
+    if "sell8d_stripes" in h.plan:
+        # each stripe's stream is as wide as its stripe (≤ V2_MAX_N), its
+        # output as tall as the slices it touched
+        for lo, hi, vis, q in h.plan["sell8d_stripes"]:
+            assert q.n == hi - lo <= V2_MAX_N
+            assert q.m == q.nblocks * 1024
+            assert q.nblocks == (len(vis) if vis is not None
+                                 else q.nblocks)
+    if kind.startswith("hybrid"):
+        pd = h.plan["hybrid"][0]
+        assert "fold_rows" in pd and not pd.get("fold_planes_ext")
+
+
+def test_small_n_plans_do_not_reach_the_large_n_tiers(monkeypatch, x64):
+    # at n ≤ 2M neither the stripe gate nor the striped packer runs, and
+    # every stream names a resident kernel: the same plans as before the
+    # large-n tiers, held to the JAX planner's
+    from spmv_tpu_torch.formats import sell8d as t_8d
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a large-n tier was consulted at n ≤ 2M")
+
+    monkeypatch.setattr(t_8d, "stripe_overhead_ns", refuse)
+    monkeypatch.setattr(t_8d, "pack_sell8d_striped", refuse)
+    for name in ("uniform", "powerlaw_f64"):
+        make, kind, value_mode = MATRICES[name]
+        h = st.create_handle(make(t_gen), device="cpu")
+        assert th.plan_kind(h.plan) == kind
+        assert h.plan.get("value_mode") == value_mode
+        names = {tsell.kernel_name(q) for q in _streams(h.plan)}
+        assert names and not any(k.endswith("_w") for k in names), names
+        ref = _reference_plan(make(j_gen), monkeypatch).plan
+        _same_placed(h.plan, plan_from_reference(ref, "cpu"))
 
 
 def test_straggler_stream_matches_reference():

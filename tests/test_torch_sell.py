@@ -1,8 +1,10 @@
 """The port's SELL tile-stream product (spmv_tpu_torch/ops/sell.py, the CUDA
 kernel's plain version on the CPU) against the TPU kernels it replaces,
-spmv_tpu.ops.pallas_sell._run_v2 (f32) and _run_v2_df (f64) run in
-interpret mode, on the same streams: random streams (every decode rule,
-including the cell reads) and streams from the JAX package's packers.
+spmv_tpu.ops.pallas_sell._run_v2 (f32) and _run_v2_df (f64) and, past 2M
+columns, their windowed forms _run_v2w (K5), _run_v2w_slot (K6) and
+_run_v2w_df (K7), run in interpret mode, on the same streams: random
+streams (every decode rule, including the cell reads) and streams from the
+JAX package's packers.
 
 Tolerance per row against (|A||x|)_i:
 - f32: 1e-5 against the TPU kernel — the f32 sums are taken in another
@@ -25,7 +27,8 @@ import torch
 from spmv_tpu.formats.sell8d import pack_sell8d
 from spmv_tpu.formats.sell8w import pack_sell8w, plan_v2
 from spmv_tpu.io import generate
-from spmv_tpu.ops.pallas_sell import _run_v2, _run_v2_df
+from spmv_tpu.ops.pallas_sell import (_run_v2, _run_v2_df, _run_v2w,
+                                      _run_v2w_df, _run_v2w_slot)
 from spmv_tpu.types import CsrMatrix as JaxCsr
 from spmv_tpu_torch.ops import sell as tsell
 
@@ -59,9 +62,24 @@ def x64():
     jax.config.update("jax_enable_x64", was)
 
 
+#: columns of the windowed streams: past V2_MAX_N, the last window ragged
+WIDE_N = 2_500_000
+
+
 def _reference(pk, x, slot_mode):
     pal = np.tile((pk.palette if pk.palette is not None
                    else np.zeros(128, np.float32))[None, :], (8, 1))
+    if pk.n > tsell.V2_MAX_N:
+        # the windowed kernels: K6 (slot mode), K5 with values (row mode)
+        kw = dict(g=pk.g, value_mode=pk.value_mode, nsteps=pk.nsteps,
+                  nslices=pk.nslices, n=pk.n, interpret=True)
+        args = (jnp.asarray(pk.tinfo), jnp.asarray(pk.ginfo),
+                jnp.asarray(x), jnp.asarray(pk.meta),
+                None if pk.vals is None else jnp.asarray(pk.vals),
+                jnp.asarray(pal))
+        out = (_run_v2w_slot(*args, nw=pk.nw, cell_w=pk.cell_w, **kw)
+               if slot_mode else _run_v2w(*args, **kw))
+        return np.asarray(out, dtype=np.float64).reshape(-1)
     out = _run_v2(jnp.asarray(pk.tinfo), jnp.asarray(pk.ginfo),
                   jnp.asarray(x), jnp.asarray(pk.meta),
                   None if pk.vals is None else jnp.asarray(pk.vals),
@@ -89,15 +107,16 @@ def _check(pk, slot_mode, x=None):
     return y
 
 
-def _random_stream(slot_mode, nw, cell_w, value_mode, g, seed):
+def _random_stream(slot_mode, nw, cell_w, value_mode, g, seed, n=None):
     """Random meta (every bit pattern), tinfo and monotone ginfo that
     visits every output block: valid kernel input, whatever a packer
     would emit.  The double-float modes get random hi planes and random
-    lo planes (f32, int16 quanta, or a second palette)."""
+    lo planes (f32, int16 quanta, or a second palette).  Its columns span
+    three bundles unless ``n`` is given; the last bundle is ragged."""
     rng = np.random.default_rng(seed)
     nblocks, nsteps = 3, 7
     nslices = nblocks if slot_mode else 8 * nblocks
-    n = 3 * 1024 * nw - 300                       # last bundle ragged
+    n = 3 * 1024 * nw - 300 if n is None else n
     ntiles = nsteps * g
     blocks = np.sort(np.concatenate([np.arange(nblocks),
                                      rng.integers(0, nblocks,
@@ -205,6 +224,115 @@ def test_slot_mode_on_packed_streams(nw, cell_w):
     _check(pk, slot_mode=True)
 
 
+@pytest.mark.parametrize("slot_mode,nw,cell_w,value_mode,g", [
+    (False, 1, False, "f32", 2),
+    (False, 1, False, "bf16", 3),
+    (False, 1, False, "palette", 2),
+    (True, 1, False, "f32", 2),
+    (True, 1, False, "palette", 3),
+    (True, 2, False, "bf16", 2),
+    (True, 2, True, "palette", 2),
+])
+def test_random_windowed_stream_matches_tpu_kernel(slot_mode, nw, cell_w,
+                                                   value_mode, g):
+    # past 2M columns: tiles of random bundles across all 2.5M columns
+    # against K5 (row mode, with values) and K6 (slot mode)
+    pk = _random_stream(slot_mode, nw, cell_w, value_mode, g, seed=nw + g,
+                        n=WIDE_N)
+    st = tsell.prepare_sell(pk, "cpu", slot_mode)
+    assert tsell.kernel_name(st) == ("sell_slot_w" if slot_mode
+                                     else "sell_row_w")
+    _check(pk, slot_mode)
+
+
+def _wide_pattern(g, slot_mode, seed):
+    """2048 rows of 6 nonzeros past 2M columns that pack at a modest pad:
+    slot mode, half of them in the first 16 windows and half in 16 windows
+    near column 2.48M; row mode, each 128-row slice's in one window of its
+    own, spread over the columns."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(2048), 6)
+    if slot_mode:
+        cols = rng.integers(0, 16384, rows.size)
+        cols[1::2] += 2_480_000
+    else:
+        cols = (rows // 128) * 150 * 1024 + rng.integers(0, 1024, rows.size)
+    return g.CsrMatrix.from_coo(2048, WIDE_N, rows, cols,
+                                rng.standard_normal(rows.size)
+                                .astype(np.float32))
+
+
+def _revalued(a, value_mode, entries, seed):
+    """``a``'s pattern with values the packers store as ``value_mode``."""
+    rng = np.random.default_rng(seed)
+    if value_mode == "palette":
+        v = (np.arange(1, entries) / 8.0)[rng.integers(0, entries - 1,
+                                                       a.nnz)]
+    elif value_mode == "bf16":
+        v = rng.integers(1, 256, a.nnz) / 32.0
+    else:
+        v = rng.standard_normal(a.nnz)
+    return JaxCsr(a.m, a.n, a.rowptr, a.colidx, v.astype(np.float32))
+
+
+@pytest.mark.parametrize("values", ["palette", "bf16", "f32"])
+def test_windowed_row_mode_on_packed_streams(values):
+    # K5 with values: the sell8w_v2w stream of a pack past 2M columns
+    a = _revalued(_wide_pattern(generate, False, 7), values, 64, 8)
+    v2 = plan_v2(pack_sell8w(a, max_pad_ratio=8.0))
+    assert v2.value_mode == values and v2.n > tsell.V2_MAX_N
+    _check(v2, slot_mode=False)
+
+
+@pytest.mark.parametrize("nw,cell_w,values", [(1, False, "palette"),
+                                              (2, False, "f32"),
+                                              (2, True, "bf16")])
+def test_windowed_slot_mode_on_packed_streams(nw, cell_w, values):
+    # K6: a windowed SELL-8D pack (one stream past 2M columns)
+    a = _revalued(_wide_pattern(generate, True, nw), values,
+                  64 >> (nw.bit_length() - 1), nw)
+    pk, _rest = pack_sell8d(a, g="auto", max_pad_ratio=256.0,
+                            max_spill=0.05, nw=nw, cell_w=cell_w)
+    assert (pk.nw, pk.cell_w, pk.value_mode) == (nw, cell_w, values)
+    assert pk.g in (8, 16)          # the windowed choice of g
+    _check(pk, slot_mode=True)
+
+
+def test_decoded_columns_past_int32():
+    # one slot-mode tile whose bundle index is 2^28 - 1 at nw = 8: its
+    # columns pass 2^40, decoded exactly in int64 as the kernel computes
+    # them (int64(tinfo >> 3) * nw * 1024 + 1024 * wsel + 128 * s + r)
+    meta = np.zeros((1, 8, 128), np.uint16)
+    meta[0, 2, 9] = (5 << 10) | (3 << 7) | 9
+    pk = _Stream(m=1024, n=1 << 42, nslices=1, g=1, nsteps=1,
+                 value_mode="f32",
+                 tinfo=np.array([((1 << 28) - 1) << 3], np.int32),
+                 ginfo=np.ones(1, np.int32), meta=meta.view(np.int16),
+                 vals=np.ones((1, 8, 128), np.float32), palette=None, nw=8)
+    st = tsell.prepare_sell(pk, "cpu", True)
+    assert tsell.kernel_name(st) == "sell_slot_w"
+    rows, col, _v = tsell.sell_decode(st)
+    assert col.dtype == torch.int64
+    assert int(col[0, 2, 9]) == ((1 << 28) - 1) * 8 * 1024 + 5 * 1024 \
+        + 3 * 128 + 9
+    assert int(rows[0, 2, 9]) == 2 * 128 + 9
+
+
+def test_plain_version_in_tile_chunks(monkeypatch):
+    # the plain version decodes PLAIN_TILES tiles at a time: the same
+    # sums as one pass, whatever the cut
+    pk = _random_stream(True, 2, True, "f32", 3, seed=4)
+    st = tsell.prepare_sell(pk, "cpu", True)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(pk.n)
+                         .astype(np.float32))
+    whole = tsell.sell_plain(st, x)
+    monkeypatch.setattr(tsell, "PLAIN_TILES", 4)
+    cut = tsell.sell_plain(st, x)
+    absb = tsell.sell_plain(dataclasses.replace(st, vals=st.vals.abs()),
+                            x.abs())
+    assert bool(((cut - whole).abs() <= 1e-6 * absb + 1e-30).all())
+
+
 def test_chunk_tables_cut_inside_blocks():
     step_block = np.array([0, 0, 0, 0, 0, 1, 2, 2, 2])
     csp, bcp = tsell.chunk_tables(step_block, 4, g=32)   # 2 steps a chunk
@@ -231,14 +359,16 @@ def test_wrapper_takes_no_other_device():
 # -- f64: the double-float packs (K2) ---------------------------------------
 
 def _reference_df(pk, x, slot_mode):
-    """The TPU kernel _run_v2_df in interpret mode."""
+    """The TPU kernel _run_v2_df in interpret mode, or _run_v2w_df (K7)
+    past 2M columns."""
     def tile(p):
         return jnp.asarray(np.tile((p if p is not None else np.zeros(
             128, np.float32))[None, :], (8, 1)))
 
     pal = pk.value_mode == "palette_df"
     dummy = jnp.zeros((8, 128), jnp.float32)
-    out = _run_v2_df(jnp.asarray(pk.tinfo), jnp.asarray(pk.ginfo),
+    run = _run_v2w_df if pk.n > tsell.V2_MAX_N else _run_v2_df
+    out = run(jnp.asarray(pk.tinfo), jnp.asarray(pk.ginfo),
                      jnp.asarray(x), jnp.asarray(pk.meta),
                      dummy if pal else jnp.asarray(pk.vals),
                      dummy if pal else jnp.asarray(pk.vals_lo),
@@ -368,3 +498,43 @@ def test_slot_mode_on_packed_df_streams(nw, cell_w, value_mode, x64):
     assert (pk.nw, pk.cell_w, pk.value_mode) == (nw, cell_w, value_mode)
     _check_df(pk, slot_mode=True)
 
+
+@pytest.mark.parametrize("slot_mode,nw,cell_w,value_mode,g", [
+    (False, 1, False, "df", 2),
+    (False, 1, False, "df16", 3),
+    (False, 1, False, "palette_df", 2),
+    (True, 1, False, "df16", 2),
+    (True, 2, False, "palette_df", 2),
+    (True, 2, True, "df", 3),
+])
+def test_random_windowed_df_stream_matches_tpu_kernel(slot_mode, nw, cell_w,
+                                                      value_mode, g, x64):
+    # K7, row and slot mode, over random tiles across 2.5M columns
+    pk = _random_stream(slot_mode, nw, cell_w, value_mode, g, seed=nw + g,
+                        n=WIDE_N)
+    st = tsell.prepare_sell(pk, "cpu", slot_mode)
+    assert tsell.kernel_name(st) == ("sell_slot_df_w" if slot_mode
+                                     else "sell_row_df_w")
+    _check_df(pk, slot_mode)
+
+
+@pytest.mark.parametrize("slot_mode,value_mode", [(False, "df16"),
+                                                  (True, "df16"),
+                                                  (True, "palette_df")])
+def test_windowed_df_packed_streams(slot_mode, value_mode, x64):
+    # K7 on the JAX package's packs past 2M columns: the double SELL-8W
+    # pack (hi, lo) as sell8w_v2w, and a windowed SELL-8D pack
+    base = _wide_pattern(generate, slot_mode, 11)
+    a = _f64_values(base, value_mode, 64, seed=12)
+    if slot_mode:
+        pk, _rest = pack_sell8d(a, g="auto", max_pad_ratio=256.0,
+                                max_spill=0.05, nw=1,
+                                force_value_mode=value_mode)
+    else:
+        hi = pack_sell8w(a, max_pad_ratio=8.0)
+        lo = pack_sell8w(JaxCsr(a.m, a.n, a.rowptr, a.colidx,
+                                (a.vals - a.vals.astype(np.float32))
+                                .astype(np.float32)))
+        pk = plan_v2(hi, lo_tiles=lo.vals)
+    assert pk.value_mode == value_mode and pk.n > tsell.V2_MAX_N
+    _check_df(pk, slot_mode)
