@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's f32 and f64 AUTO main paths, its Method.CSR5 path and its
-large-n path (n > 2M: column stripes and windowed streams) on one NVIDIA
-card and check them.
+"""Drive the port's f32 and f64 AUTO main paths, its Method.CSR5 path, its
+large-n path (n > 2M: column stripes and windowed streams) and its mesh
+plans (``spmv_tpu_torch.parallel``) on one NVIDIA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -21,7 +21,10 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    stream over more than 2M product positions); and the same SELL grid
    past 2M columns (n = 2.5M), which names the windowed kernels
    ``sell_row_w`` (K5 values), ``sell_slot_w`` (K6), ``sell_row_df_w`` and
-   ``sell_slot_df_w`` (K7);
+   ``sell_slot_df_w`` (K7); and the v1 kernels on full-size v1 packs
+   (clustered200k's ``pack_sell8w``): ``sell_v1`` (K9), ``sell_v1_df``
+   (K10, the pack twice, hi and lo), ``sell_v1_bin`` (K11, validity in meta
+   bit 15), and ``sell_v1`` on one stream at n = 2.5M;
 4. main path: the bench's eight families (``bench.py``'s generator calls
    and seeds, ``_to_f64`` seed 7 for the f64 ones) through
    ``create_handle(a, device="cuda")`` and ``spmv``, with the AUTO plan
@@ -46,7 +49,25 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    clustered2500k_s64 and its f64 form packed as a ``sell8w_v2w`` row
    stream, each against the family's reference, each stream against its
    plain version with its bound, and each timed beside the striped plan
-   of the same matrix, per call and on the card.
+   of the same matrix, per call and on the card;
+6. dist path: ten mesh families through ``spmv_tpu_torch.parallel`` on a
+   mesh of N entries of ``cuda:0`` ("distN"), ``build_dist_auto`` (or
+   ``build_dist_sell8w_plan`` where the name says ``8w``) with the plan
+   kind and x mode asserted: webbase1m on 1 and 4 shards (graph: heavy
+   rows on ``sell_v1``, light rows on ``sell_slot``), powerlaw100k and its
+   f64 form on 1 shard (hybrid: ``sell_v1`` / ``sell_v1_df`` beside the
+   slot stream), clustered200k as SELL-8W on 4 shards (allgather,
+   ``sell_v1``; f64 halo, ``sell_v1_df``), clustered200k on 4 shards
+   (SELL-8D, halo), banded1m_f64 (DIA, halo: plain PyTorch, as the JAX
+   package runs XLA there), powerlaw100k on 4 shards (the tiled scan,
+   plain PyTorch) and uniform250k_4m_d64 (column shards and one sum).  One
+   counted run (every count 0 before, read after) must launch each
+   family's kernels, ``sell_v1`` and ``sell_v1_df`` among them.  Per
+   family: the result against its reference, every shard stream against
+   its plain version, CUDA-event times of the mesh plan beside the
+   single-device AUTO plan of the same matrix (what sharding costs on one
+   card; in turns: mesh, single, single, mesh), cuSPARSE, and a
+   torch.profiler window.
 
 Bounds, per row i against (|A||x|)_i:
 - f32: 1e-5 against ``spmv_golden``; f32 sums in another order.
@@ -58,6 +79,10 @@ Bounds, per row i against (|A||x|)_i:
   row-by-row sums and the distance to ``spmv_golden`` is printed beside.
 - f64 kernel against its plain version: 1e-12; both are f64 sums of the
   same decoded values, taken in another order.
+- the dist scan (f32): 1e-5 plus an absolute term, the JAX dist test's
+  2e-4 at 150k nonzeros scaled by sqrt(nonzeros of the largest shard /
+  150k): the f32 prefix sums carry about eps·sqrt(nnz) absolute error,
+  which no row's (|A||x|)_i bounds.
 
 ``bound_ms`` is the larger of the bytes the SpMV must move over 3.35 TB/s
 and its operations over 67 TFLOP/s in f32 or 34 TFLOP/s in f64 (NVIDIA
@@ -184,6 +209,42 @@ def _clustered2500k(g, np):
                        dtype=np.float32, seed=9)
 
 
+def _webbase1m(g, np):
+    """bench.py:_gen_one's webbase1m."""
+    return g.webbase_like(1_000_000, 1_000_000, 3_100_000, dtype=np.float32,
+                          seed=11)
+
+
+#: the dist path's families → (the matrix: a FAMILIES name or webbase1m,
+#: the mesh width, the builder: "auto" for build_dist_auto or "8w:<x mode>"
+#: for build_dist_sell8w_plan, the plan kind and x mode it must give, the
+#: kernels its shards must launch)
+DIST_FAMILIES = {
+    "webbase1m_dist1": ("webbase1m", 1, "auto", "graph",
+                        "replicated/replicated", ("sell_v1", "sell_slot")),
+    "webbase1m_dist4": ("webbase1m", 4, "auto", "graph",
+                        "replicated/replicated", ("sell_v1", "sell_slot")),
+    "powerlaw100k_dist1": ("powerlaw100k", 1, "auto", "hybrid",
+                           "replicated/replicated",
+                           ("sell_v1", "sell_slot")),
+    "powerlaw100k_f64_dist1": ("powerlaw100k_f64", 1, "auto", "hybrid",
+                               "replicated/replicated",
+                               ("sell_v1_df", "sell_slot_df")),
+    "clustered200k_8w_dist4": ("clustered200k", 4, "8w:allgather", "sell8w",
+                               "allgather", ("sell_v1",)),
+    "clustered200k_f64_8w_dist4": ("clustered200k_f64", 4, "8w:halo",
+                                   "sell8w", "halo", ("sell_v1_df",)),
+    "clustered200k_dist4": ("clustered200k", 4, "auto", "sell8d", "halo",
+                            ("sell_slot",)),
+    "banded1m_f64_dist4": ("banded1m_f64", 4, "auto", "dia", "halo", ()),
+    "powerlaw100k_dist4": ("powerlaw100k", 4, "auto", "scan", "replicated",
+                           ()),
+    "uniform250k_4m_d64_dist4": ("uniform250k_4m_d64", 4, "auto",
+                                 "sell8d_cols", "col-shards",
+                                 ("sell_slot",)),
+}
+
+
 def method_of(name):
     """The method create_handle is asked for."""
     if name in LARGE_N_FAMILIES:
@@ -224,6 +285,12 @@ KERNELS = {
                       "spmv_tpu/ops/pallas_sell.py:538"),
     "sell_slot_df_w": ("spmv_tpu_torch/csrc/sell.cu",
                        "spmv_tpu/ops/pallas_sell.py:538"),
+    "sell_v1": ("spmv_tpu_torch/csrc/sell.cu",
+                "spmv_tpu/ops/pallas_sell.py:57"),
+    "sell_v1_df": ("spmv_tpu_torch/csrc/sell.cu",
+                   "spmv_tpu/ops/pallas_sell.py:132"),
+    "sell_v1_bin": ("spmv_tpu_torch/csrc/sell.cu",
+                    "spmv_tpu/ops/pallas_sell.py:77"),
 }
 
 
@@ -253,7 +320,9 @@ def read_counts():
             "sell_row_w": sell.row_w_launches,
             "sell_slot_w": sell.slot_w_launches,
             "sell_row_df_w": sell.row_df_w_launches,
-            "sell_slot_df_w": sell.slot_df_w_launches}
+            "sell_slot_df_w": sell.slot_df_w_launches,
+            "sell_v1": sell.v1_launches, "sell_v1_df": sell.v1_df_launches,
+            "sell_v1_bin": sell.v1_bin_launches}
 
 
 def zero_counts():
@@ -263,6 +332,7 @@ def zero_counts():
     sell.row_bin_launches = 0
     sell.row_w_launches = sell.slot_w_launches = 0
     sell.row_df_w_launches = sell.slot_df_w_launches = 0
+    sell.v1_launches = sell.v1_df_launches = sell.v1_bin_launches = 0
     dia.launches = dia.f64_launches = 0
     coo2.coo2_launches = 0
 
@@ -377,7 +447,7 @@ def stream_bound(st, nnz):
         slot = nb(st.meta, st.vals, st.vals_lo) / st.meta.numel()
         binary = st.value_mode == "binary"   # no palette, one add a slot
         nbytes = nnz * slot + (0 if binary else nb(st.palette)) + xy
-        stored = (nb(st.meta, st.vals, st.vals_lo, st.tinfo,
+        stored = (nb(st.meta, st.vals, st.vals_lo, st.tinfo, st.gpk,
                      st.chunk_step_ptr, st.block_chunk_ptr)
                   + (0 if binary else nb(st.palette))
                   + (st.n + st.nblocks * 1024) * esize)
@@ -493,9 +563,10 @@ def check_stream(st, x, timing=False):
     return rec
 
 
-def kernel_phase(dev):
+def kernel_phase(dev, kern):
     """Coverage: every value mode, bundle width and cell_w setting, f32
-    and f64, and the two COO2 kernels."""
+    and f64, the two COO2 kernels, and the v1 kernels (timed on their
+    full-size packs into ``kern``)."""
     import numpy as np
     import torch
     from spmv_tpu_torch.formats import coo2 as coo2_fmt, dia as dia_fmt
@@ -594,6 +665,35 @@ def kernel_phase(dev):
             rec = check_stream(c.reduce, prod)
             rows.append({"kernel": kernel_of(c.reduce), "n": c.reduce.n,
                          "tiles": c.reduce.meta.shape[0], **rec})
+    # the v1 kernels on full-size v1 packs, as build_sell8w_fn places them
+    def v1(p, binary=False, lo=None):
+        return sell.prepare_v1(p.window_ids, sell.pack_gpk(p.slice_ids),
+                               sell.binary_meta_v1(p) if binary else p.meta,
+                               None if binary else p.vals, p.nslices, p.m,
+                               p.n, dev, vals_lo=lo)
+
+    c200 = _clustered200k(generate, np)
+    c64 = _to_f64(c200, np)
+    hi = c64.vals.astype(np.float32)
+    lo = pack_sell8w(CsrMatrix(c64.m, c64.n, c64.rowptr, c64.colidx,
+                               (c64.vals - hi.astype(np.float64))
+                               .astype(np.float32))).vals
+    pk = pack_sell8w(c200)
+    for st, dt in ((v1(pk), np.float32), (v1(pk, binary=True), np.float32),
+                   (v1(pack_sell8w(CsrMatrix(c64.m, c64.n, c64.rowptr,
+                                             c64.colidx, hi)), lo=lo),
+                    np.float64)):
+        rec = check_stream(st, xvec(st.n, dt), timing=True)
+        keep_kernel(kern, kernel_of(st), rec, st, "clustered200k (v1 pack)")
+        rows.append({"kernel": kernel_of(st), "n": st.n,
+                     "tiles": st.meta.shape[0], **rec})
+    del pk, lo, c64
+    wide = pack_sell8w(grids[1][0])
+    st = v1(wide)
+    assert st.n > 2_000_000
+    rows.append({"kernel": kernel_of(st), "n": st.n,
+                 "tiles": st.meta.shape[0],
+                 **check_stream(st, xvec(st.n, np.float32))})
     for r in rows:
         log(json.dumps({"phase": "kernels", **r}))
     return rows
@@ -698,7 +798,7 @@ def reference(a, xh, np):
     return y, absref, BOUND_F64, "rowwise_f64"
 
 
-def main_path(dev):
+def main_path(dev, kern):
     import numpy as np
     import torch
     import spmv_tpu_torch as st
@@ -774,7 +874,6 @@ def main_path(dev):
         for k, c in counts.items():
             launches[k] += c
 
-    kern = {k: {"max_abs_err": 0.0} for k in KERNELS}
     windowed_ctx = {}
     for name, h in handles.items():
         a, x = mats[name], xs[name]
@@ -841,7 +940,7 @@ def main_path(dev):
             "profile": prof, "streams": streams}))
         if name in WINDOWED_FORMS:
             windowed_ctx[name] = (h, a, x, ref, absref, bound)
-    return launches, kern, windowed_ctx
+    return launches, windowed_ctx
 
 
 def windowed_phase(dev, kern, ctx):
@@ -932,6 +1031,166 @@ def windowed_phase(dev, kern, ctx):
     return rows
 
 
+def dist_streams(plan, x):
+    """(stream, the x it reads, part) of every shard stream of a dist plan
+    on x; the scan and DIA shards run plain PyTorch and have none."""
+    import torch
+    from spmv_tpu_torch.parallel import mesh as pm
+
+    def leaf(q, xq, part):
+        if isinstance(q, pm.DistSell8DColsPlan):
+            xs = pm._blocks(q.mesh, pm._pad(
+                pm._x_in(q.mesh, xq, q.n, q.dtype), q.cw * q.ndev))
+        elif isinstance(q, (pm.DistSell8WPlan, pm.DistSell8DPlan)):
+            xs = pm._assemble(q.mesh, pm._x_in(q.mesh, xq, q.n, q.dtype),
+                              q.x_mode, q.halo, q.mr, q.n)
+        else:
+            return []
+        return [(st, xd, part) for st, xd in zip(q.streams, xs)]
+
+    p = plan.parts
+    if plan.kind == "graph":
+        hub = p.get("hub_cols")
+        x_ext = torch.cat([x, x[hub]]) if hub is not None else x
+        out = []
+        if "heavy" in p:
+            out += leaf(p["heavy"], x_ext, "heavy")
+            x_ext = torch.cat([x_ext, p["heavy"](x_ext)])
+        return out + leaf(p["light"], x_ext, "light")
+    return [s for k, q in p.items() if hasattr(q, "mesh")
+            for s in leaf(q, x, k)]
+
+
+def dist_phase(dev, kern):
+    """The mesh families on meshes of repeated ``cuda:0``: plans built and
+    asserted, one counted run, then per family its check and times.
+    Returns the counted run's launch counts."""
+    import numpy as np
+    import torch
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch import parallel
+    from spmv_tpu_torch.handle import plan_kind
+    from spmv_tpu_torch.io import generate
+    from spmv_tpu_torch.parallel.mesh import DistAutoPlan
+
+    mats, plans, pre = {}, {}, {}
+    for name, (base, ndev, build, kind, x_mode, _k) in DIST_FAMILIES.items():
+        if base not in mats:
+            make = _webbase1m if base == "webbase1m" else FAMILIES[base][0]
+            mats[base] = make(generate, np)
+        a = mats[base]
+        mesh = parallel.make_mesh_1d(ndev, device=dev)
+        t0 = time.perf_counter()
+        if build == "auto":
+            plan = parallel.build_dist_auto(a, mesh)
+        else:
+            p8w = parallel.build_dist_sell8w_plan(
+                a, mesh, x_mode=build.split(":")[1], max_pad_ratio=32.0)
+            plan = DistAutoPlan(kind="sell8w", x_mode=p8w.x_mode, m=a.m,
+                                n=a.n, nnz=a.nnz, parts={"sell8w": p8w},
+                                max_pad=p8w.max_pad)
+        plan_s = time.perf_counter() - t0
+        if (plan.kind, plan.x_mode) != (kind, x_mode):
+            raise AssertionError(f"{name}: planned {plan.kind} "
+                                 f"{plan.x_mode}, expected {kind} {x_mode}")
+        plans[name] = plan
+        pre[name] = {"plan_s": plan_s, "parts": {
+            k: {"type": type(q).__name__,
+                "x_mode": getattr(q, "x_mode", "col-shards"),
+                "tiles_per_shard": getattr(q, "ntiles", None),
+                "value_mode": getattr(q, "value_mode", None)}
+            for k, q in plan.parts.items() if hasattr(q, "mesh")}}
+        log(f"# {name}: {plan.kind} {plan.x_mode} on {ndev} shards, "
+            f"planned in {plan_s:.1f} s")
+
+    xs = {b: torch.from_numpy(np.random.default_rng(0).standard_normal(a.n)
+                              .astype(a.vals.dtype)).to(dev)
+          for b, a in mats.items()}
+    # the counted run: every count 0, each family once, the counts read
+    zero_counts()
+    ys = {name: plans[name](xs[DIST_FAMILIES[name][0]]) for name in plans}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(json.dumps({"phase": "main_path_launches", "path": "dist",
+                    **counts}))
+    for name in plans:
+        for k in DIST_FAMILIES[name][5]:
+            if counts[k] == 0:
+                raise AssertionError(f"{name}: kernel {k} was not launched")
+    for k in ("sell_v1", "sell_v1_df"):
+        if counts[k] == 0:
+            raise AssertionError(f"the dist run launched no {k}")
+
+    singles = {}
+    for name, plan in plans.items():
+        base, ndev = DIST_FAMILIES[name][:2]
+        a, x = mats[base], xs[base]
+        xh = x.cpu().numpy().astype(np.float64)
+        ref, absref, bound, ref_name = reference(a, xh, np)
+        ref, absref = torch.from_numpy(ref), torch.from_numpy(absref)
+        y = ys.pop(name).cpu()
+        if (y.shape != (a.m,) or y.dtype != x.dtype
+                or not bool(torch.isfinite(y).all())):
+            raise AssertionError(f"{name}: bad output {y.dtype} "
+                                 f"{tuple(y.shape)}")
+        d = (y.double() - ref).abs()
+        atol = 0.0
+        if plan.kind == "scan":
+            shard_nnz = max(int(t.numel()) for t in
+                            plan.parts["scan"].vals_pad)
+            atol = 2e-4 * (shard_nnz / 150_000) ** 0.5
+        rel = float((d / (absref + atol / bound).clamp_min(1e-300)).max())
+        if not bool((d <= bound * absref + atol + 1e-300).all()):
+            raise AssertionError(f"{name}: max scaled error {rel:.3g} "
+                                 f"against {ref_name}")
+        streams = []
+        timed = set()
+        for stream, xin, part in dist_streams(plan, x):
+            k = kernel_of(stream)
+            timing = k.startswith("sell_v1") and k not in timed
+            rec = check_stream(stream, xin, timing=timing)
+            if timing:
+                timed.add(k)
+                keep_kernel(kern, k, rec, stream, name)
+            streams.append({"part": part, **stream_record(stream, rec)})
+        if base not in singles:
+            # the single-device AUTO plan of the same matrix, if ported
+            try:
+                singles[base] = st.create_handle(a, device=dev)
+            except NotImplementedError as e:
+                singles[base] = str(e)
+        h = singles[base]
+        ms = [cuda_ms(plan, x)]
+        single_ms = None
+        if not isinstance(h, str):
+            single_ms = [cuda_ms(h, x), cuda_ms(h, x)]
+        ms.append(cuda_ms(plan, x))
+        prof = profile_calls(plan, x)
+        prof_single = profile_calls(h, x) if single_ms else None
+        csr = matrix_csr(a, dev)
+        library_ms = cuda_ms(lambda v: csr @ v, x)
+        del csr
+        log(json.dumps({
+            "phase": "dist", "family": name, "kind": plan.kind,
+            "x_mode": plan.x_mode, "value_mode": plan.value_mode,
+            "ndev": ndev, "m": a.m, "n": a.n, "nnz": a.nnz, **pre[name],
+            "ms": ms, "gflops": 2 * a.nnz / statistics.median(ms) / 1e6,
+            "device_ms": prof["device_ms"], "idle_share": prof["idle_share"],
+            "single_plan": (plan_kind(h.plan) if single_ms
+                            else "not ported: " + h),
+            "single_ms": single_ms,
+            "single_device_ms": prof_single["device_ms"] if prof_single
+            else None,
+            "single_idle_share": prof_single["idle_share"] if prof_single
+            else None,
+            "library_ms": library_ms, "reference": ref_name,
+            "max_scaled_err": rel, "max_abs_err": float(d.max()),
+            "atol": atol, "profile": prof, "streams": streams}))
+        if not any(DIST_FAMILIES[n][0] == base for n in ys):
+            singles.pop(base, None)     # no later family reads it
+    return counts
+
+
 def kernels_line(launches, kern):
     """The ``kernels`` line's entries, one a kernel."""
     kernels = []
@@ -1000,10 +1259,13 @@ def main() -> int:
                     "registers_max": max(regs, default=0),
                     "spill_bytes": sum(spills)}))
 
-    kernel_phase(dev)
-    launches, kern, ctx = main_path(dev)
+    kern = {k: {"max_abs_err": 0.0} for k in KERNELS}
+    kernel_phase(dev, kern)
+    launches, ctx = main_path(dev, kern)
     windowed_phase(dev, kern, ctx)
     del ctx
+    for k, c in dist_phase(dev, kern).items():
+        launches[k] += c
     kernels = kernels_line(launches, kern)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"phase": "wall", "seconds":

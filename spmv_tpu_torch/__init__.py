@@ -6,8 +6,8 @@ device=...)`` then ``spmv(h, x)`` on torch tensors.  The port runs the
 f32 and f64 AUTO main path and Method.CSR5: DIA, the SELL-8W/SELL-8D tile
 streams and the two-pass COO2 plan through hand-written CUDA kernels for
 ``sm_90a`` (``csrc/``), each with a plain PyTorch version that CPU
-tensors take.  f64 matrices compute in native f64.  The package imports
-no JAX.
+tensors take.  f64 matrices compute in native f64.  ``parallel`` holds the
+mesh plans.  The package imports no JAX.
 """
 
 from .types import CsrMatrix, Method, VectorizedWay, METHOD_NAMES, VECTORIZED_NAMES

@@ -3,9 +3,12 @@
 ``plan_from_reference(plan, device)`` takes the dict that
 ``spmv_tpu.handle._build_plan`` returns and places it as the port's plan,
 so the port's executor (``handle._make_bound``) runs on exactly the JAX
-package's packed stream.  Every array goes through ``np.asarray``; this
-module imports nothing of JAX.  bf16 arrays (``ml_dtypes.bfloat16`` there)
-are read as their uint16 bits.
+package's packed stream.  ``dist_plan_from_reference(plan, mesh)`` does the
+same for a mesh plan of ``spmv_tpu.parallel``: it reads the plan's stacked
+``(ndev, ...)`` arrays and places shard d on ``mesh.devices[d]``.  Every
+array is copied to the host with ``np.array``; this module imports nothing
+of JAX.
+bf16 arrays (``ml_dtypes.bfloat16`` there) are read as their uint16 bits.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ from .formats.dia import DiaMatrix
 from .formats.sell8d import Sell8D
 from .formats.sell8w import Sell8W, Sell8WV2
 from .handle import _not_ported, _place
+from .utils.profiling import dev_put
 
-__all__ = ["plan_from_reference"]
+__all__ = ["plan_from_reference", "dist_plan_from_reference"]
 
 _ARRAYS = ("rest_rows", "rest_cols", "rest_vals", "fold_rows",
            "mega_sub_rows", "rows", "colidx", "vals")
@@ -30,7 +34,7 @@ _OUT_OF_SLICE = {"graph": 5, "colidx_pad": 6, "blocks": 6, "cols": 6}
 
 
 def _host_array(v) -> np.ndarray:
-    a = np.asarray(v)
+    a = np.array(v)                 # a writable host copy
     if a.dtype.name == "bfloat16":
         return a.view(np.uint16)
     return a
@@ -101,3 +105,67 @@ def plan_from_reference(plan: Dict[str, Any], device) -> Dict[str, Any]:
     ``device``."""
     return _place(_host_plan(plan), device)
 
+
+#: mesh plan class → (its static fields, its stacked arrays, the port's
+#: placement); a name with a leading underscore is read from the JAX plan
+#: under that name and handed on without it
+_DIST = {
+    "DistSpmvPlan": (("m", "n", "nnz", "tile", "mr", "row_splitter",
+                      "x_mode", "identity_out", "loc_tile", "_halo"),
+                     ("colidx_pad", "vals_pad", "row_start", "row_end",
+                      "out_index", "loc_colidx", "loc_vals",
+                      "loc_row_start", "loc_row_end", "_in_index"),
+                     "_place_scan"),
+    "DistDiaPlan": (("m", "n", "nnz", "offsets", "mr", "x_mode"), ("data",),
+                    "_place_dia"),
+    "DistSell8WPlan": (("m", "n", "nnz", "mr", "ntiles", "nslices",
+                        "x_mode", "max_pad", "_halo"),
+                       ("window_ids", "gpk", "meta", "vals", "vals_lo"),
+                       "_place_sell8w"),
+    "DistSell8DPlan": (("m", "n", "nnz", "mr", "ntiles", "nsteps",
+                        "nslices", "g", "nw", "value_mode", "x_mode",
+                        "max_pad", "rest", "_halo"),
+                       ("tinfo", "ginfo", "meta", "vals", "vals_lo", "pal",
+                        "pal_lo"), "_place_sell8d"),
+    "DistSell8DColsPlan": (("m", "n", "nnz", "cw", "ntiles", "nsteps",
+                            "nslices", "g", "nw", "value_mode", "max_pad",
+                            "rest"),
+                           ("tinfo", "ginfo", "meta", "vals", "vals_lo",
+                            "pal", "pal_lo"), "_place_sell8d_cols"),
+}
+
+
+def dist_plan_from_reference(plan, mesh):
+    """A ``spmv_tpu.parallel`` mesh plan → the port's plan of the same
+    kind on ``mesh`` (as many entries as the plan has shards), running on
+    exactly the JAX plan's packed arrays.  A ``DistAutoPlan`` carries its
+    parts, fold rows, hub columns and straggler stream across."""
+    from .parallel import mesh as pm
+    kind = type(plan).__name__
+    if kind == "DistAutoPlan":
+        dev0 = mesh.devices[0]
+        parts = {}
+        for k, v in plan.parts.items():
+            parts[k] = (dist_plan_from_reference(v, mesh)
+                        if type(v).__name__ in _DIST
+                        else dev_put(_host_array(v).astype(np.int64), dev0))
+        return pm.DistAutoPlan(
+            kind=plan.kind, x_mode=plan.x_mode, m=plan.m, n=plan.n,
+            nnz=plan.nnz, parts=parts, value_mode=plan.value_mode,
+            max_pad=plan.max_pad, rest=pm._place_rest(
+                mesh, None if plan.rest is None
+                else tuple(_host_array(r) for r in plan.rest)))
+    if kind not in _DIST:
+        raise TypeError(f"not a mesh plan of spmv_tpu.parallel: {kind}")
+    static_names, array_names, place = _DIST[kind]
+    if plan.ndev != len(mesh.devices):
+        raise ValueError(f"the plan has {plan.ndev} shards, the mesh "
+                         f"{len(mesh.devices)} devices")
+    static = {k.lstrip("_"): getattr(plan, k, 0) for k in static_names}
+    if static.get("rest") is not None:
+        static["rest"] = tuple(_host_array(r) for r in static["rest"])
+    arrays = {}
+    for k in array_names:
+        v = getattr(plan, k, None)
+        arrays[k.lstrip("_")] = None if v is None else _host_array(v)
+    return getattr(pm, place)(mesh, mesh.axis, static, arrays)

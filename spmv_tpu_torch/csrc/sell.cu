@@ -29,7 +29,19 @@
 //     They DMA one x window (row mode) or bundle of nw windows (slot mode)
 //     a tile because x does not fit in VMEM.  That is a VMEM workaround and
 //     is not carried over: here every mode reads x from device memory at
-//     any column, so the windowed streams run this same template.
+//     any column, so the windowed streams run this same template;
+//   * the TPU's v1 kernels, one tile a grid step over the v1 SELL-8W layout
+//     (build_sell8w_fn and the mesh's dist SELL-8W plans): _kernel (K9, via
+//     _run), f32 values; _kernel_v1_df (K10, via _run_df_v1), hi + lo f32
+//     planes decoded to one double a slot as in K2; _kernel_binary (K11,
+//     via _run(binary=True)), the binary mode above.  The v1 layout keeps a
+//     tile's window in window_ids[t] and its row in the group in gpk[t]:
+//     gpk = group << 4 | row_in_group << 1 | first.  The kernel reads both
+//     as they are (kV1): the window from tinfo = window_ids, the row from
+//     (gpk[t] >> 1) & 7, one tile a step (g = 1).  The meta decode is the
+//     v2 row mode's.  A dist pack's padding tiles (window 0, zero values,
+//     first = 0, the last group) add 0 * x[col] like any slot, as on the
+//     TPU.
 //
 // Index widths, for n past 2^21 and streams past 2^31 slots: a slot's
 // offset (t * kTile + tid), its column (tinfo >> 3 is a window or bundle
@@ -45,7 +57,8 @@
 //                                                     else at the slot)
 //   code = (meta[t, i, l] >> (10 + lb)) & (63 >> lb) (palette, at the slot)
 //   col  = base + 1024 * wsel + 128 * s + r,  base = (tinfo[t] >> 3) * nw*1024
-// Row mode sums a tile's 8 sublanes into row (tinfo[t] & 7) * 128 + l of
+// (v1: base = window_ids[t] * 1024.)  Row mode sums a tile's 8 sublanes
+// into row (tinfo[t] & 7) * 128 + l (v1: ((gpk[t] >> 1) & 7) * 128 + l) of
 // its 1024-row output block; slot mode adds slot (i, l) into row
 // 128 * i + l.  Padding slots hold value 0; columns >= n read 0.
 //
@@ -114,13 +127,16 @@ __device__ __forceinline__ Acc<kVM> slot_value(const void* vals,
   }
 }
 
-template <int kVM, bool kSlot, int kNw, bool kCellW>
+// kV1: the v1 layout (row mode, g = 1): tinfo holds window_ids and gpk the
+// row in the group; else tinfo = window or bundle << 3 | row_in_group.
+template <int kVM, bool kSlot, int kNw, bool kCellW, bool kV1>
 __global__ void __launch_bounds__(kTile)
     sell_chunk_kernel(const uint16_t* __restrict__ meta,
                       const void* __restrict__ vals,
                       const void* __restrict__ vals_lo,
                       const void* __restrict__ palette,
                       const int32_t* __restrict__ tinfo,
+                      const int32_t* __restrict__ gpk,
                       const int32_t* __restrict__ chunk_step_ptr,
                       const Acc<kVM>* __restrict__ x,
                       Acc<kVM>* __restrict__ partial, int64_t g, int64_t n) {
@@ -142,8 +158,8 @@ __global__ void __launch_bounds__(kTile)
     const uint32_t r = ms & 127u;
     const uint32_t mc = __ldg(mt + i * kLanes + r);  // the cell (i, r)
     const uint32_t s = (mc >> 7) & 7u;
-    int64_t col = int64_t(ti >> 3) * (kSlot ? kNw * kTile : kTile) +
-                  s * kLanes + r;
+    const int64_t base = kV1 ? int64_t(ti) : int64_t(ti >> 3);
+    int64_t col = base * (kSlot ? kNw * kTile : kTile) + s * kLanes + r;
     if (kSlot && kNw > 1)
       col += int64_t(((kCellW ? mc : ms) >> 10) & (kNw - 1)) * kTile;
     const T v = slot_value<kVM, kLb>(vals, vals_lo, palette, t * kTile + tid,
@@ -152,7 +168,7 @@ __global__ void __launch_bounds__(kTile)
     if (kSlot) {
       acc[0] = fma_acc(v, xv, acc[0]);
     } else {
-      const int row = ti & 7;
+      const int row = kV1 ? (__ldg(gpk + t) >> 1) & 7 : ti & 7;
 #pragma unroll
       for (int j = 0; j < kSub; ++j)
         if (j == row) acc[j] = fma_acc(v, xv, acc[j]);
@@ -204,6 +220,7 @@ struct Args {
   const void* vals_lo;
   const void* palette;
   const int32_t* tinfo;
+  const int32_t* gpk;
   const int32_t* chunk_step_ptr;
   const int32_t* block_chunk_ptr;
   const void* x;
@@ -213,13 +230,14 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int kVM, bool kSlot, int kNw, bool kCellW>
+template <int kVM, bool kSlot, int kNw, bool kCellW, bool kV1 = false>
 int launch(const Args& a) {
   using T = Acc<kVM>;
   if (a.nchunks > 0) {
-    sell_chunk_kernel<kVM, kSlot, kNw, kCellW>
+    sell_chunk_kernel<kVM, kSlot, kNw, kCellW, kV1>
         <<<unsigned(a.nchunks), kTile, 0, a.stream>>>(
-            a.meta, a.vals, a.vals_lo, a.palette, a.tinfo, a.chunk_step_ptr,
+            a.meta, a.vals, a.vals_lo, a.palette, a.tinfo, a.gpk,
+            a.chunk_step_ptr,
             static_cast<const T*>(a.x), static_cast<T*>(a.partial), a.g,
             a.n);
     const cudaError_t err = cudaGetLastError();
@@ -262,6 +280,16 @@ int dispatch<kBinary>(const Args& a, bool slot, int64_t nw, bool cell_w) {
                                      : int(cudaErrorInvalidValue);
 }
 
+// The v1 layout exists in row mode only, for K9 (f32), K10 (df) and K11
+// (binary).
+template <int kVM>
+int dispatch_v1(const Args& a, bool slot, int64_t nw, bool cell_w) {
+  if constexpr (kVM == kF32 || kVM == kDf || kVM == kBinary) {
+    if (!slot && nw == 1 && !cell_w) return launch<kVM, false, 1, false, true>(a);
+  }
+  return int(cudaErrorInvalidValue);
+}
+
 }  // namespace
 }  // namespace spmv
 
@@ -269,7 +297,8 @@ int dispatch<kBinary>(const Args& a, bool slot, int64_t nw, bool cell_w) {
 // (the hi plane in df modes), or unused for the palettes; vals_lo:
 // (ntiles, 8, 128) f32 (df) or int16 (df16), else unused; palette: (128,)
 // f32 (palette) or f64 (palette_df), read only by those modes; tinfo:
-// (ntiles,) int32;
+// (ntiles,) int32; gpk: null, or the v1 layout's (ntiles,) int32 gpk, and
+// then tinfo is its window_ids (row mode, f32, df or binary, g = 1);
 // chunk_step_ptr: (nchunks + 1,) int32, step bounds of each chunk;
 // block_chunk_ptr: (nblocks + 1,) int32, chunk bounds of each output block;
 // x: (n,), partial: (nchunks, 1024) scratch, out: (nblocks, 1024), all f64
@@ -279,7 +308,8 @@ int dispatch<kBinary>(const Args& a, bool slot, int64_t nw, bool cell_w) {
 // nothing, returns cudaGetLastError().
 extern "C" int spmv_sell_launch(const void* meta, const void* vals,
                                 const void* vals_lo, const void* palette,
-                                const void* tinfo, const void* chunk_step_ptr,
+                                const void* tinfo, const void* gpk,
+                                const void* chunk_step_ptr,
                                 const void* block_chunk_ptr, const void* x,
                                 void* partial, void* out, int64_t nchunks,
                                 int64_t nblocks, int64_t g, int64_t n,
@@ -290,6 +320,7 @@ extern "C" int spmv_sell_launch(const void* meta, const void* vals,
                      vals_lo,
                      palette,
                      static_cast<const int32_t*>(tinfo),
+                     static_cast<const int32_t*>(gpk),
                      static_cast<const int32_t*>(chunk_step_ptr),
                      static_cast<const int32_t*>(block_chunk_ptr),
                      x,
@@ -298,6 +329,15 @@ extern "C" int spmv_sell_launch(const void* meta, const void* vals,
                      nchunks, nblocks, g, n,
                      static_cast<cudaStream_t>(stream)};
   const bool slot = slot_mode != 0, cw = cell_w != 0;
+  if (gpk != nullptr) {
+    switch (value_mode) {
+      case spmv::kF32: return spmv::dispatch_v1<spmv::kF32>(a, slot, nw, cw);
+      case spmv::kDf: return spmv::dispatch_v1<spmv::kDf>(a, slot, nw, cw);
+      case spmv::kBinary:
+        return spmv::dispatch_v1<spmv::kBinary>(a, slot, nw, cw);
+      default: return int(cudaErrorInvalidValue);
+    }
+  }
   switch (value_mode) {
     case spmv::kF32: return spmv::dispatch<spmv::kF32>(a, slot, nw, cw);
     case spmv::kBf16: return spmv::dispatch<spmv::kBf16>(a, slot, nw, cw);

@@ -276,6 +276,17 @@ def _append_fold_entries(mat: CsrMatrix, fold_rows: np.ndarray,
     return CsrMatrix(m, n + k, rp2, cols2.astype(INT_DTYPE), vals2)
 
 
+def _graph_gate(a: CsrMatrix, prep) -> bool:
+    """Viability gate for the graph-split plan (``formats/graph.py``), as
+    ``spmv_tpu/handle.py:_graph_gate``: within V2_MAX_N columns after the
+    hub extension, pad bounded, spill bounded, f32."""
+    return (prep is not None
+            and np.dtype(a.dtype) == np.float32
+            and prep.n_ext <= V2_MAX_N
+            and prep.pad_ratio(a.nnz) <= min(48.0, 6.7e8 / max(a.nnz, 1))
+            and prep.spilled <= 0.02 * a.nnz)
+
+
 def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
     """SELL_C_SIGMA / PARALLEL: row mode (SELL-8W v2) vs slot mode
     (SELL-8D) vs the row-split hybrid, by estimated tile count (f32) or

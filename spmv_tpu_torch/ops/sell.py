@@ -26,7 +26,15 @@ n:
 * ``spmv_tpu/ops/pallas_sell.py::_make_kernel_v2w_slot`` (K6,
   ``sell_slot_w``): K1's slot mode past V2_MAX_N;
 * ``spmv_tpu/ops/pallas_sell.py::_make_kernel_v2w_df`` (K7,
-  ``sell_row_df_w`` and ``sell_slot_df_w``): K2 past V2_MAX_N.
+  ``sell_row_df_w`` and ``sell_slot_df_w``): K2 past V2_MAX_N;
+* the v1 kernels, one tile a grid step over a ``Sell8W`` pack as
+  :func:`build_sell8w_fn` and the mesh's dist SELL-8W plans store it
+  (``window_ids``, ``gpk`` from :func:`pack_gpk`, int16 meta): ``_kernel``
+  (K9, ``sell_v1``), f32 values; ``_kernel_v1_df`` (K10, ``sell_v1_df``),
+  f32 hi + lo planes decoded to one f64 a slot, f64 x and y;
+  ``_kernel_binary`` (K11, ``sell_v1_bin``), every value 1 with validity in
+  meta bit 15.  :func:`prepare_v1` places them; the kernel reads the v1
+  arrays as they are, in row mode with one tile a step.
 
 A column stripe of a striped plan has the stripe's width as its n (at most
 V2_MAX_N), so it runs as K1 or K2, as the JAX package runs ``_run_v2``
@@ -61,12 +69,13 @@ from ..formats.sell8w import (LANES, SUB, WINDOW, Sell8W, Sell8WV2,
                               plan_v2, v2_layout)
 from ..utils.profiling import dev_put
 
-__all__ = ["SellStream", "prepare_sell", "binary_v2", "sell_spmv",
+__all__ = ["SellStream", "prepare_sell", "prepare_v1", "binary_v2",
+           "pack_gpk", "build_sell8w_fn", "sell8w_spmv", "sell_spmv",
            "sell_plain", "sell_decode", "kernel_name", "row_launches",
            "slot_launches", "row_df_launches", "slot_df_launches",
            "row_bin_launches", "row_w_launches", "slot_w_launches",
-           "row_df_w_launches", "slot_df_w_launches", "V2_MAX_N",
-           "CHUNK_TILES"]
+           "row_df_w_launches", "slot_df_w_launches", "v1_launches",
+           "v1_df_launches", "v1_bin_launches", "V2_MAX_N", "CHUNK_TILES"]
 
 #: the JAX package's VMEM-resident-x bound: streams up to it replace the
 #: resident kernels (K1, K2), streams past it the windowed ones (K5-K7)
@@ -79,7 +88,8 @@ PLAIN_TILES = 1 << 16
 
 #: kernel launches made by :func:`sell_spmv` for each kernel name: f32
 #: (K1) and f64 (K2) streams up to V2_MAX_N, their windowed counterparts
-#: (K5 values, K6, K7) past it, and binary (K5 binary) streams
+#: (K5 values, K6, K7) past it, binary (K5 binary) streams, and the v1
+#: streams (K9, K10, K11)
 row_launches = 0
 slot_launches = 0
 row_df_launches = 0
@@ -89,6 +99,9 @@ row_w_launches = 0
 slot_w_launches = 0
 row_df_w_launches = 0
 slot_df_w_launches = 0
+v1_launches = 0
+v1_df_launches = 0
+v1_bin_launches = 0
 
 _VALUE_MODES = {"f32": 0, "bf16": 1, "palette": 2,
                 "df": 3, "df16": 4, "palette_df": 5, "binary": 6}
@@ -116,10 +129,12 @@ class SellStream:
     #                                  (df16), else None
     palette: torch.Tensor         # (128,) f32, f64 (hi + lo) in palette_df;
     #                               zeros outside the palette modes
-    tinfo: torch.Tensor           # (ntiles,) int32
+    tinfo: torch.Tensor           # (ntiles,) int32; window_ids in v1
     step_block: torch.Tensor      # (nsteps,) int64 output block per step
     chunk_step_ptr: torch.Tensor  # (nchunks + 1,) int32
     block_chunk_ptr: torch.Tensor  # (nblocks + 1,) int32
+    gpk: Optional[torch.Tensor] = None  # (ntiles,) int32, the v1 layout's
+    #                                     group << 4 | row << 1 | first
 
     @property
     def nchunks(self) -> int:
@@ -166,6 +181,69 @@ def binary_v2(packed: Sell8W, g: int = 16) -> Sell8WV2:
     meta[v2_layout(packed, g)[1]] = meta16.astype(np.uint16).view(np.int16)
     return dataclasses.replace(v2, value_mode="binary", meta=meta, vals=None,
                                palette=None)
+
+
+def pack_gpk(slice_ids) -> np.ndarray:
+    """The v1 layout's per-tile scalar, ``group << 4 | row_in_group << 1 |
+    first`` (``spmv_tpu/ops/pallas_sell.py:pack_gpk``)."""
+    sl = np.asarray(slice_ids).astype(np.int64)
+    groups = sl // SUB
+    first = np.ones(len(sl), dtype=np.int64)
+    first[1:] = (groups[1:] != groups[:-1]).astype(np.int64)
+    return (groups << 4 | (sl % SUB) << 1 | first).astype(np.int32)
+
+
+def binary_meta_v1(packed: Sell8W) -> np.ndarray:
+    """A v1 pack's meta with each slot's validity (value != 0) in bit 15,
+    as ``build_sell8w_fn(binary=True)`` builds it."""
+    meta = packed.meta.astype(np.int32) | ((packed.vals != 0)
+                                           .astype(np.int32) << 15)
+    return (meta & 0xFFFF).astype(np.uint16).view(np.int16)
+
+
+def prepare_v1(window_ids, gpk, meta, vals, nslices: int, m: int, n: int,
+               device, vals_lo=None) -> SellStream:
+    """Place a v1 stream on ``device``: ``window_ids`` and ``gpk`` (ntiles,)
+    int32, meta (ntiles, 8, 128) int16 and f32 values, as the JAX package
+    stores them.  ``vals`` None is the binary mode (validity in meta bit
+    15); ``vals_lo`` given is the double-float mode (hi + lo f32 planes).
+    Output blocks are the groups of 8 slices, taken from ``gpk >> 4``."""
+    vm = ("binary" if vals is None else "df" if vals_lo is not None
+          else "f32")
+    nblocks = max(-(-nslices // SUB), 1)
+    step_block = np.asarray(gpk).astype(np.int64) >> 4
+    csp, bcp = chunk_tables(step_block, nblocks, 1)
+    f32 = lambda v: dev_put(np.asarray(v, dtype=np.float32), device)  # noqa: E731
+    return SellStream(
+        slot_mode=False, value_mode=vm, g=1, nw=1, cell_w=False, m=int(m),
+        n=int(n), nblocks=nblocks,
+        meta=dev_put(np.asarray(meta, dtype=np.int16), device),
+        vals=None if vals is None else f32(vals),
+        vals_lo=None if vals_lo is None else f32(vals_lo),
+        palette=dev_put(np.zeros(LANES, np.float64 if vm == "df"
+                                 else np.float32), device),
+        tinfo=dev_put(np.asarray(window_ids, dtype=np.int32), device),
+        step_block=dev_put(step_block, device),
+        chunk_step_ptr=dev_put(csp, device),
+        block_chunk_ptr=dev_put(bcp, device),
+        gpk=dev_put(np.asarray(gpk, dtype=np.int32), device))
+
+
+def build_sell8w_fn(packed: Sell8W, binary: bool = False, device="cuda"):
+    """``x -> y`` over a v1 pack placed on ``device``
+    (``spmv_tpu/ops/pallas_sell.py:build_sell8w_fn``): K9 over its f32
+    values, or K11 with ``binary=True`` (every stored value 1, validity in
+    meta bit 15, no values stream)."""
+    st = prepare_v1(packed.window_ids, pack_gpk(packed.slice_ids),
+                    binary_meta_v1(packed) if binary else packed.meta,
+                    None if binary else packed.vals, packed.nslices,
+                    packed.m, packed.n, device)
+    return lambda x: sell_spmv(st, x)[:st.m]
+
+
+def sell8w_spmv(packed: Sell8W, x: torch.Tensor) -> torch.Tensor:
+    """One v1 product on ``x``'s device."""
+    return build_sell8w_fn(packed, device=x.device)(x)
 
 
 def prepare_sell(packed, device, slot_mode: bool) -> SellStream:
@@ -245,6 +323,10 @@ def sell_decode(st: SellStream, t0: int = 0, t1: Optional[int] = None):
     cell = torch.gather(meta, 2, r)                           # meta[t, i, r]
     s = (cell >> 7) & 7
     ti = st.tinfo[t0:t1].to(torch.int64)[:, None, None]
+    if st.gpk is not None:
+        # v1: tinfo is window_ids, the row in the group is in gpk
+        ti = ti << 3 | (st.gpk[t0:t1].to(torch.int64)[:, None, None] >> 1
+                        & 7)
     if st.slot_mode:
         wsel = ((cell if st.cell_w else meta) >> 10) & (st.nw - 1)
         col = (ti >> 3) * (st.nw * WINDOW) + wsel * WINDOW + s * LANES + r
@@ -292,7 +374,11 @@ def sell_plain(st: SellStream, x: torch.Tensor) -> torch.Tensor:
 def kernel_name(st: SellStream) -> str:
     """The name of the kernel that runs ``st``: sell_row, sell_slot, their
     f64 forms sell_row_df and sell_slot_df, each with the suffix ``_w``
-    past V2_MAX_N (K5 values, K6, K7), or sell_row_bin."""
+    past V2_MAX_N (K5 values, K6, K7), sell_row_bin, or for a v1 stream
+    sell_v1, sell_v1_df or sell_v1_bin (K9, K10, K11)."""
+    if st.gpk is not None:
+        return "sell_v1" + {"f32": "", "df": "_df",
+                            "binary": "_bin"}[st.value_mode]
     if st.value_mode == "binary":
         return "sell_row_bin"
     return (("sell_slot" if st.slot_mode else "sell_row")
@@ -324,6 +410,7 @@ def sell_spmv(st: SellStream, x: torch.Tensor) -> torch.Tensor:
         st.vals.data_ptr() if st.vals is not None else None,
         st.vals_lo.data_ptr() if st.vals_lo is not None else None,
         st.palette.data_ptr(), st.tinfo.data_ptr(),
+        st.gpk.data_ptr() if st.gpk is not None else None,
         st.chunk_step_ptr.data_ptr(), st.block_chunk_ptr.data_ptr(),
         x.data_ptr(), partial.data_ptr(), out.data_ptr(),
         st.nchunks, st.nblocks, st.g, st.n, _VALUE_MODES[st.value_mode],
@@ -342,4 +429,6 @@ _COUNTERS = {"sell_row": "row_launches", "sell_slot": "slot_launches",
              "sell_row_bin": "row_bin_launches",
              "sell_row_w": "row_w_launches", "sell_slot_w": "slot_w_launches",
              "sell_row_df_w": "row_df_w_launches",
-             "sell_slot_df_w": "slot_df_w_launches"}
+             "sell_slot_df_w": "slot_df_w_launches",
+             "sell_v1": "v1_launches", "sell_v1_df": "v1_df_launches",
+             "sell_v1_bin": "v1_bin_launches"}

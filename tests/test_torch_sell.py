@@ -1,8 +1,9 @@
 """The port's SELL tile-stream product (spmv_tpu_torch/ops/sell.py, the CUDA
 kernel's plain version on the CPU) against the TPU kernels it replaces,
-spmv_tpu.ops.pallas_sell._run_v2 (f32) and _run_v2_df (f64) and, past 2M
-columns, their windowed forms _run_v2w (K5), _run_v2w_slot (K6) and
-_run_v2w_df (K7), run in interpret mode, on the same streams: random
+spmv_tpu.ops.pallas_sell._run_v2 (f32) and _run_v2_df (f64), past 2M
+columns their windowed forms _run_v2w (K5), _run_v2w_slot (K6) and
+_run_v2w_df (K7), and the v1 kernels _run (K9, K11 binary) and _run_df_v1
+(K10), run in interpret mode, on the same streams: random
 streams (every decode rule, including the cell reads) and streams from the
 JAX package's packers.
 
@@ -27,8 +28,9 @@ import torch
 from spmv_tpu.formats.sell8d import pack_sell8d
 from spmv_tpu.formats.sell8w import pack_sell8w, plan_v2
 from spmv_tpu.io import generate
-from spmv_tpu.ops.pallas_sell import (_run_v2, _run_v2_df, _run_v2w,
-                                      _run_v2w_df, _run_v2w_slot)
+from spmv_tpu.ops.pallas_sell import (_run, _run_df_v1, _run_v2, _run_v2_df,
+                                      _run_v2w, _run_v2w_df, _run_v2w_slot,
+                                      pack_gpk)
 from spmv_tpu.types import CsrMatrix as JaxCsr
 from spmv_tpu_torch.ops import sell as tsell
 
@@ -538,3 +540,214 @@ def test_windowed_df_packed_streams(slot_mode, value_mode, x64):
         pk = plan_v2(hi, lo_tiles=lo.vals)
     assert pk.value_mode == value_mode and pk.n > tsell.V2_MAX_N
     _check_df(pk, slot_mode)
+
+
+# -- the v1 layout: one tile a step (K9, K10, K11) ---------------------------
+
+def _v1_reference(st, x, binary=False):
+    """The TPU's v1 kernels in interpret mode on the stream's own arrays:
+    _run (K9, K11 with ``binary``) or _run_df_v1 (K10)."""
+    args = (jnp.asarray(st.tinfo.numpy()), jnp.asarray(st.gpk.numpy()),
+            jnp.asarray(x), jnp.asarray(st.meta.numpy()))
+    kw = dict(ntiles=st.meta.shape[0], nslices=8 * st.nblocks, n=st.n,
+              interpret=True)
+    if st.value_mode == "df":
+        out = _run_df_v1(*args, jnp.asarray(st.vals.numpy()),
+                         jnp.asarray(st.vals_lo.numpy()), **kw)
+    else:
+        out = _run(*args, None if binary else jnp.asarray(st.vals.numpy()),
+                   binary=binary, **kw)
+    return np.asarray(out, dtype=np.float64).reshape(-1)
+
+
+def _v1_bound(st, x):
+    """(|A||x|) per output row of a v1 stream, by the plain version."""
+    return tsell.sell_plain(dataclasses.replace(
+        st, vals=None if st.vals is None else st.vals.abs(),
+        vals_lo=None if st.vals_lo is None else st.vals_lo.abs()),
+        torch.from_numpy(np.abs(x))).numpy().astype(np.float64)
+
+
+def _check_v1(st, x, binary=False):
+    y = tsell.sell_spmv(st, torch.from_numpy(x)).numpy()
+    ref = _v1_reference(st, x, binary)
+    assert y.shape == ref.shape
+    np.testing.assert_array_less(np.abs(y - ref), 1e-5 * _v1_bound(st, x)
+                                 + 1e-30)
+    return y
+
+
+def _random_v1(seed, binary=False, df=False, n=5000):
+    """Random v1 arrays: sorted slice ids over 3 groups (every group
+    visited), random windows below n, every meta bit pattern (so a slot's
+    s differs from its cell's), random values."""
+    rng = np.random.default_rng(seed)
+    nslices, ntiles = 20, 40
+    sl = np.sort(np.concatenate([np.arange(0, nslices, 8),
+                                 rng.integers(0, nslices, ntiles - 3)]))
+    win = rng.integers(0, -(-n // 1024), ntiles).astype(np.int32)
+    meta = rng.integers(0, 1 << 16, (ntiles, 8, 128)).astype(
+        np.uint16).view(np.int16)
+    v = rng.standard_normal((ntiles, 8, 128)).astype(np.float32)
+    lo = ((v * rng.uniform(-2 ** -24, 2 ** -24, v.shape)).astype(np.float32)
+          if df else None)
+    return tsell.prepare_v1(win, tsell.pack_gpk(sl), meta,
+                            None if binary else v, nslices, nslices * 128,
+                            n, "cpu", vals_lo=lo)
+
+
+def test_pack_gpk_is_the_reference_layout():
+    sl = np.array([0, 0, 3, 7, 8, 8, 15, 16, 23, 40])
+    np.testing.assert_array_equal(tsell.pack_gpk(sl), pack_gpk(sl))
+    assert tsell.pack_gpk(sl).dtype == pack_gpk(sl).dtype
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_v1_random_stream_matches_tpu_kernel(binary):
+    st = _random_v1(3, binary=binary)
+    assert tsell.kernel_name(st) == ("sell_v1_bin" if binary else "sell_v1")
+    x = np.random.default_rng(1).standard_normal(st.n).astype(np.float32)
+    _check_v1(st, x, binary)
+
+
+def test_v1_s_is_read_at_the_cell():
+    # one v1 tile: slot (2, 3) names residue r=5 and carries s=1 itself;
+    # the cell (2, 5) says s=3 — the cell wins, as in _kernel's two gathers
+    meta = np.zeros((1, 8, 128), np.uint16)
+    meta[0, 2, 3] = (1 << 7) | 5
+    meta[0, 2, 5] = (3 << 7) | 5
+    vals = np.zeros((1, 8, 128), np.float32)
+    vals[0, 2, 3] = 2.0
+    x = np.zeros(4096, np.float32)
+    x[2048 + 3 * 128 + 5] = 7.0
+    st = tsell.prepare_v1(np.array([2], np.int32),
+                          tsell.pack_gpk(np.array([5])),
+                          meta.view(np.int16), vals, 8, 1024, 4096, "cpu")
+    y = _check_v1(st, x)
+    assert y[5 * 128 + 3] == 14.0 and np.count_nonzero(y) == 1
+
+
+def test_v1_packed_stream_matches_tpu_kernel_and_v2():
+    # K9 on a packed stream, through build_sell8w_fn as both packages
+    # build it, and the same pack as a v2 row-mode stream: the same y
+    from spmv_tpu.ops.pallas_sell import build_sell8w_fn
+    a = generate.with_empty_rows(
+        generate.clustered(3000, 5000, 12, spread=300, dtype=np.float32,
+                           seed=3, exact=False), 0.3, seed=4)
+    pk = pack_sell8w(a)
+    x = np.random.default_rng(2).standard_normal(a.n).astype(np.float32)
+    y = tsell.build_sell8w_fn(pk, device="cpu")(torch.from_numpy(x))
+    ref = np.asarray(build_sell8w_fn(pk, interpret=True)(jnp.asarray(x)),
+                     dtype=np.float64)
+    st = tsell.prepare_v1(pk.window_ids, tsell.pack_gpk(pk.slice_ids),
+                          pk.meta, pk.vals, pk.nslices, pk.m, pk.n, "cpu")
+    bound = _v1_bound(st, x)[:a.m]
+    np.testing.assert_array_less(np.abs(y.numpy() - ref), 1e-5 * bound
+                                 + 1e-30)
+    v2 = tsell.prepare_sell(plan_v2(pk, g=4), "cpu", slot_mode=False)
+    y2 = tsell.sell_spmv(v2, torch.from_numpy(x))[:a.m].numpy()
+    np.testing.assert_array_less(np.abs(y.numpy() - y2), 1e-5 * bound
+                                 + 1e-30)
+    np.testing.assert_allclose(
+        tsell.sell8w_spmv(pk, torch.from_numpy(x)).numpy(), y.numpy())
+
+
+def test_v1_binary_matches_tpu_kernel():
+    # K11: build_sell8w_fn(binary=True) over a 0/1 pattern with explicit
+    # zeros (padding by value), x not finite where no valid slot reads it
+    from spmv_tpu.ops.pallas_sell import build_sell8w_fn
+    a = generate.clustered(2000, 3000, 10, spread=200, dtype=np.float32,
+                           seed=5)
+    rng = np.random.default_rng(6)
+    v = (rng.random(a.nnz) < 0.8).astype(np.float32)
+    a = JaxCsr(a.m, a.n, a.rowptr, a.colidx, v)
+    pk = pack_sell8w(a)
+    x = rng.standard_normal(a.n).astype(np.float32)
+    unread = np.setdiff1d(np.arange(a.n), a.colidx[v != 0])
+    x[unread[:5]] = np.nan
+    y = tsell.build_sell8w_fn(pk, binary=True, device="cpu")(
+        torch.from_numpy(x)).numpy()
+    ref = np.asarray(build_sell8w_fn(pk, interpret=True, binary=True)(
+        jnp.asarray(x)), dtype=np.float64)
+    assert np.isfinite(y).all() and np.isfinite(ref).all()
+    absx = np.abs(np.nan_to_num(x))
+    bound = tsell.build_sell8w_fn(pk, binary=True, device="cpu")(
+        torch.from_numpy(absx)).numpy()
+    np.testing.assert_array_less(np.abs(y - ref), 1e-5 * bound + 1e-30)
+
+
+def test_v1_dist_padding_tiles():
+    # a dist pack's padding tiles (mesh.py:719-721): window 0, zero meta
+    # and values, gpk = (ngroups - 1) << 4 (first = 0).  They add 0·x[0]
+    # into the last group's row 0: NaN there when x[0] is not finite, on
+    # the TPU as well
+    a = generate.clustered(1500, 2000, 8, spread=200, dtype=np.float32,
+                           seed=7, exact=False)
+    pk = pack_sell8w(a)
+    pad = 6
+    ngroups = -(-pk.nslices // 8)
+    win = np.concatenate([pk.window_ids, np.zeros(pad, np.int32)])
+    gpk = np.concatenate([pack_gpk(pk.slice_ids),
+                          np.full(pad, (ngroups - 1) << 4, np.int32)])
+    meta = np.concatenate([pk.meta, np.zeros((pad, 8, 128), np.int16)])
+    vals = np.concatenate([pk.vals, np.zeros((pad, 8, 128), np.float32)])
+    st = tsell.prepare_v1(win, gpk, meta, vals, pk.nslices, pk.m, pk.n,
+                          "cpu")
+    x = np.random.default_rng(8).standard_normal(a.n).astype(np.float32)
+    _check_v1(st, x)
+    x[0] = np.inf
+    y = tsell.sell_spmv(st, torch.from_numpy(x)).numpy()
+    ref = _v1_reference(st, x)
+    np.testing.assert_array_equal(np.isnan(y), np.isnan(ref))
+    assert np.isnan(y[(ngroups - 1) * 1024:(ngroups - 1) * 1024 + 128]).all()
+
+
+@pytest.mark.parametrize("df", [False, True])
+def test_v1_past_2_21_columns(df, x64):
+    # 4096 rows over 2.5M columns: windows past 2^11, columns past 2^21
+    rng = np.random.default_rng(9)
+    rows = np.repeat(np.arange(4096), 4)
+    cols = (rows // 128) * 75 * 1024 + rng.integers(0, 2048, rows.size)
+    v = rng.standard_normal(rows.size)
+    a = JaxCsr.from_coo(4096, WIDE_N, rows, cols, v)
+    assert a.colidx.max() > 1 << 21
+    hi = pack_sell8w(JaxCsr(a.m, a.n, a.rowptr, a.colidx,
+                            a.vals.astype(np.float32)))
+    lo = None
+    if df:
+        lo = pack_sell8w(JaxCsr(a.m, a.n, a.rowptr, a.colidx,
+                                (a.vals - a.vals.astype(np.float32))
+                                .astype(np.float32))).vals
+    st = tsell.prepare_v1(hi.window_ids, tsell.pack_gpk(hi.slice_ids),
+                          hi.meta, hi.vals, hi.nslices, hi.m, hi.n, "cpu",
+                          vals_lo=lo)
+    assert tsell.kernel_name(st) == ("sell_v1_df" if df else "sell_v1")
+    x = rng.standard_normal(a.n)
+    if not df:
+        _check_v1(st, x.astype(np.float32))
+        return
+    # K10: exact against the f64 row sums of hi + lo, 2e-6 against the
+    # interpret-mode kernel (its EFTs collapse to about f32 accuracy)
+    y = tsell.sell_spmv(st, torch.from_numpy(x))
+    assert y.dtype == torch.float64
+    y = y.numpy()[:a.m]
+    v64 = a.vals.astype(np.float32).astype(np.float64) + (
+        a.vals - a.vals.astype(np.float32)).astype(np.float32)
+    prod = v64 * x[a.colidx]
+    exact = np.zeros(a.m)
+    np.add.at(exact, np.repeat(np.arange(a.m), a.row_lengths), prod)
+    bound = np.zeros(a.m)
+    np.add.at(bound, np.repeat(np.arange(a.m), a.row_lengths), np.abs(prod))
+    np.testing.assert_array_less(np.abs(y - exact), 1e-12 * bound + 1e-300)
+    ref = _v1_reference(st, x)[:a.m]
+    np.testing.assert_array_less(np.abs(y - ref), 2e-6 * bound + 1e-300)
+
+
+def test_v1_random_df_stream_matches_tpu_kernel(x64):
+    st = _random_v1(4, df=True)
+    assert tsell.kernel_name(st) == "sell_v1_df" and st.dtype == torch.float64
+    x = np.random.default_rng(2).standard_normal(st.n)
+    y = tsell.sell_spmv(st, torch.from_numpy(x)).numpy()
+    bound = _v1_bound(st, x) + 1e-300
+    ref = _v1_reference(st, x)
+    np.testing.assert_array_less(np.abs(y - ref), 2e-6 * bound)
