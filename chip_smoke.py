@@ -121,6 +121,11 @@ BOUND = 1e-5
 BOUND_F64 = 1e-10
 BOUND_F64_KERNEL = 1e-12
 ITERS = 30
+#: profile windows per measurement: device times are their median
+WINDOWS = 5
+#: the scratch written between calls for a cold-L2 time, well past the
+#: H100's 50 MB L2
+FLUSH_BYTES = 256 << 20
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
@@ -298,6 +303,19 @@ def log(msg):
     print(msg, flush=True)
 
 
+def log_matrix(name, a):
+    """Log a generated family's identity: its shape and a sha256 of its
+    (rowptr, colidx, vals) bytes as stored, in that order (the generator
+    draws from numpy, whose version the toolchain line logs)."""
+    import hashlib
+    h = hashlib.sha256()
+    for arr in (a.rowptr, a.colidx, a.vals):
+        h.update(arr.tobytes())
+    log(json.dumps({"phase": "matrix", "family": name, "m": a.m, "n": a.n,
+                    "nnz": int(a.nnz), "dtype": str(a.vals.dtype),
+                    "sha256": h.hexdigest()}))
+
+
 def _cmd_line(cmd):
     try:
         res = subprocess.run(cmd, capture_output=True, text=True,
@@ -337,14 +355,17 @@ def zero_counts():
     coo2.coo2_launches = 0
 
 
-def cuda_ms(fn, x, iters=ITERS):
-    """Median CUDA-event time of fn(x) in ms, after warm-up."""
+def cuda_ms(fn, x, iters=ITERS, cold=False):
+    """Median CUDA-event time of fn(x) in ms, after warm-up; ``cold``
+    rewrites the L2 flush buffer before each call, outside the events."""
     import torch
     for _ in range(3):
         fn(x)
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
+        if cold:
+            flush_l2()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -353,6 +374,40 @@ def cuda_ms(fn, x, iters=ITERS):
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def host_us(fn, x, calls=1000):
+    """The host's time per call of fn(x) in µs: a host clock around
+    ``calls`` enqueues with no synchronise inside (the card runs behind)."""
+    import torch
+    fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(x)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+_flush = {}
+
+
+def flush_l2():
+    """Rewrite FLUSH_BYTES of scratch on the card (``bitwise_not`` in
+    place), so the next call finds nothing of its inputs in the 50 MB L2.
+    The first call also records the flush's kernel names, which the
+    profile windows leave out of device times."""
+    import torch
+    if "buf" not in _flush:
+        from torch.profiler import ProfilerActivity, profile
+        _flush["buf"] = torch.zeros(FLUSH_BYTES // 4, dtype=torch.int32,
+                                    device="cuda")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.bitwise_not(_flush["buf"], out=_flush["buf"])
+            torch.cuda.synchronize()
+        _flush["keys"] = {ev.key for ev in prof.key_averages()}
+    torch.bitwise_not(_flush["buf"], out=_flush["buf"])
 
 
 def scaled_err(y, ref, absref, bound):
@@ -448,7 +503,7 @@ def stream_bound(st, nnz):
         binary = st.value_mode == "binary"   # no palette, one add a slot
         nbytes = nnz * slot + (0 if binary else nb(st.palette)) + xy
         stored = (nb(st.meta, st.vals, st.vals_lo, st.tinfo, st.gpk,
-                     st.chunk_step_ptr, st.block_chunk_ptr)
+                     st.chunk_step_ptr, st.chunk_block, st.block_chunk_ptr)
                   + (0 if binary else nb(st.palette))
                   + (st.n + st.nblocks * 1024) * esize)
         ops = nnz if binary else ops
@@ -531,13 +586,29 @@ def check_stream(st, x, timing=False):
     bound = BOUND_F64_KERNEL if x.dtype == torch.float64 else BOUND
     rel, mabs, ok = scaled_err(y, ref, absref, bound)
     if not ok:
-        raise AssertionError(f"{kern}: kernel disagrees with its plain "
-                             f"version (max scaled error {rel:.3g})")
+        # what state a wrong launch leaves, and whether it repeats
+        left = (int(st.ticket.count_nonzero()) if hasattr(st, "ticket")
+                else None)
+        again = scaled_err(run(st, x), ref, absref, bound)[0]
+        fresh = (dataclasses.replace(st, ticket=torch.zeros_like(st.ticket))
+                 if hasattr(st, "ticket") else st)
+        fresh_err = scaled_err(run(fresh, x), ref, absref, bound)[0]
+        raise AssertionError(
+            f"{kern}: kernel disagrees with its plain version (max scaled "
+            f"error {rel:.3g}; tickets left nonzero {left}; again "
+            f"{again:.3g}; with zeroed tickets {fresh_err:.3g}; chunks "
+            f"{getattr(st, 'nchunks', None)})")
     rec = {"max_scaled_err": rel, "max_abs_err": mabs}
     if timing:
-        rec["ms"] = cuda_ms(lambda v: run(st, v), x)
-        rec["device_ms"] = profile_calls(lambda v: run(st, v), x)[
-            "device_ms"]
+        fn = lambda v: run(st, v)  # noqa: E731
+        rec["ms"] = cuda_ms(fn, x)
+        rec["cold_ms"] = cuda_ms(fn, x, cold=True)
+        prof = profile_calls(fn, x)
+        cold = profile_calls(fn, x, cold=True)
+        rec.update(device_ms=prof["device_ms"],
+                   device_ms_spread=prof.get("device_ms_spread"),
+                   cold_device_ms=cold["device_ms"],
+                   cold_device_ms_spread=cold.get("device_ms_spread"))
         rec["plain_ms"] = cuda_ms(lambda v: plain(st, v), x)
         if is_coo2(st):
             # pass 1 alone is a gather and a multiply: two PyTorch calls
@@ -635,6 +706,9 @@ def kernel_phase(dev, kern):
                                             force_value_mode=mode)
                         st = sell.prepare_sell(pk, dev, slot_mode=True)
                         rec = check_stream(st, xvec(a.n, dt))
+                        if (mode, nw, cell_w) == ("f32", 2, True) \
+                                and a.n <= sell.V2_MAX_N:
+                            slot_f32 = st
                         rows.append({"kernel": kernel_of(st), "n": a.n,
                                      "nw": nw, "cell_w": cell_w,
                                      "value_mode": mode, **rec})
@@ -663,6 +737,7 @@ def kernel_phase(dev, kern):
             assert c.reduce.n > 2_000_000, c.reduce.n
             prod = coo2.coo2_pass1_plain(c, x)[:c.reduce.n]
             rec = check_stream(c.reduce, prod)
+            coo2_r = (c.reduce, prod)
             rows.append({"kernel": kernel_of(c.reduce), "n": c.reduce.n,
                          "tiles": c.reduce.meta.shape[0], **rec})
     # the v1 kernels on full-size v1 packs, as build_sell8w_fn places them
@@ -684,9 +759,12 @@ def kernel_phase(dev, kern):
                                              c64.colidx, hi)), lo=lo),
                     np.float64)):
         rec = check_stream(st, xvec(st.n, dt), timing=True)
+        rec["host_us"] = host_us(lambda v: sell.sell_spmv(st, v),
+                                 xvec(st.n, dt))
         keep_kernel(kern, kernel_of(st), rec, st, "clustered200k (v1 pack)")
         rows.append({"kernel": kernel_of(st), "n": st.n,
                      "tiles": st.meta.shape[0], **rec})
+    rows += nonfinite_checks(dev, slot_f32, pk, v1, coo2_r, rng)
     del pk, lo, c64
     wide = pack_sell8w(grids[1][0])
     st = v1(wide)
@@ -699,38 +777,171 @@ def kernel_phase(dev, kern):
     return rows
 
 
-def profile_calls(fn, x, calls=20):
-    """torch.profiler over ``calls`` back-to-back calls: device time per
-    kernel name (per call), the window's wall time on CUDA events, and the
-    share of that window the card ran no kernel."""
+def nonfinite_checks(dev, slot_st, pk, v1, coo2_r, rng):
+    """Non-finite x against each kernel's plain version: an inf at a
+    column that padding slots read (a slot stream; a v1 pack with a dist
+    pack's padding tiles, window 0 and first = 0 in the last group) gives
+    NaN (0 * inf, as on the TPU) exactly where the plain version does; a
+    NaN at product positions no valid slot reads leaves a binary stream's
+    result finite (its padding slots add nothing)."""
+    import numpy as np
+    import torch
+    from spmv_tpu_torch.ops import sell
+
+    def padding_column(st):
+        rows, col, v = sell.sell_decode(st)
+        hit = col[(v == 0) & (col < st.n)]
+        return int(hit.flatten()[0]) if hit.numel() else None
+
+    def compare(name, st, x):
+        y, ref = sell.sell_spmv(st, x).cpu(), sell.sell_plain(st, x).cpu()
+        fin = torch.where(torch.isfinite(x), x, 0.0)
+        absref = sell.sell_plain(abs_stream(st), fin.abs()).cpu()
+        same = (torch.equal(torch.isnan(y), torch.isnan(ref))
+                and torch.equal(torch.isinf(y), torch.isinf(ref)))
+        ok_fin = torch.isfinite(ref)
+        bound = BOUND_F64_KERNEL if st.dtype == torch.float64 else BOUND
+        rel, _, ok = scaled_err(y[ok_fin], ref[ok_fin], absref[ok_fin],
+                                bound)
+        rec = {"check": name, "kernel": kernel_of(st),
+               "nan_rows": int(torch.isnan(y).sum()),
+               "nan_rows_plain": int(torch.isnan(ref).sum()),
+               "inf_rows": int(torch.isinf(y).sum()),
+               "same_nonfinite": same, "finite_scaled_err": rel}
+        if not (same and ok):
+            raise AssertionError(f"{name}: non-finite pattern or finite "
+                                 f"rows differ from the plain version: "
+                                 f"{rec}")
+        return rec
+
+    out = []
+    x = torch.from_numpy(rng.standard_normal(slot_st.n)
+                         .astype(np.float32)).to(dev)
+    c = padding_column(slot_st)
+    x[c] = float("inf")
+    rec = compare("inf at a padding column (slot)", slot_st, x)
+    if rec["nan_rows"] == 0:
+        raise AssertionError(f"slot stream: no NaN from 0 * inf: {rec}")
+    out.append(rec)
+    # the v1 pack with 6 padding tiles, as a dist pack pads its shards
+    ngroups = -(-pk.nslices // 8)
+    gpk = np.concatenate([sell.pack_gpk(pk.slice_ids),
+                          np.full(6, (ngroups - 1) << 4, np.int32)])
+    st = sell.prepare_v1(
+        np.concatenate([pk.window_ids, np.zeros(6, np.int32)]), gpk,
+        np.concatenate([pk.meta, np.zeros((6, 8, 128), np.int16)]),
+        np.concatenate([pk.vals, np.zeros((6, 8, 128), np.float32)]),
+        pk.nslices, pk.m, pk.n, dev)
+    x = torch.from_numpy(rng.standard_normal(st.n).astype(np.float32)
+                         ).to(dev)
+    x[0] = float("inf")
+    rec = compare("inf at x[0] with padding tiles (v1)", st, x)
+    if rec["nan_rows"] == 0:
+        raise AssertionError(f"v1 padding tiles: no NaN: {rec}")
+    out.append(rec)
+    # binary streams: NaN where no valid slot reads
+    for name, (st, x) in (("v1", (v1(pk, binary=True), None)),
+                          ("coo2 R", coo2_r)):
+        if x is None:
+            x = torch.from_numpy(rng.standard_normal(st.n)
+                                 .astype(np.float32)).to(dev)
+        x = x.clone()
+        _rows, col, v = sell.sell_decode(st)
+        read = torch.zeros(st.n, dtype=torch.bool, device=x.device)
+        read[col[(v != 0) & (col < st.n)]] = True
+        unread = torch.nonzero(~read).flatten()
+        x[unread[:: max(len(unread) // 1000, 1)]] = float("nan")
+        rec = compare(f"NaN at unread positions (binary {name})", st, x)
+        if rec["nan_rows"] or rec["inf_rows"]:
+            raise AssertionError(f"binary {name}: not finite: {rec}")
+        out.append(rec)
+    return out
+
+
+def is_flush(key):
+    """Whether a profiler key is the L2 flush's kernel (or its launch)."""
+    return key in _flush.get("keys", ()) or "bitwise_not" in key
+
+
+def profile_window(fn, x, calls=20, cold=False):
+    """One torch.profiler window over ``calls`` back-to-back calls (each
+    after an L2 flush when ``cold``): per kernel name (the flush's left
+    out) its device time in ms and its count of records, the window's
+    wall time on CUDA events per call, and the names of the events seen
+    when no kernel was."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn(x)
-    torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         s.record()
         for _ in range(calls):
+            if cold:
+                flush_l2()
             fn(x)
         e.record()
         e.synchronize()
-    window = s.elapsed_time(e) / calls
     kernels = {}
-    for ev in prof.key_averages():
+    events = prof.key_averages()
+    for ev in events:
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
         if us > 0 and getattr(ev, "device_type", None) is not None \
-                and "CUDA" in str(ev.device_type):
-            kernels[ev.key[:80]] = us / 1e3 / calls
-    busy = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    return {"window_ms": window,
-            "device_ms": busy if kernels else "not measured",
-            "idle_share": (1 - busy / window) if kernels and window > 0
-            else "not measured",
-            "kernels_ms": dict(top)}
+                and "CUDA" in str(ev.device_type) and not is_flush(ev.key):
+            ms, n = kernels.get(ev.key[:80], (0.0, 0))
+            kernels[ev.key[:80]] = (ms + us / 1e3, n + ev.count)
+    seen = [] if kernels else sorted({ev.key[:60] for ev in events})[:12]
+    return kernels, s.elapsed_time(e) / calls, seen
+
+
+def profile_calls(fn, x, calls=20, windows=WINDOWS, cold=False):
+    """``windows`` profile windows (:func:`profile_window`).  The profiler
+    drops some kernel records in some windows, so a window's device time
+    per call is, per kernel name, its mean time a record times its
+    launches a call (the most records any window holds, over ``calls``).
+    Returns the median over the windows and its spread, the median window
+    time and idle share (warm windows only: a cold window's wall time
+    holds the flushes), the kernels of the median window, how many windows
+    were short of records, and the events a window without any kernel
+    saw."""
+    import torch
+    if cold:
+        flush_l2()      # its first call profiles itself: not inside a window
+    fn(x)
+    torch.cuda.synchronize()
+    runs = [profile_window(fn, x, calls, cold) for _ in range(windows)]
+    most = {}
+    for k, _w, _s in runs:
+        for key, (_ms, n) in k.items():
+            most[key] = max(most.get(key, 0), n)
+    per_call = {key: max(round(n / calls), 1) for key, n in most.items()}
+    est = []
+    for k, w, _s in runs:
+        if k:
+            ms = {key: t / n * per_call[key] for key, (t, n) in k.items()}
+            est.append((sum(ms.values()), ms, w))
+    est.sort(key=lambda r: r[0])
+    empty = [seen for k, _w, seen in runs if not k]
+    rec = {"windows": windows, "records_a_call": sum(per_call.values()),
+           "short_windows": sum(any(k.get(key, (0, 0))[1] < n
+                                    for key, n in most.items())
+                                for k, _w, _s in runs)}
+    if empty:
+        rec["empty_window_events"] = empty[0]
+    if not est:
+        return {**rec, "device_ms": "not measured",
+                "idle_share": "not measured", "window_ms": "not measured"}
+    rec.update(device_ms=statistics.median(b for b, _k, _w in est),
+               device_ms_spread=[est[0][0], est[-1][0]],
+               kernels_ms=dict(sorted(est[len(est) // 2][1].items(),
+                                      key=lambda kv: -kv[1])[:6]))
+    if not cold:
+        rec.update(window_ms=statistics.median(w for _b, _k, w in est),
+                   idle_share=statistics.median(1 - b / w
+                                                for b, _k, w in est
+                                                if w > 0))
+    return rec
 
 
 def family_streams(plan):
@@ -755,9 +966,12 @@ def keep_kernel(kern, k, rec, stream, family):
     size = stream.data.numel() if is_dia(stream) else stream.meta.numel()
     if size >= kern[k].get("size", -1):
         kern[k].update(size=size, family=family, **{
-            f: rec[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms", "library_call",
-                                "bytes", "stream_bound_ms", "stream_bytes")})
+            f: rec[f] for f in ("ms", "cold_ms", "device_ms",
+                                "device_ms_spread", "cold_device_ms",
+                                "cold_device_ms_spread", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms",
+                                "library_call", "bytes", "stream_bound_ms",
+                                "stream_bytes")})
 
 
 def stream_record(stream, rec):
@@ -766,6 +980,7 @@ def stream_record(stream, rec):
             "nw": getattr(stream, "nw", None),
             "cell_w": getattr(stream, "cell_w", None),
             "g": getattr(stream, "g", None), "n": stream.n,
+            "chunks": getattr(stream, "nchunks", None),
             "tiles": None if is_dia(stream) else stream.meta.shape[0],
             **rec}
 
@@ -813,6 +1028,7 @@ def main_path(dev, kern):
         t0 = time.perf_counter()
         a = make(generate, np)
         t_gen = time.perf_counter() - t0
+        log_matrix(name, a)
         method = method_of(name)
         native_packs = coo2_fmt.packs["native"]
         t0 = time.perf_counter()
@@ -943,56 +1159,63 @@ def main_path(dev, kern):
     return launches, windowed_ctx
 
 
-def windowed_phase(dev, kern, ctx):
-    """The windowed forms of the striped families at full size: one
-    windowed slot stream (K6, K7 slot) as the JAX planner packs it when its
-    gate vetoes the stripes (``pack_sell8d`` with the nw of
-    ``estimate_sell8d_auto(windowed=True)`` and the striped spill budget),
-    and a ``sell8w_v2w`` row stream (K5 values, K7 row; ``pack_sell8w`` at
-    ``max_pad_ratio=8`` and ``plan_v2``, f64 packed twice, hi and lo).
-    Each form's y against the family's reference, its stream against its
-    plain version, and its time beside the striped plan's, per call and on
-    the card, timed in turns (striped, windowed, windowed, striped)."""
+def windowed_slot_plan(a):
+    """``a`` as one windowed slot stream (K6, K7 slot), as the JAX planner
+    packs it when its gate vetoes the stripes: ``pack_sell8d`` with the nw
+    of ``estimate_sell8d_auto(windowed=True)`` and the striped spill
+    budget."""
     import numpy as np
     from spmv_tpu_torch import handle as th
-    from spmv_tpu_torch.formats import sell8w as s8w
     from spmv_tpu_torch.formats.sell8d import (MAX_SPILL_STRIPED,
                                                estimate_sell8d_auto,
                                                pack_sell8d,
                                                slot_stream_budget)
-    from spmv_tpu_torch.types import CsrMatrix, Method
+    df = a.vals.dtype == np.float64
+    _t, _c, _sp, nw = estimate_sell8d_auto(
+        a, nw=None, windowed=True, max_spill=MAX_SPILL_STRIPED)
+    allow = th._pad_allow(
+        32.0, slot_stream_budget(a.vals, nw, df) / max(a.nnz, 1))
+    packed, rest = pack_sell8d(a, max_pad_ratio=allow, nw=nw, g="auto",
+                               max_spill=MAX_SPILL_STRIPED, cell_w=nw > 1)
+    plan = {"sell8d": packed, "pad_ratio": packed.pad_ratio}
+    if rest is not None:
+        plan.update(rest_rows=rest[0], rest_cols=rest[1], rest_vals=rest[2])
+    return plan
 
-    def slot_form(a):
-        df = a.vals.dtype == np.float64
-        _t, _c, _sp, nw = estimate_sell8d_auto(
-            a, nw=None, windowed=True, max_spill=MAX_SPILL_STRIPED)
-        allow = th._pad_allow(
-            32.0, slot_stream_budget(a.vals, nw, df) / max(a.nnz, 1))
-        packed, rest = pack_sell8d(a, max_pad_ratio=allow, nw=nw, g="auto",
-                                   max_spill=MAX_SPILL_STRIPED,
-                                   cell_w=nw > 1)
-        plan = {"sell8d": packed, "pad_ratio": packed.pad_ratio}
-        if rest is not None:
-            plan.update(rest_rows=rest[0], rest_cols=rest[1],
-                        rest_vals=rest[2])
-        return plan
 
-    def row_form(a):
-        packed = s8w.pack_sell8w(a, max_pad_ratio=8.0)
-        lo = None
-        if a.vals.dtype == np.float64:
-            lo = s8w.pack_sell8w(CsrMatrix(
-                a.m, a.n, a.rowptr, a.colidx,
-                (a.vals - a.vals.astype(np.float32).astype(np.float64))
-                .astype(np.float32))).vals
-        return {"sell8w_v2w": s8w.plan_v2(packed, lo_tiles=lo),
-                "pad_ratio": packed.pad_ratio}
+def windowed_row_plan(a):
+    """``a`` as a ``sell8w_v2w`` row stream (K5 values, K7 row):
+    ``pack_sell8w`` at ``max_pad_ratio=8`` and ``plan_v2``, f64 packed
+    twice, hi and lo."""
+    import numpy as np
+    from spmv_tpu_torch.formats import sell8w as s8w
+    from spmv_tpu_torch.types import CsrMatrix
+    packed = s8w.pack_sell8w(a, max_pad_ratio=8.0)
+    lo = None
+    if a.vals.dtype == np.float64:
+        lo = s8w.pack_sell8w(CsrMatrix(
+            a.m, a.n, a.rowptr, a.colidx,
+            (a.vals - a.vals.astype(np.float32).astype(np.float64))
+            .astype(np.float32))).vals
+    return {"sell8w_v2w": s8w.plan_v2(packed, lo_tiles=lo),
+            "pad_ratio": packed.pad_ratio}
+
+
+def windowed_phase(dev, kern, ctx):
+    """The windowed forms of the striped families at full size: one
+    windowed slot stream (:func:`windowed_slot_plan`) and a ``sell8w_v2w``
+    row stream (:func:`windowed_row_plan`).  Each form's y against the
+    family's reference, its stream against its plain version, and its time
+    beside the striped plan's, per call and on the card, timed in turns
+    (striped, windowed, windowed, striped)."""
+    from spmv_tpu_torch import handle as th
+    from spmv_tpu_torch.types import Method
 
     rows = []
     for name, (h, a, x, ref, absref, bound) in ctx.items():
-        forms = [("sell8d windowed", slot_form)]
+        forms = [("sell8d windowed", windowed_slot_plan)]
         if name in ROW_FORMS:
-            forms.append(("sell8w_v2w", row_form))
+            forms.append(("sell8w_v2w", windowed_row_plan))
         for form, build in forms:
             t0 = time.perf_counter()
             plan = build(a)
@@ -1078,6 +1301,7 @@ def dist_phase(dev, kern):
         if base not in mats:
             make = _webbase1m if base == "webbase1m" else FAMILIES[base][0]
             mats[base] = make(generate, np)
+            log_matrix(base, mats[base])
         a = mats[base]
         mesh = parallel.make_mesh_1d(ndev, device=dev)
         t0 = time.perf_counter()
@@ -1203,7 +1427,12 @@ def kernels_line(launches, kern):
                         "bound_by": k["bound_by"],
                         "library_ms": k["library_ms"],
                         "library_call": k["library_call"],
-                        "device_ms": k["device_ms"], "bytes": k["bytes"],
+                        "device_ms": k["device_ms"],
+                        "device_ms_spread": k["device_ms_spread"],
+                        "cold_ms": k["cold_ms"],
+                        "cold_device_ms": k["cold_device_ms"],
+                        "cold_device_ms_spread": k["cold_device_ms_spread"],
+                        "bytes": k["bytes"],
                         "stream_bound_ms": k["stream_bound_ms"],
                         "stream_bytes": k["stream_bytes"],
                         "family": k["family"]})
@@ -1215,6 +1444,7 @@ def main() -> int:
         print("chip_smoke.py: no spmv_tpu_torch package beside this script",
               file=sys.stderr)
         return 2
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is false",
@@ -1236,7 +1466,8 @@ def main() -> int:
                     "torch": torch.__version__, "cuda": torch.version.cuda,
                     "nvcc": _cmd_line([nvcc, "--version"]) if nvcc
                     else None, "triton": triton_v,
-                    "python": sys.version.split()[0]}))
+                    "python": sys.version.split()[0],
+                    "numpy": np.__version__}))
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
@@ -1259,6 +1490,12 @@ def main() -> int:
                     "registers_max": max(regs, default=0),
                     "spill_bytes": sum(spills)}))
 
+    # the process's first profile window (the profiler starts CUPTI on
+    # first use): what it saw, beside the first family's windows
+    first, _w, seen = profile_window(lambda v: v * 2,
+                                     torch.ones(1 << 20, device=dev), 4)
+    log(json.dumps({"phase": "profiler", "first_window_kernels": len(first),
+                    "events_without_kernels": seen}))
     kern = {k: {"max_abs_err": 0.0} for k in KERNELS}
     kernel_phase(dev, kern)
     launches, ctx = main_path(dev, kern)

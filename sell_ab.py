@@ -1,0 +1,276 @@
+#!/usr/bin/env python3
+"""Time the SELL kernel of another checkout of the port beside this one's,
+in one process on one NVIDIA card, on each SELL kernel's largest stream.
+
+    python3 sell_ab.py OTHER_ROOT [--rounds R]
+
+OTHER_ROOT is the root of another checkout (for example the parent
+commit, unpacked with ``git archive`` into a directory that ``.gitignore``
+lists).  Its ``spmv_tpu_torch`` is imported under another name beside this
+checkout's; its kernels build into its own ``_build/``.  Every stream is
+packed once, on the host, by this checkout's planners (the two trees'
+packers are the same), and placed by each tree's own ``prepare_sell`` or
+``prepare_v1``, so each tree runs its own chunk tables and kernel on the
+same tiles.
+
+Streams, one a kernel name (the largest each kernel runs in
+``chip_smoke.py``): ``sell_row`` powerlaw100k's 8W part; ``sell_slot`` the
+largest stripe of uniform250k_4m_d64; ``sell_row_df`` powerlaw100k_f64's
+8W part; ``sell_slot_df`` the largest stripe of clustered2500k_s64_f64;
+``sell_row_bin`` clustered200k_w4096's R; ``sell_row_w`` and
+``sell_row_df_w`` clustered2500k_s64 and its f64 form as ``sell8w_v2w``;
+``sell_slot_w`` (K6) uniform250k_4m_d64 and ``sell_slot_df_w``
+clustered2500k_s64_f64 as one windowed slot stream; ``sell_v1`` (K9)
+webbase1m_dist1's heavy stream and one shard of clustered200k_8w_dist4;
+``sell_v1_df`` powerlaw100k_f64_dist1's dense stream; ``sell_v1_bin``
+clustered200k's v1 pack, binary.
+
+Per stream: both trees' y against the plain version (f32 1e-5, f64 1e-12
+of (|A||x|)_i), then R rounds in turns (other, this, this, other), each
+side timed by ``chip_smoke.profile_calls`` (5 profile windows, warm and
+after an L2 flush) and CUDA events, and its host time per call over 1,000
+enqueues.  Prints one JSON line a stream: each side's medians over its
+turns, the ratio this / other, ns a tile and the share of the padded
+stream's bound; then the card's ``nvidia-smi`` line.  Exits non-zero
+without a card or when a kernel disagrees with its plain version.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import sys
+import time
+from types import SimpleNamespace
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OTHER = "other_spmv_tpu_torch"
+
+
+def load_other(root, name=OTHER):
+    """``root``'s spmv_tpu_torch package, imported as ``name`` (its imports
+    are relative, so it stays apart from this checkout's); returns its
+    ``ops.sell``."""
+    pkg = os.path.join(os.path.abspath(root), "spmv_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(name + ".ops.sell")
+
+
+def host_fields(st):
+    """A placed stream's arrays on the host: ("v1", prepare_v1's keyword
+    arguments) or ("v2", a namespace prepare_sell reads, slot mode)."""
+    import numpy as np
+    import torch
+
+    def h(t):
+        if t is None:
+            return None
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).cpu().numpy().view(np.uint16)
+        return t.cpu().numpy()
+
+    if st.gpk is not None:
+        return "v1", dict(window_ids=h(st.tinfo), gpk=h(st.gpk),
+                          meta=h(st.meta), vals=h(st.vals),
+                          nslices=8 * st.nblocks, m=st.m, n=st.n,
+                          vals_lo=h(st.vals_lo))
+    pal = h(st.palette)
+    return "v2", (SimpleNamespace(
+        value_mode=st.value_mode,
+        nslices=st.nblocks if st.slot_mode else 8 * st.nblocks, g=st.g,
+        nw=st.nw, cell_w=st.cell_w, m=st.m, n=st.n,
+        ginfo=(h(st.step_block) << 1).astype(np.int32), tinfo=h(st.tinfo),
+        meta=h(st.meta), vals=h(st.vals), vals_lo=h(st.vals_lo),
+        palette=pal, palette_lo=np.zeros_like(pal)), st.slot_mode)
+
+
+def place(sell, fields, dev):
+    kind, f = fields
+    if kind == "v1":
+        kw = dict(f)
+        return sell.prepare_v1(kw.pop("window_ids"), kw.pop("gpk"),
+                               kw.pop("meta"), kw.pop("vals"),
+                               kw.pop("nslices"), kw.pop("m"), kw.pop("n"),
+                               dev, vals_lo=kw.pop("vals_lo"))
+    ns, slot = f
+    return sell.prepare_sell(ns, dev, slot_mode=slot)
+
+
+def streams(dev, kernels=None):
+    """(label, placed stream) of each kernel's largest stream (only the
+    kernel names in ``kernels`` when given), packed and placed by this
+    checkout."""
+    import numpy as np
+    import chip_smoke as cs
+    import spmv_tpu_torch as tt
+    from spmv_tpu_torch import handle as th, parallel
+    from spmv_tpu_torch.formats.sell8w import pack_sell8w
+    from spmv_tpu_torch.io import generate
+    from spmv_tpu_torch.ops import sell
+
+    def matrix(family):
+        return (cs._webbase1m if family == "webbase1m"
+                else cs.FAMILIES[family][0])(generate, np)
+
+    def largest(family, kernel):
+        plan = tt.create_handle(matrix(family),
+                                method=getattr(tt.Method,
+                                               cs.method_of(family)),
+                                device=dev).plan
+        got = [s for s, _c in cs.family_streams(plan)
+               if cs.kernel_of(s) == kernel]
+        return max(got, key=lambda s: s.meta.shape[0])
+
+    def windowed(family, build):
+        placed = th._place(build(matrix(family)), dev)
+        return placed.get("sell8d", placed.get("sell8w_v2w"))
+
+    def shard(family, part, kernel):
+        base, ndev, build = cs.DIST_FAMILIES[family][:3]
+        a = matrix(base)
+        mesh = parallel.make_mesh_1d(ndev, device=dev)
+        if build == "auto":
+            parts = parallel.build_dist_auto(a, mesh).parts
+        else:
+            parts = {"sell8w": parallel.build_dist_sell8w_plan(
+                a, mesh, x_mode=build.split(":")[1], max_pad_ratio=32.0)}
+        return [st for k, q in parts.items() if hasattr(q, "streams")
+                and (part is None or k == part) for st in q.streams
+                if cs.kernel_of(st) == kernel][0]
+
+    def v1_binary():
+        p = pack_sell8w(matrix("clustered200k"))
+        return sell.prepare_v1(p.window_ids, sell.pack_gpk(p.slice_ids),
+                               sell.binary_meta_v1(p), None, p.nslices,
+                               p.m, p.n, dev)
+
+    todo = [
+        ("sell_row", "powerlaw100k 8W",
+         lambda: largest("powerlaw100k", "sell_row")),
+        ("sell_row_df", "powerlaw100k_f64 8W",
+         lambda: largest("powerlaw100k_f64", "sell_row_df")),
+        ("sell_row_bin", "clustered200k_w4096 R",
+         lambda: largest("clustered200k_w4096", "sell_row_bin")),
+        ("sell_slot", "uniform250k_4m_d64 stripe",
+         lambda: largest("uniform250k_4m_d64", "sell_slot")),
+        ("sell_slot_w", "uniform250k_4m_d64 windowed",
+         lambda: windowed("uniform250k_4m_d64", cs.windowed_slot_plan)),
+        ("sell_row_w", "clustered2500k_s64 sell8w_v2w",
+         lambda: windowed("clustered2500k_s64", cs.windowed_row_plan)),
+        ("sell_slot_df", "clustered2500k_s64_f64 stripe",
+         lambda: largest("clustered2500k_s64_f64", "sell_slot_df")),
+        ("sell_row_df_w", "clustered2500k_s64_f64 sell8w_v2w",
+         lambda: windowed("clustered2500k_s64_f64", cs.windowed_row_plan)),
+        ("sell_slot_df_w", "clustered2500k_s64_f64 windowed",
+         lambda: windowed("clustered2500k_s64_f64", cs.windowed_slot_plan)),
+        ("sell_v1", "webbase1m_dist1 heavy",
+         lambda: shard("webbase1m_dist1", "heavy", "sell_v1")),
+        ("sell_v1", "clustered200k_8w_dist4 shard",
+         lambda: shard("clustered200k_8w_dist4", None, "sell_v1")),
+        ("sell_v1_df", "powerlaw100k_f64_dist1 dense",
+         lambda: shard("powerlaw100k_f64_dist1", None, "sell_v1_df")),
+        ("sell_v1_bin", "clustered200k v1 pack, binary", v1_binary),
+    ]
+    for kernel, label, build in todo:
+        if kernels is None or kernel in kernels:
+            yield label, build()
+
+
+def measure(sell_mod, st, x):
+    import chip_smoke as cs
+    fn = lambda v: sell_mod.sell_spmv(st, v)  # noqa: E731
+    warm = cs.profile_calls(fn, x)
+    cold = cs.profile_calls(fn, x, cold=True)
+    return {"device_ms": warm["device_ms"],
+            "device_ms_spread": warm.get("device_ms_spread"),
+            "cold_device_ms": cold["device_ms"],
+            "cold_device_ms_spread": cold.get("device_ms_spread"),
+            "ms": cs.cuda_ms(fn, x), "host_us": cs.host_us(fn, x)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("other", help="root of the other checkout")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="turns (other, this, this, other) per stream")
+    ap.add_argument("--kernels", default=None,
+                    help="comma-separated kernel names (default: all)")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("sell_ab.py: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import chip_smoke as cs
+    from spmv_tpu_torch.ops import sell as this
+    other = load_other(args.other)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for label, st in streams(dev, args.kernels and args.kernels.split(",")):
+        pack_s = time.perf_counter() - t0
+        fields = host_fields(st)
+        sides = {"other": place(other, fields, dev),
+                 "this": place(this, fields, dev)}
+        del st
+        x = torch.from_numpy(rng.standard_normal(sides["this"].n).astype(
+            np.float64 if sides["this"].dtype == torch.float64
+            else np.float32)).to(dev)
+        ref = this.sell_plain(sides["this"], x)
+        absref = this.sell_plain(cs.abs_stream(sides["this"]), x.abs())
+        bound = (cs.BOUND_F64_KERNEL if x.dtype == torch.float64
+                 else cs.BOUND)
+        mods = {"other": other, "this": this}
+        errs = {}
+        for side, s in sides.items():
+            y = mods[side].sell_spmv(s, x)
+            rel, _abs, ok = cs.scaled_err(y, ref, absref, bound)
+            errs[side] = rel
+            if not ok:
+                raise AssertionError(f"{label} ({side}): scaled error "
+                                     f"{rel:.3g}")
+        runs = {"other": [], "this": []}
+        for _ in range(args.rounds):
+            for side in ("other", "this", "this", "other"):
+                runs[side].append(measure(mods[side], sides[side], x))
+        st = sides["this"]
+        nt = st.meta.shape[0]
+        stream_ms = cs.stream_bound(st, 0)[3]
+        rec = {"kernel": cs.kernel_of(st), "stream": label, "tiles": nt,
+               "pack_s": pack_s,
+               "value_mode": st.value_mode, "nw": st.nw,
+               "chunks": {s: sides[s].nchunks for s in sides},
+               "scaled_err": errs, "stream_bound_ms": stream_ms}
+        for side, rs in runs.items():
+            med = {k: statistics.median(r[k] for r in rs)
+                   for k in ("device_ms", "cold_device_ms", "ms", "host_us")
+                   if all(isinstance(r[k], float) for r in rs)}
+            med["device_ms_turns"] = [r["device_ms"] for r in rs]
+            med["cold_device_ms_turns"] = [r["cold_device_ms"] for r in rs]
+            med["spreads"] = [r["device_ms_spread"] for r in rs]
+            if "device_ms" in med:
+                med["ns_tile"] = med["device_ms"] * 1e6 / nt
+                med["bound_share"] = stream_ms / med["device_ms"]
+            rec[side] = med
+        if "device_ms" in rec["this"] and "device_ms" in rec["other"]:
+            rec["this_over_other"] = (rec["this"]["device_ms"]
+                                      / rec["other"]["device_ms"])
+        cs.log(json.dumps(rec))
+        del sides, x, ref, absref
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+    cs.log(cs._cmd_line(["nvidia-smi", "--query-gpu=name,power.limit",
+                         "--format=csv,noheader"]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

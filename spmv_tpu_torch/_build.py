@@ -109,7 +109,7 @@ def load_kernels() -> SimpleNamespace:
                 "spmv_dia_launch": ("dia", ctypes.c_int,
                                     [p, p, p, p, i64, i64, i64, i64, p]),
                 "spmv_sell_launch": ("sell", ctypes.c_int,
-                                     [p] * 11 + [i64] * 8 + [p]),
+                                     [p] * 13 + [i64] * 7 + [p]),
                 "spmv_coo2_launch": ("coo2", ctypes.c_int,
                                      [p] * 5 + [i64] * 3 + [p]),
                 "spmv_cuda_error_string": ("errors", ctypes.c_char_p,

@@ -40,13 +40,19 @@ A column stripe of a striped plan has the stripe's width as its n (at most
 V2_MAX_N), so it runs as K1 or K2, as the JAX package runs ``_run_v2``
 there.
 
-On the H100 the kernel is bound by the bytes of each padded slot (2 B of
-meta, plus 2 B bf16, 4 B f32, 6 B df16 or 8 B df values; none for the
-palettes and the binary mode) and by the three dependent loads a slot
-makes (its meta, its cell's meta, x).  Its design (see the source) cuts the stream into chunks
-of at most ``CHUNK_TILES`` tiles inside one output block, one CUDA block
-per chunk, and adds each block's chunks in a second, ordered pass: no
-atomics.
+On the H100 the kernel is bound by the bytes of the padded stream (2 B of
+meta a slot, plus 2 B bf16, 4 B f32, 6 B df16 or 8 B df values; none for
+the palettes and the binary mode).  Its design (see the source) keeps
+those bytes in flight: :func:`chunk_tables` cuts the stream into chunks
+sized to it (about :data:`CHUNKS_PER_SM` chunks an SM, at most
+:data:`CHUNK_TILES` tiles, never across a 1024-row output block), one CUDA
+block a chunk; a producer thread streams each chunk's tiles into a
+shared-memory ring with bulk copies, and 128 consumer threads decode
+their lane of each tile from shared memory, so the x gathers are the only
+dependent global loads.  One launch a call: a block with several chunks is
+added up, in chunk order, by whichever of its chunks finishes last (a
+per-block ticket counter, :attr:`SellStream.ticket`, is the only atomic),
+so the result is deterministic.
 
 Not carried over from the TPU: the per-tile window DMAs of K5-K7 (a VMEM
 workaround; the kernel's gathers read x where it lies), the SMEM
@@ -75,13 +81,27 @@ __all__ = ["SellStream", "prepare_sell", "prepare_v1", "binary_v2",
            "slot_launches", "row_df_launches", "slot_df_launches",
            "row_bin_launches", "row_w_launches", "slot_w_launches",
            "row_df_w_launches", "slot_df_w_launches", "v1_launches",
-           "v1_df_launches", "v1_bin_launches", "V2_MAX_N", "CHUNK_TILES"]
+           "v1_df_launches", "v1_bin_launches", "V2_MAX_N", "CHUNK_TILES",
+           "CHUNKS_PER_SM", "MAX_REDUCE_BYTES", "H100_SMS", "chunk_len",
+           "chunk_tables", "sm_count"]
 
 #: the JAX package's VMEM-resident-x bound: streams up to it replace the
 #: resident kernels (K1, K2), streams past it the windowed ones (K5-K7)
 V2_MAX_N = 2_000_000
 #: most tiles one CUDA block takes (a chunk never straddles output blocks)
 CHUNK_TILES = 64
+#: chunks a stream is cut into per SM, where it has the tiles: a short
+#: stream still fills every SM for two waves of one block an SM; more
+#: chunks cost more partial sums and pipeline fills than they win (1, 2, 4
+#: and 8 measured on the H100)
+CHUNKS_PER_SM = 2
+#: most bytes of partial sums the last chunk of an output block reads back
+#: (1024 rows a chunk: 256 chunks in f32, 128 in f64), so a stream of few,
+#: long output blocks gets longer chunks instead of more
+MAX_REDUCE_BYTES = 1 << 20
+#: the SM count chunk tables assume for a stream placed on the CPU (the
+#: H100's), so the CPU tests see the card's chunking
+H100_SMS = 132
 #: most tiles the plain version decodes at once (its int64 temporaries
 #: stay near 0.5 GB each on full-size streams)
 PLAIN_TILES = 1 << 16
@@ -132,9 +152,20 @@ class SellStream:
     tinfo: torch.Tensor           # (ntiles,) int32; window_ids in v1
     step_block: torch.Tensor      # (nsteps,) int64 output block per step
     chunk_step_ptr: torch.Tensor  # (nchunks + 1,) int32
+    chunk_block: torch.Tensor     # (nchunks,) int32 output block per chunk
     block_chunk_ptr: torch.Tensor  # (nblocks + 1,) int32
+    ticket: torch.Tensor          # (nblocks,) int32 zeros: the kernel's
+    #                               last-chunk counters, left 0 by each
+    #                               launch (one launch at a time a stream)
     gpk: Optional[torch.Tensor] = None  # (ntiles,) int32, the v1 layout's
     #                                     group << 4 | row << 1 | first
+    #: what every launch passes that is fixed per stream (CUDA streams)
+    _launch: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.meta.device.type == "cuda":
+            object.__setattr__(self, "_launch", _launch_args(self))
 
     @property
     def nchunks(self) -> int:
@@ -147,24 +178,71 @@ class SellStream:
                 else torch.float32)
 
 
-def chunk_tables(step_block: np.ndarray, nblocks: int, g: int):
-    """(chunk_step_ptr, block_chunk_ptr) for a step → output-block map.
+def chunk_len(ntiles: int, nsm: int) -> int:
+    """Tiles a chunk takes in a stream of ``ntiles`` tiles on ``nsm`` SMs:
+    about :data:`CHUNKS_PER_SM` chunks an SM, between 1 and
+    :data:`CHUNK_TILES` tiles."""
+    return max(1, min(CHUNK_TILES, ntiles // (CHUNKS_PER_SM * nsm)))
+
+
+def chunk_tables(step_block: np.ndarray, nblocks: int, g: int, nsm: int,
+                 esize: int = 4):
+    """(chunk_step_ptr, chunk_block, block_chunk_ptr) for a step →
+    output-block map, one CUDA block a chunk; ``esize`` is the bytes of an
+    output element (8 in the double-float modes).
 
     The pack emits each block's steps contiguously, in block order (the
     invariant the TPU kernel's first-visit zeroing relies on); every run of
-    one block's steps is cut into chunks of ``CHUNK_TILES // g`` steps."""
+    one block's steps is cut into chunks of ``chunk_len(tiles, nsm) // g``
+    steps (at least one; more where the run would otherwise take more
+    chunks than :data:`MAX_REDUCE_BYTES` of partial sums hold), and an
+    output block with no steps gets one empty chunk, which writes its
+    zeros.  A block's chunks are contiguous, so its partial sums sit in
+    rows block_chunk_ptr[b] .. [b + 1] of the kernel's (nchunks, 1024)
+    scratch and are added in that order."""
     sb = np.asarray(step_block, dtype=np.int64)
     if len(sb) and (np.any(np.diff(sb) < 0) or sb[0] < 0
                     or sb[-1] >= nblocks):
         raise ValueError("SELL stream: output blocks are not monotone "
                          "within [0, nblocks)")
-    per = max(CHUNK_TILES // g, 1)
-    first_of_block = np.searchsorted(sb, sb, side="left")
-    starts = np.nonzero((np.arange(len(sb)) - first_of_block) % per == 0)[0]
-    chunk_step_ptr = np.append(starts, len(sb)).astype(np.int32)
+    per = max(chunk_len(len(sb) * g, nsm) // g, 1)
+    blocks = np.arange(nblocks)
+    bare = np.searchsorted(sb, blocks, side="left")
+    run = np.searchsorted(sb, blocks, side="right") - bare
+    most = max(MAX_REDUCE_BYTES // (WINDOW * esize), 1)
+    per_block = np.maximum(per, -(-run // most))
+    starts = np.nonzero((np.arange(len(sb)) - bare[sb]) % per_block[sb]
+                        == 0)[0]
+    empty = run == 0
+    first = np.concatenate([starts, bare[empty]])
+    owner = np.concatenate([sb[starts], blocks[empty]])
+    order = np.lexsort((owner, first))
+    chunk_step_ptr = np.append(first[order], len(sb)).astype(np.int32)
+    chunk_block = owner[order].astype(np.int32)
     block_chunk_ptr = np.searchsorted(
-        sb[starts], np.arange(nblocks + 1), side="left").astype(np.int32)
-    return chunk_step_ptr, block_chunk_ptr
+        chunk_block, np.arange(nblocks + 1), side="left").astype(np.int32)
+    return chunk_step_ptr, chunk_block, block_chunk_ptr
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, :data:`H100_SMS` for the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).multi_processor_count
+    return H100_SMS
+
+
+def _placed_tables(step_block: np.ndarray, nblocks: int, g: int, device,
+                   nsm: Optional[int], value_mode: str):
+    """The chunk tables and ticket counters of a stream, on ``device``."""
+    csp, cb, bcp = chunk_tables(step_block, nblocks, g,
+                                sm_count(device) if nsm is None else nsm,
+                                8 if value_mode in DF_MODES else 4)
+    return dict(step_block=dev_put(step_block, device),
+                chunk_step_ptr=dev_put(csp, device),
+                chunk_block=dev_put(cb, device),
+                block_chunk_ptr=dev_put(bcp, device),
+                ticket=dev_put(np.zeros(nblocks, np.int32), device))
 
 
 def binary_v2(packed: Sell8W, g: int = 16) -> Sell8WV2:
@@ -202,17 +280,18 @@ def binary_meta_v1(packed: Sell8W) -> np.ndarray:
 
 
 def prepare_v1(window_ids, gpk, meta, vals, nslices: int, m: int, n: int,
-               device, vals_lo=None) -> SellStream:
+               device, vals_lo=None, nsm: Optional[int] = None) -> SellStream:
     """Place a v1 stream on ``device``: ``window_ids`` and ``gpk`` (ntiles,)
     int32, meta (ntiles, 8, 128) int16 and f32 values, as the JAX package
     stores them.  ``vals`` None is the binary mode (validity in meta bit
     15); ``vals_lo`` given is the double-float mode (hi + lo f32 planes).
-    Output blocks are the groups of 8 slices, taken from ``gpk >> 4``."""
+    Output blocks are the groups of 8 slices, taken from ``gpk >> 4``.
+    Chunks are sized for ``nsm`` SMs (default: the device's,
+    :data:`H100_SMS` on the CPU)."""
     vm = ("binary" if vals is None else "df" if vals_lo is not None
           else "f32")
     nblocks = max(-(-nslices // SUB), 1)
     step_block = np.asarray(gpk).astype(np.int64) >> 4
-    csp, bcp = chunk_tables(step_block, nblocks, 1)
     f32 = lambda v: dev_put(np.asarray(v, dtype=np.float32), device)  # noqa: E731
     return SellStream(
         slot_mode=False, value_mode=vm, g=1, nw=1, cell_w=False, m=int(m),
@@ -223,9 +302,7 @@ def prepare_v1(window_ids, gpk, meta, vals, nslices: int, m: int, n: int,
         palette=dev_put(np.zeros(LANES, np.float64 if vm == "df"
                                  else np.float32), device),
         tinfo=dev_put(np.asarray(window_ids, dtype=np.int32), device),
-        step_block=dev_put(step_block, device),
-        chunk_step_ptr=dev_put(csp, device),
-        block_chunk_ptr=dev_put(bcp, device),
+        **_placed_tables(step_block, nblocks, 1, device, nsm, vm),
         gpk=dev_put(np.asarray(gpk, dtype=np.int32), device))
 
 
@@ -246,16 +323,18 @@ def sell8w_spmv(packed: Sell8W, x: torch.Tensor) -> torch.Tensor:
     return build_sell8w_fn(packed, device=x.device)(x)
 
 
-def prepare_sell(packed, device, slot_mode: bool) -> SellStream:
+def prepare_sell(packed, device, slot_mode: bool,
+                 nsm: Optional[int] = None) -> SellStream:
     """Place a packed stream on ``device``: a ``Sell8WV2`` (row mode) or a
-    ``Sell8D`` (slot mode), from either package (fields read by name)."""
+    ``Sell8D`` (slot mode), from either package (fields read by name).
+    Chunks are sized for ``nsm`` SMs (default: the device's,
+    :data:`H100_SMS` on the CPU)."""
     vm = packed.value_mode
     if vm not in _VALUE_MODES:
         raise ValueError(f"SELL value mode {vm!r} has no kernel")
     nslices = packed.nslices
     nblocks = nslices if slot_mode else max(-(-nslices // SUB), 1)
     step_block = np.asarray(packed.ginfo).astype(np.int64) >> 1
-    csp, bcp = chunk_tables(step_block, nblocks, packed.g)
     vals = vals_lo = None
     if vm == "bf16":
         vals = dev_put(_bf16.as_torch(np.asarray(packed.vals)
@@ -283,9 +362,8 @@ def prepare_sell(packed, device, slot_mode: bool) -> SellStream:
         meta=dev_put(np.asarray(packed.meta, dtype=np.int16), device),
         vals=vals, vals_lo=vals_lo, palette=dev_put(pal, device),
         tinfo=dev_put(np.asarray(packed.tinfo, dtype=np.int32), device),
-        step_block=dev_put(step_block, device),
-        chunk_step_ptr=dev_put(csp, device),
-        block_chunk_ptr=dev_put(bcp, device))
+        **_placed_tables(step_block, nblocks, int(packed.g), device, nsm,
+                         vm))
 
 
 def _slot_values(st: SellStream, t0: int, t1: int) -> torch.Tensor:
@@ -386,6 +464,25 @@ def kernel_name(st: SellStream) -> str:
             + ("_w" if st.n > V2_MAX_N else ""))
 
 
+def _launch_args(st: SellStream):
+    """(the arguments before x, those after it, the kernel name) of every
+    launch over ``st``: fixed per stream (the pointers, the value mode; the
+    ring's size follows from the value mode inside the kernel), computed
+    once when it is placed.  Raises when a bulk-copied plane is not 16-B
+    aligned."""
+    for t in (st.meta, st.vals, st.vals_lo):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("sell stream: meta and value planes must be "
+                             "16-B aligned for the kernel's bulk copies")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    before = (ptr(st.meta), ptr(st.vals), ptr(st.vals_lo), ptr(st.palette),
+              ptr(st.tinfo), ptr(st.gpk), ptr(st.chunk_step_ptr),
+              ptr(st.chunk_block), ptr(st.block_chunk_ptr), ptr(st.ticket))
+    after = (st.nchunks, st.g, st.n, _VALUE_MODES[st.value_mode],
+             int(st.slot_mode), st.nw, int(st.cell_w))
+    return before, after, kernel_name(st)
+
+
 def sell_spmv(st: SellStream, x: torch.Tensor) -> torch.Tensor:
     """Tile-stream product, (nblocks * 1024,) output.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel; any other device
@@ -401,22 +498,19 @@ def sell_spmv(st: SellStream, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"sell_spmv: x must be a contiguous {st.dtype} "
                          f"({st.n},) tensor on {st.meta.device}, got "
                          f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if not st.slot_mode and x.data_ptr() % 16:
+        x = x.clone()       # row mode bulk-copies x windows: 16-B aligned
     lib = _build.load_kernels()
-    partial = torch.empty(st.nchunks * WINDOW, dtype=st.dtype,
-                          device=x.device)
+    before, after, name = st._launch
+    # partial sums only where an output block has several chunks
+    partial = (torch.empty(st.nchunks * WINDOW, dtype=st.dtype,
+                           device=x.device)
+               if st.nchunks > st.nblocks else None)
     out = torch.empty(st.nblocks * WINDOW, dtype=st.dtype, device=x.device)
     err = lib.spmv_sell_launch(
-        st.meta.data_ptr(),
-        st.vals.data_ptr() if st.vals is not None else None,
-        st.vals_lo.data_ptr() if st.vals_lo is not None else None,
-        st.palette.data_ptr(), st.tinfo.data_ptr(),
-        st.gpk.data_ptr() if st.gpk is not None else None,
-        st.chunk_step_ptr.data_ptr(), st.block_chunk_ptr.data_ptr(),
-        x.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        st.nchunks, st.nblocks, st.g, st.n, _VALUE_MODES[st.value_mode],
-        int(st.slot_mode), st.nw, int(st.cell_w),
+        *before, x.data_ptr(), None if partial is None else
+        partial.data_ptr(), out.data_ptr(), *after,
         torch.cuda.current_stream(x.device).cuda_stream)
-    name = kernel_name(st)
     _build.check(lib, err, name)
     globals()[_COUNTERS[name]] += 1
     return out

@@ -336,12 +336,72 @@ def test_plain_version_in_tile_chunks(monkeypatch):
 
 
 def test_chunk_tables_cut_inside_blocks():
-    step_block = np.array([0, 0, 0, 0, 0, 1, 2, 2, 2])
-    csp, bcp = tsell.chunk_tables(step_block, 4, g=32)   # 2 steps a chunk
-    assert csp.tolist() == [0, 2, 4, 5, 6, 8, 9]
-    assert bcp.tolist() == [0, 3, 4, 6, 6]      # block 3: no chunk → 0
+    # 24 one-tile steps on 2 SMs: chunks of 24 // (2 * CHUNKS_PER_SM) = 6
+    # tiles, cut again where an output block ends; block 3 has no step and
+    # gets one empty chunk (it writes its zeros)
+    step_block = np.array([0] * 16 + [1] * 5 + [2] * 3)
+    assert tsell.CHUNKS_PER_SM == 2 and tsell.chunk_len(24, 2) == 6
+    csp, cb, bcp = tsell.chunk_tables(step_block, 4, g=1, nsm=2)
+    assert csp.tolist() == [0, 6, 12, 16, 21, 24, 24]
+    assert cb.tolist() == [0, 0, 0, 1, 2, 3]
+    assert bcp.tolist() == [0, 3, 4, 5, 6]
     with pytest.raises(ValueError):
-        tsell.chunk_tables(np.array([0, 1, 0]), 2, g=16)
+        tsell.chunk_tables(np.array([0, 1, 0]), 2, g=16, nsm=132)
+
+
+def _shard_steps(ntiles, nblocks, g, seed):
+    """A monotone step → output-block map of ntiles // g steps over
+    nblocks blocks, some of them left without a step."""
+    rng = np.random.default_rng(seed)
+    nsteps = ntiles // g
+    used = np.sort(rng.choice(nblocks, max(nblocks * 3 // 4, 1),
+                              replace=False))
+    return np.sort(used[rng.integers(0, len(used), nsteps)])
+
+
+@pytest.mark.parametrize("ntiles,nblocks,g", [
+    (2952, 49, 1),        # a shard of clustered200k's 4-shard 8W plan
+    (20_623, 160, 1),     # webbase1m's heavy v1 stream
+    (453_312, 244, 16),   # uniform250k_4m_d64 as one windowed slot stream
+    (14_208, 7, 16),      # powerlaw100k's 8W part: few, long blocks
+    (40_000, 2, 1),       # two output blocks: the reduce cap binds
+    (60, 7, 2),           # short: one tile a chunk
+])
+def test_chunk_tables_grain(ntiles, nblocks, g):
+    sb = _shard_steps(ntiles, nblocks, g, seed=ntiles)
+    csp, cb, bcp = tsell.chunk_tables(sb, nblocks, g=g, nsm=132)
+    nchunks = len(cb)
+    # the chunks cover the stream in order, each inside one output block
+    assert csp[0] == 0 and csp[-1] == len(sb) and np.all(np.diff(csp) >= 0)
+    for c in range(nchunks):
+        assert np.all(sb[csp[c]:csp[c + 1]] == cb[c])
+    # every block has its chunks, contiguous, and only the blocks without
+    # a step have an empty one
+    assert bcp[0] == 0 and bcp[-1] == nchunks and np.all(np.diff(bcp) >= 1)
+    np.testing.assert_array_equal(np.repeat(np.arange(nblocks),
+                                            np.diff(bcp)), cb)
+    empty = np.diff(csp) == 0
+    np.testing.assert_array_equal(np.sort(cb[empty]),
+                                  np.setdiff1d(np.arange(nblocks), sb))
+    # chunks of the grain's steps, longer only where a block's run would
+    # take more chunks than MAX_REDUCE_BYTES of f32 partial sums hold
+    steps = max(tsell.chunk_len(ntiles, 132) // g, 1)
+    most = tsell.MAX_REDUCE_BYTES // (1024 * 4)
+    run = np.bincount(sb, minlength=nblocks)
+    per = np.maximum(steps, -(-run // most))
+    assert np.all(np.diff(csp) <= per[cb])
+    np.testing.assert_array_equal(np.diff(bcp), np.maximum(-(-run // per),
+                                                           1))
+    assert np.diff(bcp).max() <= most
+    if ntiles >= 2 * 132 and run.max() <= most * steps:
+        assert nchunks >= 2 * 132     # two waves of one block an SM
+    # f64 partial sums are twice the bytes: half the chunks an output block
+    _csp, _cb, bcp64 = tsell.chunk_tables(sb, nblocks, g=g, nsm=132,
+                                          esize=8)
+    assert np.diff(bcp64).max() <= most // 2
+    if ntiles == 2952:
+        # the old fixed 64-tile chunks gave this shard about 50 blocks
+        assert steps == 11 and 2 * 132 <= nchunks <= 2952 // 11 + 49
 
 
 def test_wrapper_takes_no_other_device():
@@ -751,3 +811,100 @@ def test_v1_random_df_stream_matches_tpu_kernel(x64):
     bound = _v1_bound(st, x) + 1e-300
     ref = _v1_reference(st, x)
     np.testing.assert_array_less(np.abs(y - ref), 2e-6 * bound)
+
+
+# -- chunk tables, tickets and partials (the kernel's one-launch epilogue) --
+
+def _chunked_plain(st, x, order):
+    """The kernel's arithmetic, chunk by chunk, on the plain decode: each
+    chunk's 1024 sums, then its epilogue in completion ``order``: a block
+    with one chunk writes its rows; otherwise each chunk writes partial row
+    c and takes a ticket, and the last adds rows block_chunk_ptr[b] ..
+    [b + 1] in chunk order and resets the ticket.  Returns (out, ticket)."""
+    csp = st.chunk_step_ptr.numpy().astype(np.int64) * st.g
+    cb = st.chunk_block.numpy()
+    bcp = st.block_chunk_ptr.numpy()
+    ticket = st.ticket.numpy().copy()
+    sums = []
+    for c in range(len(cb)):
+        acc = torch.zeros(1024, dtype=st.dtype)
+        if csp[c + 1] > csp[c]:
+            rows, col, v = tsell.sell_decode(st, int(csp[c]),
+                                             int(csp[c + 1]))
+            xg = torch.where(col < st.n, x[col.clamp(max=st.n - 1)], 0.0)
+            prod = (torch.where(v != 0, xg, 0.0)
+                    if st.value_mode == "binary" else v * xg)
+            rows = rows - int(cb[c]) * 1024
+            if st.slot_mode:
+                acc.index_add_(0, rows.reshape(-1), prod.reshape(-1))
+            else:
+                acc.index_add_(0, rows[:, 0].reshape(-1),
+                               prod.sum(1).reshape(-1))
+        sums.append(acc)
+    partial = torch.full((len(cb), 1024), float("nan"), dtype=st.dtype)
+    out = torch.full((st.nblocks, 1024), float("nan"), dtype=st.dtype)
+    for c in order:
+        b = cb[c]
+        if bcp[b + 1] - bcp[b] == 1:
+            out[b] = sums[c]
+            continue
+        partial[c] = sums[c]
+        ticket[b] += 1
+        if ticket[b] == bcp[b + 1] - bcp[b]:
+            total = torch.zeros(1024, dtype=st.dtype)
+            for cc in range(bcp[b], bcp[b + 1]):
+                total = total + partial[cc]
+            out[b] = total
+            ticket[b] = 0
+    return out.reshape(-1), ticket
+
+
+@pytest.mark.parametrize("kind", ["slot", "row", "v1", "v1_bin", "slot_df"])
+def test_ticket_and_partials_layout(kind, request):
+    # one-tile chunks (these short streams on 64 SMs) so output blocks
+    # have several; every completion order gives the same bits, leaves the
+    # tickets at 0, and matches the TPU kernel in interpret mode
+    if kind.startswith("v1"):
+        v1 = _random_v1(5, binary=kind == "v1_bin")
+        st = tsell.prepare_v1(v1.tinfo.numpy(), v1.gpk.numpy(),
+                              v1.meta.numpy(), None if v1.vals is None
+                              else v1.vals.numpy(), 8 * v1.nblocks,
+                              v1.m, v1.n, "cpu", nsm=64)
+    else:
+        if kind == "slot_df":
+            request.getfixturevalue("x64")
+        pk = _random_stream(kind != "row", 1 if kind == "row" else 2,
+                            kind != "row", "df16" if kind == "slot_df"
+                            else "f32", 3, seed=11)
+        st = tsell.prepare_sell(pk, "cpu", kind != "row", nsm=64)
+    assert st.ticket.dtype == torch.int32 and st.ticket.shape == (
+        st.nblocks,) and not bool(st.ticket.any())
+    assert np.diff(st.block_chunk_ptr.numpy()).max() > 1
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(st.n).astype(
+        np.float64 if st.dtype == torch.float64 else np.float32)
+    xt = torch.from_numpy(x)
+    nch = st.nchunks
+    y0, t0 = _chunked_plain(st, xt, range(nch))
+    y1, t1 = _chunked_plain(st, xt, rng.permutation(nch))
+    y2, _ = _chunked_plain(st, xt, range(nch - 1, -1, -1))
+    assert bool(torch.equal(y0, y1)) and bool(torch.equal(y0, y2))
+    assert not t0.any() and not t1.any()
+    y0 = y0.numpy()
+    if kind.startswith("v1"):
+        ref, bound, tol = (_v1_reference(st, x, binary=kind == "v1_bin"),
+                           _v1_bound(st, x), 1e-5)
+    elif kind == "slot_df":
+        bound = _numpy_df(pk, x, True, absolute=True) + 1e-300
+        np.testing.assert_array_less(np.abs(y0 - _numpy_df(pk, x, True)),
+                                     1e-12 * bound)
+        ref, tol = _reference_df(pk, x, True), 2e-6
+    else:
+        ref, tol = _reference(pk, x, kind != "row"), 1e-5
+        bound = tsell.sell_plain(dataclasses.replace(
+            st, vals=st.vals.abs()), xt.abs()).numpy()
+    np.testing.assert_array_less(np.abs(y0 - ref), tol * bound + 1e-30)
+    # the plain version, which ignores the chunks, gives the same sums
+    np.testing.assert_array_less(
+        np.abs(tsell.sell_plain(st, xt).numpy() - y0),
+        (1e-12 if kind == "slot_df" else 1e-5) * bound + 1e-30)
