@@ -17,8 +17,11 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    nw ∈ {1,2,4,8} × cell_w × the three value modes, ``dia`` over f32/bf16,
    and their f64 forms ``sell_row_df``, ``sell_slot_df`` (df, df16,
    palette_df, the same nw × cell_w grid) and ``dia_f64``; the COO2
-   kernels ``coo2_pass1`` (f32 and bf16 values) and ``sell_row_bin`` (one
-   stream over more than 2M product positions); and the same SELL grid
+   kernels ``coo2_pass1`` (f32 and bf16 values, n ≡ 0, 1, 2, 3 mod 4, an
+   inf at a column a padding slot reads and one past the staged 16-B
+   words of the last window, one stream launched 1,000 times) and
+   ``sell_row_bin`` (one stream over more than 2M product positions); and
+   the same SELL grid
    past 2M columns (n = 2.5M), which names the windowed kernels
    ``sell_row_w`` (K5 values), ``sell_slot_w`` (K6), ``sell_row_df_w`` and
    ``sell_slot_df_w`` (K7); and the v1 kernels on full-size v1 packs
@@ -79,6 +82,8 @@ Bounds, per row i against (|A||x|)_i:
   row-by-row sums and the distance to ``spmv_golden`` is printed beside.
 - f64 kernel against its plain version: 1e-12; both are f64 sums of the
   same decoded values, taken in another order.
+- ``coo2_pass1`` against its plain version: bit for bit, NaN where the
+  plain version has NaN; each is one f32 product a slot, rounded once.
 - the dist scan (f32): 1e-5 plus an absolute term, the JAX dist test's
   2e-4 at 150k nonzeros scaled by sqrt(nonzeros of the largest shard /
   150k): the f32 prefix sums carry about eps·sqrt(nnz) absolute error,
@@ -514,14 +519,20 @@ def stream_bound(st, nnz):
             stored)
 
 
-def pass1_nonzeros(p):
-    """(mask, columns, values) of a COO2 pass 1's nonzero slots: the
-    (ntiles, 8, 128) mask, the columns and values in slot order."""
+def pass1_columns(p):
+    """The (ntiles, 8, 128) column every slot of a COO2 pass 1 reads."""
     import torch
     meta = p.meta.to(torch.int64) & 0xFFFF
     r = meta & 127
     s = (torch.gather(meta, 2, r) >> 7) & 7
-    col = p.window_ids.to(torch.int64)[:, None, None] * 1024 + s * 128 + r
+    return p.window_ids.to(torch.int64)[:, None, None] * 1024 + s * 128 + r
+
+
+def pass1_nonzeros(p):
+    """(mask, columns, values) of a COO2 pass 1's nonzero slots: the
+    (ntiles, 8, 128) mask, the columns and values in slot order."""
+    import torch
+    col = pass1_columns(p)
     vals = p.vals.to(torch.float32)
     keep = (vals != 0) & (col < p.n)
     return keep, col[keep], vals[keep]
@@ -585,6 +596,11 @@ def check_stream(st, x, timing=False):
     kern = kernel_of(st)
     bound = BOUND_F64_KERNEL if x.dtype == torch.float64 else BOUND
     rel, mabs, ok = scaled_err(y, ref, absref, bound)
+    diff = None
+    if is_coo2(st):
+        # one f32 product a slot, rounded as the plain version rounds it
+        diff = int(bit_diff(y, ref))
+        ok = diff == 0
     if not ok:
         # what state a wrong launch leaves, and whether it repeats
         left = (int(st.ticket.count_nonzero()) if hasattr(st, "ticket")
@@ -597,8 +613,11 @@ def check_stream(st, x, timing=False):
             f"{kern}: kernel disagrees with its plain version (max scaled "
             f"error {rel:.3g}; tickets left nonzero {left}; again "
             f"{again:.3g}; with zeroed tickets {fresh_err:.3g}; chunks "
-            f"{getattr(st, 'nchunks', None)})")
+            f"{getattr(st, 'nchunks', None)}; positions differing in bits "
+            f"{diff})")
     rec = {"max_scaled_err": rel, "max_abs_err": mabs}
+    if diff is not None:
+        rec["bit_diff"] = diff
     if timing:
         fn = lambda v: run(st, v)  # noqa: E731
         rec["ms"] = cuda_ms(fn, x)
@@ -722,24 +741,35 @@ def kernel_phase(dev, kern):
         rec = check_stream(p, xvec(band.n, np.float64 if mode == "f64"
                                    else np.float32))
         rows.append({"kernel": kernel_of(p), "value_mode": mode, **rec})
-    # COO2: pass 1 over f32 (gaussian) and bf16 (k/8) values, and the
-    # binary reduce over R, whose n (the product positions) passes 2M here
-    for exact in (False, True):
-        a = generate.clustered(100_000, 100_000, 24, spread=2048,
-                               dtype=np.float32, seed=1, exact=exact)
-        c = coo2.prepare_coo2(coo2_fmt.pack_coo2(a, max_pad2=8.0), dev)
-        x = xvec(a.n, np.float32)
-        rec = check_stream(c, x)
-        rows.append({"kernel": "coo2_pass1", "value_mode":
-                     str(c.vals.dtype).replace("torch.", ""),
-                     "tiles": c.ntiles, **rec})
-        if exact:
-            assert c.reduce.n > 2_000_000, c.reduce.n
-            prod = coo2.coo2_pass1_plain(c, x)[:c.reduce.n]
-            rec = check_stream(c.reduce, prod)
-            coo2_r = (c.reduce, prod)
-            rows.append({"kernel": kernel_of(c.reduce), "n": c.reduce.n,
-                         "tiles": c.reduce.meta.shape[0], **rec})
+    # COO2: pass 1 over f32 (gaussian) and bf16 (k/8) values, bit for bit,
+    # at n ≡ 0 (mod 4) and at n ≡ 1, 2, 3, whose last window ends in
+    # columns the kernel does not stage (its bulk copies move whole 16-B
+    # words); and the binary reduce over R, whose n (the product
+    # positions) passes 2M here
+    for tail in (0, 1, 2, 3):
+        for exact in (False, True):
+            a = generate.clustered(100_000, 100_000 + tail, 24,
+                                   spread=2048, dtype=np.float32, seed=1,
+                                   exact=exact)
+            c = coo2.prepare_coo2(coo2_fmt.pack_coo2(a, max_pad2=8.0), dev)
+            x = xvec(a.n, np.float32)
+            rec = check_stream(c, x)
+            rows.append({"kernel": "coo2_pass1", "n": c.n, "value_mode":
+                         str(c.vals.dtype).replace("torch.", ""),
+                         "tiles": c.ntiles, "chunks": c.chunk_ptr.numel() - 1,
+                         **rec})
+            if tail:
+                rec, x = coo2_nonfinite(c, x)
+                rows.append(rec)
+                if not exact and tail == 3:
+                    rows.append(coo2_stress(c, x))
+            elif exact:
+                assert c.reduce.n > 2_000_000, c.reduce.n
+                prod = coo2.coo2_pass1_plain(c, x)[:c.reduce.n]
+                rec = check_stream(c.reduce, prod)
+                coo2_r = (c.reduce, prod)
+                rows.append({"kernel": kernel_of(c.reduce), "n": c.reduce.n,
+                             "tiles": c.reduce.meta.shape[0], **rec})
     # the v1 kernels on full-size v1 packs, as build_sell8w_fn places them
     def v1(p, binary=False, lo=None):
         return sell.prepare_v1(p.window_ids, sell.pack_gpk(p.slice_ids),
@@ -775,6 +805,63 @@ def kernel_phase(dev, kern):
     for r in rows:
         log(json.dumps({"phase": "kernels", **r}))
     return rows
+
+
+def bit_diff(y, ref):
+    """The count (a tensor on their device) of positions where two f32
+    tensors differ in their bits, a NaN matching any NaN."""
+    import torch
+    nan = torch.isnan(y)
+    return ((nan != torch.isnan(ref))
+            | (~nan & (y.view(torch.int32) != ref.view(torch.int32)))).sum()
+
+
+def coo2_nonfinite(c, x):
+    """COO2 pass 1 with x inf at a column below n that a padding slot reads
+    and at one past the staged 16-B words of the last window that a
+    nonzero slot reads: NaN (0 · inf) and inf exactly where the plain
+    version has them, every other product bit for bit.  Returns the record
+    and that x."""
+    import torch
+    from spmv_tpu_torch.ops import coo2
+    _keep, cols, _vals = pass1_nonzeros(c)
+    col = pass1_columns(c)
+    pad = col[(c.vals == 0) & (col < c.n)]
+    tail = cols[cols >= (c.n & ~3)]
+    if not pad.numel() or not tail.numel():
+        raise AssertionError(f"coo2 n={c.n}: no padding column below n "
+                             f"({pad.numel()}) or no read past the staged "
+                             f"words ({tail.numel()})")
+    x = x.clone()
+    x[int(pad[0])] = float("inf")
+    x[int(tail[0])] = float("inf")
+    y, ref = coo2.coo2_pass1(c, x), coo2.coo2_pass1_plain(c, x)
+    rec = {"check": "inf at a padding column and past the staged words "
+                    "(coo2)", "kernel": "coo2_pass1", "n": c.n,
+           "columns": [int(pad[0]), int(tail[0])],
+           "nan": int(torch.isnan(y).sum()),
+           "nan_plain": int(torch.isnan(ref).sum()),
+           "inf": int(torch.isinf(y).sum()), "bit_diff": int(bit_diff(y, ref))}
+    if rec["bit_diff"] or not rec["nan"] or not rec["inf"]:
+        raise AssertionError(f"coo2 non-finite check failed: {rec}")
+    return rec, x
+
+
+def coo2_stress(c, x, launches=1000):
+    """``launches`` launches of COO2 pass 1 on one stream, each held to
+    the plain version bit for bit (the differing positions summed on the
+    card)."""
+    import torch
+    from spmv_tpu_torch.ops import coo2
+    ref = coo2.coo2_pass1_plain(c, x)
+    bad = torch.zeros((), dtype=torch.int64, device=x.device)
+    for _ in range(launches):
+        bad += bit_diff(coo2.coo2_pass1(c, x), ref)
+    rec = {"check": "repeated launches (coo2)", "kernel": "coo2_pass1",
+           "n": c.n, "launches": launches, "positions_differing": int(bad)}
+    if rec["positions_differing"]:
+        raise AssertionError(f"coo2 launches differ: {rec}")
+    return rec
 
 
 def nonfinite_checks(dev, slot_st, pk, v1, coo2_r, rng):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the SELL kernel of another checkout of the port beside this one's,
-in one process on one NVIDIA card, on each SELL kernel's largest stream.
+"""Time the SELL and COO2 pass-1 kernels of another checkout of the port
+beside this one's, in one process on one NVIDIA card, on each kernel's
+largest stream.
 
     python3 sell_ab.py OTHER_ROOT [--rounds R]
 
@@ -23,10 +24,15 @@ largest stripe of uniform250k_4m_d64; ``sell_row_df`` powerlaw100k_f64's
 clustered2500k_s64_f64 as one windowed slot stream; ``sell_v1`` (K9)
 webbase1m_dist1's heavy stream and one shard of clustered200k_8w_dist4;
 ``sell_v1_df`` powerlaw100k_f64_dist1's dense stream; ``sell_v1_bin``
-clustered200k's v1 pack, binary.
+clustered200k's v1 pack, binary; ``coo2_pass1`` (K8) the pass-1 streams
+of clustered200k_csr5 and clustered200k_w4096 (bf16 values) and of
+``chip_smoke.py``'s kernel phase (f32 values), each packed once by
+``pack_coo2`` as the CSR5 plan packs it and placed by each tree's
+``prepare_coo2``.
 
 Per stream: both trees' y against the plain version (f32 1e-5, f64 1e-12
-of (|A||x|)_i), then R rounds in turns (other, this, this, other), each
+of (|A||x|)_i; COO2 pass 1 bit for bit), then R rounds in turns (other,
+this, this, other), each
 side timed by ``chip_smoke.profile_calls`` (5 profile windows, warm and
 after an L2 flush) and CUDA events, and its host time per call over 1,000
 enqueues.  Prints one JSON line a stream: each side's medians over its
@@ -37,6 +43,7 @@ without a card or when a kernel disagrees with its plain version.
 
 import argparse
 import importlib.util
+import itertools
 import json
 import os
 import statistics
@@ -182,9 +189,39 @@ def streams(dev, kernels=None):
             yield label, build()
 
 
-def measure(sell_mod, st, x):
+def coo2_packs(kernels=None):
+    """(label, COO2 pack) of K8's streams, packed by this checkout as the
+    CSR5 plan packs them (``pack_coo2(a, max_pad2=8.0)``)."""
+    if kernels is not None and "coo2_pass1" not in kernels:
+        return
+    import numpy as np
     import chip_smoke as cs
-    fn = lambda v: sell_mod.sell_spmv(st, v)  # noqa: E731
+    from spmv_tpu_torch.formats.coo2 import pack_coo2
+    from spmv_tpu_torch.io import generate
+    for label, make in (
+            ("clustered200k_csr5 pass 1",
+             lambda: cs.FAMILIES["clustered200k_csr5"][0](generate, np)),
+            ("clustered200k_w4096 pass 1",
+             lambda: cs.FAMILIES["clustered200k_w4096"][0](generate, np)),
+            ("kernel phase f32 pass 1",
+             lambda: generate.clustered(100_000, 100_000, 24, spread=2048,
+                                        dtype=np.float32, seed=1,
+                                        exact=False))):
+        yield label, pack_coo2(make(), max_pad2=8.0)
+
+
+def nchunks(st):
+    """A placed stream's CUDA blocks: its chunks, or for a COO2 plan its
+    pass-1 chunks (a tree without them ran a block a tile)."""
+    if hasattr(st, "window_ids"):
+        ptr = getattr(st, "chunk_ptr", None)
+        return st.ntiles if ptr is None else ptr.numel() - 1
+    return st.nchunks
+
+
+def measure(run, st, x):
+    import chip_smoke as cs
+    fn = lambda v: run(st, v)  # noqa: E731
     warm = cs.profile_calls(fn, x)
     cold = cs.profile_calls(fn, x, cold=True)
     return {"device_ms": warm["device_ms"],
@@ -210,45 +247,66 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
     import chip_smoke as cs
-    from spmv_tpu_torch.ops import sell as this
+    from spmv_tpu_torch.ops import coo2 as this_coo2, sell as this
     other = load_other(args.other)
+    other_coo2 = importlib.import_module(OTHER + ".ops.coo2")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
+    kernels = args.kernels and args.kernels.split(",")
+
+    def sell_jobs():
+        for label, st in streams(dev, kernels):
+            fields = host_fields(st)
+            del st
+            yield label, {"other": place(other, fields, dev),
+                          "this": place(this, fields, dev)}, \
+                {"other": other.sell_spmv, "this": this.sell_spmv}
+
+    def coo2_jobs():
+        for label, packed in coo2_packs(kernels):
+            yield label, {"other": other_coo2.prepare_coo2(packed, dev),
+                          "this": this_coo2.prepare_coo2(packed, dev)}, \
+                {"other": other_coo2.coo2_pass1,
+                 "this": this_coo2.coo2_pass1}
+
     t0 = time.perf_counter()
-    for label, st in streams(dev, args.kernels and args.kernels.split(",")):
+    for label, sides, runs_of in itertools.chain(sell_jobs(), coo2_jobs()):
         pack_s = time.perf_counter() - t0
-        fields = host_fields(st)
-        sides = {"other": place(other, fields, dev),
-                 "this": place(this, fields, dev)}
-        del st
-        x = torch.from_numpy(rng.standard_normal(sides["this"].n).astype(
-            np.float64 if sides["this"].dtype == torch.float64
-            else np.float32)).to(dev)
-        ref = this.sell_plain(sides["this"], x)
-        absref = this.sell_plain(cs.abs_stream(sides["this"]), x.abs())
+        st = sides["this"]
+        coo2 = cs.is_coo2(st)
+        x = torch.from_numpy(rng.standard_normal(st.n).astype(
+            np.float32 if coo2 or st.dtype != torch.float64
+            else np.float64)).to(dev)
+        plain = this_coo2.coo2_pass1_plain if coo2 else this.sell_plain
+        ref = plain(st, x)
+        absref = plain(cs.abs_stream(st), x.abs())
         bound = (cs.BOUND_F64_KERNEL if x.dtype == torch.float64
                  else cs.BOUND)
-        mods = {"other": other, "this": this}
         errs = {}
         for side, s in sides.items():
-            y = mods[side].sell_spmv(s, x)
+            y = runs_of[side](s, x)
             rel, _abs, ok = cs.scaled_err(y, ref, absref, bound)
+            if coo2:
+                # one f32 product a slot: bit for bit
+                rel = int(cs.bit_diff(y, ref))
+                ok = rel == 0
             errs[side] = rel
             if not ok:
-                raise AssertionError(f"{label} ({side}): scaled error "
-                                     f"{rel:.3g}")
+                what = "positions differing in bits" if coo2 else \
+                    "scaled error"
+                raise AssertionError(f"{label} ({side}): {what} {rel:.3g}")
         runs = {"other": [], "this": []}
         for _ in range(args.rounds):
             for side in ("other", "this", "this", "other"):
-                runs[side].append(measure(mods[side], sides[side], x))
-        st = sides["this"]
+                runs[side].append(measure(runs_of[side], sides[side], x))
         nt = st.meta.shape[0]
         stream_ms = cs.stream_bound(st, 0)[3]
         rec = {"kernel": cs.kernel_of(st), "stream": label, "tiles": nt,
-               "pack_s": pack_s,
-               "value_mode": st.value_mode, "nw": st.nw,
-               "chunks": {s: sides[s].nchunks for s in sides},
-               "scaled_err": errs, "stream_bound_ms": stream_ms}
+               "pack_s": pack_s, "value_mode": cs.value_mode_of(st),
+               "nw": getattr(st, "nw", None),
+               "chunks": {s: nchunks(sides[s]) for s in sides},
+               "bit_diff" if coo2 else "scaled_err": errs,
+               "stream_bound_ms": stream_ms}
         for side, rs in runs.items():
             med = {k: statistics.median(r[k] for r in rs)
                    for k in ("device_ms", "cold_device_ms", "ms", "host_us")
@@ -264,7 +322,7 @@ def main() -> int:
             rec["this_over_other"] = (rec["this"]["device_ms"]
                                       / rec["other"]["device_ms"])
         cs.log(json.dumps(rec))
-        del sides, x, ref, absref
+        del sides, st, x, ref, absref
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
     cs.log(cs._cmd_line(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -111,7 +111,7 @@ def load_kernels() -> SimpleNamespace:
                 "spmv_sell_launch": ("sell", ctypes.c_int,
                                      [p] * 13 + [i64] * 7 + [p]),
                 "spmv_coo2_launch": ("coo2", ctypes.c_int,
-                                     [p] * 5 + [i64] * 3 + [p]),
+                                     [p] * 6 + [i64] * 3 + [p]),
                 "spmv_cuda_error_string": ("errors", ctypes.c_char_p,
                                            [ctypes.c_int])}.items():
             fn = getattr(libs[stem], name)

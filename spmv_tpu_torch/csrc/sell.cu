@@ -107,6 +107,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace spmv {
 namespace {
@@ -180,44 +181,6 @@ constexpr int smem_bytes() {
          + (kSlot ? 0 : kTile) * int(sizeof(Acc<kVM>)) + 16;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-// One arrival that also expects `bytes` of bulk copies to land.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-// 1-D bulk copy (TMA) of `bytes` (a multiple of 16, both ends 16-B aligned)
-// from device memory into shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // s[0 ..) += the lanes of a 16-B vector; a 16-B vector of s[0 ..).
 __device__ __forceinline__ void add_vec(float* s, const float4& v) {
   s[0] += v.x;
@@ -287,15 +250,6 @@ __device__ __forceinline__ Acc<kVM> slot_value(const unsigned char* stage,
 template <bool kV1>
 __device__ __forceinline__ int64_t window_base(int32_t ti) {
   return (kV1 ? int64_t(ti) : int64_t(ti >> 3)) * kTile;
-}
-
-// Columns of the window at `base` that are staged: all 1024 inside n, else
-// those below n rounded down to whole 16-B words (the bulk copy's unit).
-template <typename T>
-__device__ __forceinline__ int staged_x(int64_t base, int64_t n) {
-  const int64_t avail = n - base;
-  constexpr int kWord = 16 / int(sizeof(T));
-  return avail >= kTile ? kTile : avail <= 0 ? 0 : int(avail) & ~(kWord - 1);
 }
 
 // kV1: the v1 layout (row mode, g = 1): tinfo holds window_ids and gpk the

@@ -9,7 +9,10 @@ slot and s at the cell (i, r).  Pass 2 replaces K5's binary mode
 :class:`~spmv_tpu_torch.formats.coo2.Coo2` pack as ``build_coo2_fn`` does:
 the pass-1 arrays padded to whole 16-tile groups, the values in bf16 when
 every one round-trips, and R as a binary SELL stream.  On the H100 both
-passes are bound by device-memory bytes (see the sources).
+passes are bound by device-memory bytes (see the sources).  Pass 1 runs
+one CUDA block a chunk of contiguous tiles (:func:`chunk_bounds`, the SELL
+template's chunk rule), staging each tile and its x window in shared
+memory with bulk copies: meta, values and x must be 16-B aligned.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from ..utils.profiling import dev_put
 from . import sell as sell_ops
 
 __all__ = ["Coo2Plan", "prepare_coo2", "coo2_pass1", "coo2_pass1_plain",
-           "coo2_spmv", "coo2_launches", "G1"]
+           "coo2_spmv", "coo2_launches", "chunk_bounds", "G1"]
 
 #: pass-1 tiles per group: the tile count is padded to a multiple of it
 G1 = 16
@@ -48,10 +51,32 @@ class Coo2Plan:
     meta: torch.Tensor            # (ntiles, 8, 128) int16
     vals: torch.Tensor            # (ntiles, 8, 128) f32 or bf16
     reduce: sell_ops.SellStream   # R, binary row mode, n = its positions
+    chunk_ptr: torch.Tensor       # (nchunks + 1,) int32 pass-1 tile
+    #                               bounds (chunk_bounds)
+
+    def __post_init__(self):
+        if self.meta.device.type != "cuda":
+            return
+        for t in (self.meta, self.vals, self.window_ids):
+            if t.data_ptr() % 16:
+                raise ValueError("coo2 plan: meta, values and window ids "
+                                 "must be 16-B aligned for the kernel's "
+                                 "bulk copies")
+
+
+def chunk_bounds(ntiles: int, nsm: int) -> np.ndarray:
+    """The (nchunks + 1,) int32 tile bounds of pass 1's chunks, one CUDA
+    block a chunk: every chunk ``sell.chunk_len(ntiles, nsm)`` tiles long
+    (about CHUNKS_PER_SM chunks an SM, at most CHUNK_TILES tiles) but the
+    last, none empty."""
+    step = sell_ops.chunk_len(ntiles, nsm)
+    return np.append(np.arange(0, ntiles, step), ntiles).astype(np.int32)
 
 
 def prepare_coo2(packed: Coo2, device) -> Coo2Plan:
-    """Place a COO2 pack on ``device`` (``build_coo2_fn``'s arrays)."""
+    """Place a COO2 pack on ``device`` (``build_coo2_fn``'s arrays), with
+    pass 1's chunks sized for the device's SMs (``H100_SMS`` on the CPU).
+    Raises on the card when a bulk-copied array is not 16-B aligned."""
     ntiles = -(-packed.ntiles // G1) * G1
     lossless = is_lossless_bf16(packed.vals.reshape(-1))
     meta = np.zeros((ntiles, SUB, LANES), dtype=np.int16)
@@ -67,7 +92,9 @@ def prepare_coo2(packed: Coo2, device) -> Coo2Plan:
         window_ids=dev_put(win, device), meta=dev_put(meta, device),
         vals=dev_put(_bf16.as_torch(vals) if lossless else vals, device),
         reduce=sell_ops.prepare_sell(
-            sell_ops.binary_v2(packed.reduce_plan), device, slot_mode=False))
+            sell_ops.binary_v2(packed.reduce_plan), device, slot_mode=False),
+        chunk_ptr=dev_put(chunk_bounds(ntiles, sell_ops.sm_count(device)),
+                          device))
 
 
 def coo2_pass1_plain(p: Coo2Plan, x: torch.Tensor) -> torch.Tensor:
@@ -96,13 +123,15 @@ def coo2_pass1(p: Coo2Plan, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"coo2_pass1: x must be a contiguous float32 "
                          f"({p.n},) tensor on {p.meta.device}, got "
                          f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if x.data_ptr() % 16:
+        x = x.clone()       # x windows are bulk-copied: 16-B aligned
     lib = _build.load_kernels()
     out = torch.empty(p.ntiles * WINDOW, dtype=torch.float32,
                       device=x.device)
     err = lib.spmv_coo2_launch(
         p.window_ids.data_ptr(), p.meta.data_ptr(), p.vals.data_ptr(),
-        x.data_ptr(), out.data_ptr(), p.ntiles, p.n,
-        int(p.vals.dtype == torch.bfloat16),
+        x.data_ptr(), p.chunk_ptr.data_ptr(), out.data_ptr(),
+        p.chunk_ptr.numel() - 1, p.n, int(p.vals.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "coo2_pass1")
     coo2_launches += 1

@@ -135,6 +135,10 @@ def test_pass1_matches_tpu_kernel(values):
     np.testing.assert_array_equal(got, _pass1_reference(plan, x))
 
 
+def _chunks(ntiles):
+    return torch.from_numpy(t_ops.chunk_bounds(ntiles, t_sell.H100_SMS))
+
+
 def test_pass1_random_stream_reads_s_at_the_cell():
     # random (s, r) in every slot, random windows, a ragged last window:
     # every decode rule, columns past n read 0
@@ -152,13 +156,95 @@ def test_pass1_random_stream_reads_s_at_the_cell():
     plan = t_ops.Coo2Plan(m=0, n=n, ntiles=ntiles,
                           window_ids=torch.from_numpy(window_ids),
                           meta=torch.from_numpy(meta),
-                          vals=torch.from_numpy(vals), reduce=None)
+                          vals=torch.from_numpy(vals), reduce=None,
+                          chunk_ptr=_chunks(ntiles))
     x = rng.standard_normal(n).astype(np.float32)
     got = t_ops.coo2_pass1(plan, torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got, _pass1_reference(plan, x))
     assert got[4 * 1024 + 2 * 128 + 5] == vals[4, 2, 5] * x[1024 + 6 * 128
                                                           + 9]
     assert (window_ids == 4).any() and n < 5 * 1024   # some reads past n
+
+
+def _random_stream(rng, ntiles, n, bf16=False):
+    """A plan over random (s, r) slots and random windows of [0, n)."""
+    meta = (rng.integers(0, 8, (ntiles, 8, 128)) << 7
+            | rng.integers(0, 128, (ntiles, 8, 128))).astype(np.int16)
+    window_ids = rng.integers(0, -(-n // 1024), ntiles).astype(np.int32)
+    if bf16:
+        vals = torch.from_numpy(
+            (rng.integers(-255, 256, (ntiles, 8, 128)) / 32.0)
+            .astype(np.float32)).to(torch.bfloat16)
+    else:
+        vals = torch.from_numpy(
+            rng.standard_normal((ntiles, 8, 128)).astype(np.float32))
+    return t_ops.Coo2Plan(m=0, n=n, ntiles=ntiles,
+                          window_ids=torch.from_numpy(window_ids),
+                          meta=torch.from_numpy(meta), vals=vals,
+                          reduce=None, chunk_ptr=_chunks(ntiles))
+
+
+@pytest.mark.parametrize("values", ["f32", "bf16"])
+@pytest.mark.parametrize("tail", [1, 2, 3])
+def test_pass1_ragged_last_window(tail, values):
+    # n = 3·1024 + tail ≡ tail (mod 4): the last window has fewer columns
+    # than one 16-B word, so the kernel stages none of it and reads them
+    # from device memory; tile 5 sits in that window and reads each of them
+    rng = np.random.default_rng(10 + tail)
+    n = 3 * 1024 + tail
+    plan = _random_stream(rng, 32, n, bf16=values == "bf16")
+    plan.window_ids[5] = 3
+    plan.meta[5, 0, :tail] = torch.arange(tail)   # r, and s = 0 at the cell
+    x = rng.standard_normal(n).astype(np.float32)
+    got = t_ops.coo2_pass1(plan, torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, _pass1_reference(plan, x))
+    vals = plan.vals.to(torch.float32).numpy()
+    for r in range(tail):
+        assert got[5 * 1024 + r] == vals[5, 0, r] * x[3072 + r]
+    assert (got[5 * 1024:6 * 1024] == 0).any()      # columns past n read 0
+
+
+@pytest.mark.parametrize("tail", [1, 2, 3])
+def test_pass1_packed_ragged_n(tail):
+    # a packed stream whose n ≡ tail (mod 4), its last columns read
+    n = 2048 + tail
+    a = t_gen.random_uniform(600, n, 24, seed=tail).astype(np.float32)
+    assert a.colidx.max() == n - 1
+    plan = t_ops.prepare_coo2(t_coo2.pack_coo2(a), "cpu")
+    x = np.random.default_rng(tail).standard_normal(n).astype(np.float32)
+    got = t_ops.coo2_pass1(plan, torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, _pass1_reference(plan, x))
+
+
+@pytest.mark.parametrize("ntiles", [16, 6_688, 37_776])
+def test_chunk_bounds_cover_every_tile_once(ntiles):
+    b = t_ops.chunk_bounds(ntiles, t_sell.H100_SMS)
+    assert b.dtype == np.int32 and b[0] == 0 and b[-1] == ntiles
+    lens = np.diff(b)
+    assert (lens > 0).all() and lens.sum() == ntiles   # none empty
+    step = t_sell.chunk_len(ntiles, t_sell.H100_SMS)
+    assert (lens[:-1] == step).all() and lens[-1] <= step
+    assert step <= t_sell.CHUNK_TILES
+    assert len(lens) == -(-ntiles // step)
+
+
+def test_prepare_places_aligned_arrays_and_takes_an_x_view():
+    a = _f32(SHAPES["rect"](t_gen))
+    plan = t_ops.prepare_coo2(t_coo2.pack_coo2(a), "cpu")
+    for t in (plan.meta, plan.vals, plan.window_ids, plan.chunk_ptr):
+        assert t.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(
+        plan.chunk_ptr.numpy(), t_ops.chunk_bounds(plan.ntiles,
+                                                   t_sell.H100_SMS))
+    buf = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        a.n + 1).astype(np.float32))
+    view = buf[1:]                     # x at element offset 1
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    np.testing.assert_array_equal(
+        t_ops.coo2_pass1(plan, view).numpy(),
+        t_ops.coo2_pass1(plan, view.clone()).numpy())
+    np.testing.assert_array_equal(t_ops.coo2_pass1(plan, view).numpy(),
+                                  _pass1_reference(plan, view.numpy()))
 
 
 def _binary_reference(packed_j, x, g):
