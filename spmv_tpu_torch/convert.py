@@ -1,9 +1,10 @@
 """Carry a plan built by the JAX package across to the port.
 
 ``plan_from_reference(plan, device)`` takes the dict that
-``spmv_tpu.handle._build_plan`` returns and places it as the port's plan,
-so the port's executor (``handle._make_bound``) runs on exactly the JAX
-package's packed stream.  ``dist_plan_from_reference(plan, mesh)`` does the
+``spmv_tpu.handle._build_plan`` returns (any of its plans: the SELL tile
+plans, the graph plan, COO2, DIA, and the XLA plans) and places it as the
+port's plan, so the port's executor (``handle._make_bound``) runs on
+exactly the JAX package's packed stream.  ``dist_plan_from_reference(plan, mesh)`` does the
 same for a mesh plan of ``spmv_tpu.parallel``: it reads the plan's stacked
 ``(ndev, ...)`` arrays and places shard d on ``mesh.devices[d]``.  Every
 array is copied to the host with ``np.array``; this module imports nothing
@@ -22,15 +23,16 @@ from .formats.coo2 import Coo2
 from .formats.dia import DiaMatrix
 from .formats.sell8d import Sell8D
 from .formats.sell8w import Sell8W, Sell8WV2
-from .handle import _not_ported, _place
+from .handle import _place
 from .utils.profiling import dev_put
 
 __all__ = ["plan_from_reference", "dist_plan_from_reference"]
 
 _ARRAYS = ("rest_rows", "rest_cols", "rest_vals", "fold_rows",
-           "mega_sub_rows", "rows", "colidx", "vals")
-#: plan keys of plans the port does not run yet → their ROADMAP item
-_OUT_OF_SLICE = {"graph": 5, "colidx_pad": 6, "blocks": 6, "cols": 6}
+           "mega_sub_rows", "rows", "colidx", "vals", "hub_cols",
+           "colidx_pad", "vals_pad", "row_start", "row_end", "vrow_start",
+           "vrow_end", "sub_start", "sub_end", "cols", "chunk_ids",
+           "inv_pos", "blocks", "block_rows", "block_cols")
 
 
 def _host_array(v) -> np.ndarray:
@@ -66,11 +68,10 @@ def _dia_from_parts(parts) -> DiaMatrix:
 def _host_plan(p: Dict[str, Any]) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for k, v in p.items():
-        if k in _OUT_OF_SLICE:
-            raise _not_ported(f"the reference plan key {k!r}",
-                              _OUT_OF_SLICE[k])
         if k == "hybrid":
             out[k] = tuple(_host_plan(q) for q in v)
+        elif k in ("light", "heavy"):       # a graph plan's parts
+            out[k] = _host_plan(v)
         elif k in ("sell8w_v2", "sell8w_v2w"):
             out[k] = _dataclass_like(Sell8WV2, v)
         elif k == "sell8d":

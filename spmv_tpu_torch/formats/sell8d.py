@@ -1,7 +1,8 @@
 """SELL-8D: the deep-slice (slot-per-row) tile format for scattered matrices
 (a copy of ``spmv_tpu/formats/sell8d.py`` with ``ml_dtypes`` replaced by
 :mod:`._bf16`: bf16 arrays are uint16 bit arrays here; pinned by
-``tests/test_torch_formats.py``).
+``tests/test_torch_formats.py``), less ``split_by_window_density``, an
+analysis tool no plan calls.
 
 SELL-8W (sell8w.py) assigns rows to LANES (128 rows/slice, depth 8/tile) —
 ideal when rows have many nonzeros per 1024-column window.  For scattered
@@ -1015,52 +1016,6 @@ def _bundle_group_stats(a: CsrMatrix, lb: int, rows=None):
     rw_u = rw[starts]
     pw = ((rw_u // nwin) >> 10) * nwin + rw_u % nwin
     return sizes, pw
-
-
-def split_by_window_density(a: CsrMatrix, thresh: int = 4):
-    """Partition nnz by (row, window) group size: groups with ≥ ``thresh``
-    nonzeros form the DENSE part (the SELL-8W row-mode regime — a row-
-    window segment that fills tile depth), the rest the SPARSE part (the
-    SELL-8D bundle regime).  Returns ``(dense, sparse, dense_frac)`` with
-    either matrix ``None`` when empty.
-
-    NOTE: the production planner uses :func:`prepare_hybrid`'s ROW-length
-    split instead — a heavy row's scattered singles poison the slot-mode
-    layout when left behind (measured powerlaw100k: 15.5k vs 3.6k sparse
-    tiles).  This finer window-granular split is kept as a public analysis
-    tool (the reference analog is Balanced2's mega-row redistribution,
-    parallel_balanced2_spmv.c:55-209, at window granularity).
-    """
-    if a.nnz == 0:
-        return None, None, 0.0
-    nwin = max(-(-a.n // WINDOW), 1)
-    lens = a.row_lengths.astype(np.int64)
-    rows = np.repeat(np.arange(a.m, dtype=np.int64), lens)
-    rw = rows * nwin + (a.colidx.astype(np.int64) >> 10)
-    if np.all(rw[1:] >= rw[:-1]):
-        starts = np.nonzero(_first_of_group(rw))[0]
-        sizes = np.diff(np.concatenate([starts, [len(rw)]]))
-        gsz = np.repeat(sizes, sizes)
-    else:
-        o = np.argsort(rw, kind="stable")
-        starts = np.nonzero(_first_of_group(rw[o]))[0]
-        sizes = np.diff(np.concatenate([starts, [len(rw)]]))
-        gsz = np.empty(len(rw), dtype=np.int64)
-        gsz[o] = np.repeat(sizes, sizes)
-    dense = gsz >= thresh
-    frac = float(dense.mean())
-
-    def sub(mask):
-        if not mask.any():
-            return None
-        r = rows[mask]
-        rp = np.zeros(a.m + 1, np.int64)
-        np.add.at(rp, r + 1, 1)
-        np.cumsum(rp, out=rp)
-        return CsrMatrix(a.m, a.n, rp, np.asarray(a.colidx)[mask],
-                         np.asarray(a.vals)[mask])
-
-    return sub(dense), sub(~dense), frac
 
 
 @dataclasses.dataclass(frozen=True)

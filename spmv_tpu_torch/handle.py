@@ -1,5 +1,4 @@
-"""Handle lifecycle + AUTO dispatch for the f32 and f64 main path (the port
-of ``spmv_tpu/handle.py``).
+"""Handle lifecycle + method dispatch (the port of ``spmv_tpu/handle.py``).
 
 ``create_handle`` inspects the matrix and builds a host-side plan (numpy
 packs, routed exactly as the JAX package routes on a TPU), places it on
@@ -8,8 +7,7 @@ work.  Planning does not depend on the device: the CPU runs the same plans
 as the card, through each kernel's plain PyTorch version, so the CPU tests
 cover the plans the card runs.
 
-Ported plans (the slice the bench's f32 and f64 families and the n > 2M
-SELL tiers run):
+Plans and what runs them:
 
 =================  ==========================================================
 DIA                ``ops/dia.py`` (K3, K4 for f64; also the JAX package's XLA
@@ -27,20 +25,30 @@ column stripes     n > 2M: stripes of at most 2M columns, each a slot
 row-split hybrid   8W heavy rows + 8D light rows; the heavy output folds
                    back by a scatter-add (f32, and f64 past 2M columns) or
                    by x-extension (f64)
+graph (f32)        hub columns appended to x, heavy rows as SELL-8W v2 (K1
+                   row), light rows as SELL-8D (K1 slot) over x extended by
+                   the hubs and by the heavy output
 stragglers         compact per-row sums + one scatter-add (plain PyTorch)
 COO2 (CSR5, f32)   ``ops/coo2.py``: pass 1 (K8) writes one product a slot,
                    pass 2 sums them by the SELL row-mode kernel in binary
                    mode (K5 binary) over R
-Serial             gather + scatter-add (plain PyTorch, AUTO's nnz < 10k)
+XLA plans          plain PyTorch (``ops/torch_csr.py``), as the JAX package
+                   runs them through XLA: Serial (gather + scatter-add),
+                   the tiled scan (Balanced, CSR5's fall-through), the
+                   global scan (BalancedYid), Balanced2's mega-row split,
+                   the chunked SELL-C-σ (``VectorizedWay.NONE``, and where
+                   no SELL tile plan fits), BCSR's block products
 =================  ==========================================================
 
 Method.CSR5 packs COO2 in f32; when the pass-2 gate refuses, and for every
 f64 matrix, it retries the SELL tiers above (n ≤ 2M, as the JAX package
-does).
+does), then the tiled scan.  AUTO's graph rung, the ``graph_prep`` hint and
+the f32 last resort of the SELL ladder are the JAX planner's, TPU gate on.
+``reorder=`` permutes rows and columns before planning, and x and y around
+every call.
 
 An f64 matrix runs in native f64 end to end: x, the kernels' sums and y.
-
-Everything else raises ``NotImplementedError`` naming its ROADMAP item.
+A matrix of any other type raises ``NotImplementedError`` (ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -52,10 +60,11 @@ import numpy as np
 import torch
 
 from .types import CsrMatrix, Method, VectorizedWay, METHOD_NAMES, INT_DTYPE
-from .formats import dia as dia_fmt, sell8w as sell8w_fmt
+from .formats import (_bf16, dia as dia_fmt, partition, sell as sell_fmt,
+                      sell8w as sell8w_fmt)
 from .ops import coo2 as coo2_ops, dia as dia_ops, sell as sell_ops
+from .ops import torch_csr
 from .ops.sell import V2_MAX_N
-from .ops.torch_csr import segment_sum_spmv
 from .utils.profiling import dev_put
 
 __all__ = [
@@ -97,7 +106,9 @@ class SpmvHandle:
     plan: Dict[str, Any]         # device tensors + static config
     _cleared: bool = False
     _bound: Any = None           # plan-bound executable (x -> y)
-    _matrix: Any = None          # host CsrMatrix (kept until destroy)
+    perm: Any = None             # reorder permutation (None if not reordered)
+    _matrix: Any = None          # host CsrMatrix before any reorder
+    _reorder: Optional[str] = None  # reorder kind requested at create
 
     def __call__(self, x) -> torch.Tensor:
         return spmv(self, x)
@@ -125,11 +136,13 @@ class SpmvHandle:
         fresh = create_handle(self._matrix, method=req,
                               nthreads=self.nthreads,
                               vectorized=self.vectorized,
-                              mtx_token=self.mtx_token, device=self.device)
+                              mtx_token=self.mtx_token,
+                              reorder=self._reorder, device=self.device)
         self.method = fresh.method
         self.requested_method = req
         self.plan = fresh.plan
         self._bound = fresh._bound
+        self.perm = fresh.perm
         return self
 
     def destroy(self) -> None:
@@ -141,10 +154,18 @@ class SpmvHandle:
 
 def plan_kind(plan: Dict[str, Any]) -> str:
     """Short name of a (host or placed) plan's shape."""
+    if "graph" in plan:
+        return "graph"
     if "hybrid" in plan:
         return "hybrid(8w+8d)"
     if "coo2" in plan:
         return "coo2"
+    if "colidx_pad" in plan:
+        return "balanced2" if "sub_start" in plan else "scan"
+    if "cols" in plan:
+        return "chunked-sell"
+    if "blocks" in plan:
+        return "bcsr"
     rest = "+rest" if ("rest_rows" in plan or "rest" in plan) else ""
     if "sell8d_stripes" in plan:
         return f"sell8d-striped[{len(plan['sell8d_stripes'])}]" + rest
@@ -164,22 +185,71 @@ def _pad_allow(soft_cap: float, mem_cap: float, floor: float = 3.0) -> float:
     return min(max(floor, min(soft_cap, mem_cap)), mem_cap)
 
 
+def _tile_for(nnz: int, nthreads: int, method: Method) -> int:
+    """The equal-nnz tile length of the scan plans
+    (``spmv_tpu/handle.py:_tile_for``): 4096 for Balanced, 1024 for the
+    others (shorter tiles split mega-rows across more of them), halved
+    until there are at least max(64, nthreads) tiles or the tile is 256."""
+    base = 4096 if method == Method.BALANCED else 1024
+    min_tiles = max(64, nthreads)
+    while base > 256 and nnz // base < min_tiles:
+        base //= 2
+    return base
+
+
 def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
                 vectorized: VectorizedWay = VectorizedWay.VPU,
                 hints: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """The JAX planner's f32 and f64 branches, as it routes on a TPU."""
-    if method in (Method.SELL_C_SIGMA, Method.PARALLEL):
-        if vectorized == VectorizedWay.NONE:
-            raise _not_ported("the XLA chunked-SELL plan "
-                              "(VectorizedWay.NONE)", 6)
-        return _plan_sell(a, hints or {})
+    """The JAX planner's f32 and f64 branches, as it routes on a TPU: the
+    SELL tile plans and COO2 first, then the plans the JAX package runs
+    through XLA, which every route falls back to."""
+    if (method in (Method.SELL_C_SIGMA, Method.PARALLEL)
+            and vectorized != VectorizedWay.NONE):
+        plan = _plan_sell(a, hints or {})
+        if plan is not None:
+            return plan
+    if (method == Method.CSR5 and vectorized != VectorizedWay.NONE
+            and a.nnz > 0):
+        plan = _plan_csr5(a, nthreads, vectorized, hints)
+        if plan is not None:
+            return plan
     if method == Method.SERIAL:
-        return {
-            "rows": np.repeat(np.arange(a.m, dtype=INT_DTYPE),
-                              a.row_lengths),
-            "colidx": a.colidx,
-            "vals": a.vals,
-        }
+        return {"rows": partition.row_ids(a), "colidx": a.colidx,
+                "vals": a.vals}
+    if method == Method.BALANCED2:
+        # the mega-row split, or the reference's demotion to Balanced when
+        # no row is longer than a tile (parallel_balanced2_spmv.c:87-90)
+        tile = _tile_for(a.nnz, nthreads, method)
+        b2 = partition.build_balanced2_plan(a, tile=tile)
+        if b2 is None:
+            plan = _build_plan(a, Method.BALANCED, nthreads, vectorized)
+            plan["demoted"] = True
+            return plan
+        return {"tile": b2.inner.tile, "colidx_pad": b2.inner.colidx_pad,
+                "vals_pad": b2.inner.vals_pad,
+                "vrow_start": b2.inner.row_start,
+                "vrow_end": b2.inner.row_end,
+                "sub_start": b2.sub_ptr_start, "sub_end": b2.sub_ptr_end,
+                "m_virtual": b2.m_virtual, "n_mega_rows": b2.n_mega_rows}
+    if method in (Method.BALANCED, Method.BALANCED_YID, Method.CSR5):
+        p = partition.build_tile_scan_plan(
+            a, tile=_tile_for(a.nnz, nthreads, method))
+        return {"tile": p.tile, "colidx_pad": p.colidx_pad,
+                "vals_pad": p.vals_pad, "row_start": p.row_start,
+                "row_end": p.row_end}
+    if method == Method.BCSR:
+        from .formats import bcsr as bcsr_fmt
+        nblocks, fill = bcsr_fmt.bcsr_profile(a)
+        if a.nnz and (fill < 0.02
+                      or nblocks * bcsr_fmt.BLOCK ** 2 * 8 > 4e9):
+            raise ValueError(
+                f"BCSR unprofitable: {nblocks} blocks at fill {fill:.4f} "
+                f"(densification would allocate "
+                f"{nblocks * bcsr_fmt.BLOCK**2 * 4 / 1e9:.1f}+ GB)")
+        b = bcsr_fmt.pack_bcsr(a)
+        return {"blocks": b.blocks, "block_rows": b.block_rows,
+                "block_cols": b.block_cols,
+                "nblock_rows": -(-a.m // bcsr_fmt.BLOCK), "fill": b.fill}
     if method == Method.DIA:
         # one plan covers the JAX package's Pallas and XLA DIA plans: any
         # ndiags the profitability gate admits, any m and n
@@ -191,23 +261,31 @@ def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
         d = dia_fmt.pack_dia(a)
         return {"dia": d, "fill": d.fill,
                 "offsets": tuple(int(o) for o in d.offsets), "n": a.n}
-    if method == Method.CSR5:
-        return _plan_csr5(a, nthreads, vectorized, hints)
-    if method == Method.BCSR:
-        raise _not_ported("Method.BCSR", 6)
-    raise _not_ported(f"{METHOD_NAMES.get(method, method)}", 6)
+    if method in (Method.PARALLEL, Method.SELL_C_SIGMA):
+        # the chunked SELL-C-σ plan; mega-rows explode its padding (depth
+        # is a slice's longest row), so past pad 8 the tiled scan instead
+        from .inspector import _sell_pad_ratio
+        sigma = 1 if method == Method.PARALLEL else 32 * sell_fmt.LANES
+        if a.nnz and _sell_pad_ratio(a.row_lengths.astype(np.int64),
+                                     sigma=max(sigma, 1)) > 8.0:
+            plan = _build_plan(a, Method.BALANCED, nthreads, vectorized)
+            plan["sell_fallback"] = "scan"
+            return plan
+        s = sell_fmt.pack_sell(a, sigma=sigma)
+        return {"cols": s.cols, "vals": s.vals, "chunk_ids": s.chunk_ids,
+                "inv_pos": s.inv_pos, "nslices": s.nslices,
+                "identity_order": s.identity_order,
+                "padded_nnz": s.padded_nnz}
+    raise ValueError(f"no plan for method {method}")
 
 
 def _plan_csr5(a: CsrMatrix, nthreads: int, vectorized: VectorizedWay,
-                hints: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+                hints: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
     """The JAX planner's CSR5 branch on a TPU: the two-pass COO2 plan in
     f32; when its pass-2 gate refuses, and for any f64 matrix (the
     reference's CSR5 is f64 only), the SELL-8D / hybrid retry for n ≤ 2M
-    when its estimates hold.  What the JAX planner hands to its XLA tiled
-    scan raises here."""
-    scan = "Method.CSR5's fall-through to the XLA tiled scan"
-    if vectorized == VectorizedWay.NONE or a.nnz == 0:
-        raise _not_ported(scan, 6)
+    when its estimates hold.  None when neither gives a SELL tile plan:
+    the caller then builds the tiled scan."""
     if np.dtype(a.dtype) != np.dtype(np.float64):
         from .formats import coo2 as coo2_fmt
         try:
@@ -233,16 +311,14 @@ def _plan_csr5(a: CsrMatrix, nthreads: int, vectorized: VectorizedWay,
                 ok = True
                 sub_hints = {**(hints or {}), "hybrid_prep": prep}
         if ok:
-            try:
-                alt = _build_plan(a, Method.SELL_C_SIGMA, nthreads,
-                                  vectorized, hints=sub_hints)
-            except NotImplementedError:
-                # no SELL tile plan: the JAX planner's SELL branch would
-                # fall through to plans its CSR5 branch does not take
-                alt = {}
-            if any(k in alt for k in ("sell8d", "sell8w_v2", "hybrid")):
+            alt = _build_plan(a, Method.SELL_C_SIGMA, nthreads, vectorized,
+                              hints=sub_hints)
+            # a graph or XLA plan from the SELL branch does not count: the
+            # JAX planner's CSR5 branch then takes its own tiled scan
+            if any(k in alt for k in ("sell8d", "sell8d_stripes", "sell8w",
+                                      "sell8w_v2", "sell8w_v2w", "hybrid")):
                 return alt
-    raise _not_ported(scan, 6)
+    return None
 
 
 def _append_fold_entries(mat: CsrMatrix, fold_rows: np.ndarray,
@@ -287,13 +363,99 @@ def _graph_gate(a: CsrMatrix, prep) -> bool:
             and prep.spilled <= 0.02 * a.nnz)
 
 
-def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
+def _build_graph_plan(a: CsrMatrix, prep) -> Dict[str, Any]:
+    """Pack the graph plan (``spmv_tpu/handle.py:_build_graph_plan``): hub
+    columns appended to x, the heavy rows as SELL-8W v2 (K1 row mode), the
+    light rows as SELL-8D (K1 slot mode) with one 1.0-valued entry a heavy
+    row (row ``fold_rows[j]``, column ``n_ext + j``) that reads the heavy
+    output appended to x.
+
+    Straggler remainders keep their hub-remapped column ids and the light
+    plan's straggler stream reads the fully extended x, whose prefix is x;
+    heavy straggler rows are mapped back through ``fold_rows``, so the
+    stream adds into the full-m output.  Raises ``ValueError`` when a pack
+    refuses or the two streams pass the 6.7e8-slot cap."""
+    from .formats import sell8d as sell8d_fmt
+    mem_cap = 6.7e8 / max(a.nnz, 1)
+    rest_parts = []
+    light_mat = prep.light
+    heavy_plan = None
+    fold_k = 0
+    if prep.heavy is not None:
+        hm = prep.heavy
+        # values off the palette (duplicate sums) go to the straggler
+        # stream, so the heavy stream keeps palette values
+        hm_p, hoff = sell8w_fmt.split_offpalette(hm)
+        if hoff is not None:
+            rest_parts.append((prep.fold_rows[np.asarray(hoff[0])],
+                               hoff[1], hoff[2]))
+            hm = hm_p
+        palette_ok = sell8w_fmt.value_palette(
+            np.asarray(hm.vals)) is not None
+        tile_price = 10.0 if palette_ok else 20.0
+        hm2, hrest, hfrac = sell8w_fmt.split_stragglers(hm)
+        if hrest is not None and hfrac <= 0.05:
+            # split only when the tiles saved (at the JAX package's TPU
+            # prices a tile) beat the straggler stream's 28 ns a nonzero
+            saved = (sell8w_fmt.estimate_sell8w_tiles(hm)
+                     - sell8w_fmt.estimate_sell8w_tiles(hm2))
+            if saved * tile_price > len(hrest[0]) * 28.0:
+                rest_parts.append((prep.fold_rows[np.asarray(hrest[0])],
+                                   hrest[1], hrest[2]))
+                hm = hm2
+        packed_h = sell8w_fmt.pack_sell8w(
+            hm, max_pad_ratio=_pad_allow(48.0, 6.7e8 / max(hm.nnz, 1)))
+        v2 = sell8w_fmt.plan_v2(packed_h)
+        heavy_plan = {"sell8w": packed_h, "sell8w_v2": v2,
+                      "pad_ratio": packed_h.pad_ratio,
+                      "value_mode": v2.value_mode}
+        light_mat = _append_fold_entries(prep.light, prep.fold_rows,
+                                         np.asarray(prep.light.vals).dtype)
+        fold_k = hm.m
+    packed, rest8d = sell8d_fmt.pack_sell8d(
+        light_mat, max_pad_ratio=_pad_allow(48.0, mem_cap), nw=prep.nw,
+        g="auto", cell_w=prep.nw > 1)
+    rest_parts.insert(0, rest8d)
+    light_plan: Dict[str, Any] = {
+        "sell8d": packed, "pad_ratio": packed.pad_ratio,
+        "value_mode": packed.value_mode, "nw": packed.nw}
+    plan: Dict[str, Any] = {
+        "graph": True, "light": light_plan,
+        "pad_ratio": prep.pad_ratio(a.nnz),
+        "value_mode": packed.value_mode,
+        "heavy_frac": (prep.heavy.nnz / a.nnz
+                       if prep.heavy is not None else 0.0)}
+    if prep.hub_cols is not None:
+        plan["hub_cols"] = prep.hub_cols.astype(INT_DTYPE)
+    if heavy_plan is not None:
+        plan["heavy"] = heavy_plan
+        plan["fold_k"] = fold_k
+        if ((packed.ntiles + packed_h.ntiles) * sell8w_fmt.WINDOW
+                > 6.7e8):
+            raise ValueError("graph plan tile stream exceeds the HBM "
+                             "budget")
+    parts = [r for r in rest_parts if r is not None]
+    if parts:
+        rows_r = np.concatenate([np.asarray(r[0]) for r in parts])
+        light_plan["rest_rows"] = rows_r.astype(INT_DTYPE)
+        light_plan["rest_cols"] = np.concatenate(
+            [np.asarray(r[1]) for r in parts]).astype(INT_DTYPE)
+        light_plan["rest_vals"] = np.concatenate(
+            [np.asarray(r[2]) for r in parts])
+        light_plan["rest_frac"] = len(rows_r) / max(a.nnz, 1)
+    return plan
+
+
+def _plan_sell(a: CsrMatrix,
+               hints: Dict[str, Any]) -> Optional[Dict[str, Any]]:
     """SELL_C_SIGMA / PARALLEL: row mode (SELL-8W v2) vs slot mode
     (SELL-8D) vs the row-split hybrid, by estimated tile count (f32) or
     estimated cost (the f64 hybrid gate) — the JAX planner's
-    ``_plan_windowed`` ladder.  Past V2_MAX_N columns slot mode is column
-    stripes or one windowed stream, by the JAX planner's cost gate, and
-    row mode is a windowed ``sell8w_v2w`` stream."""
+    ``_plan_windowed`` ladder, with its graph plan (AUTO's ``graph_prep``
+    hint, and the f32 last resort).  Past V2_MAX_N columns slot mode is
+    column stripes or one windowed stream, by the JAX planner's cost gate,
+    and row mode is a windowed ``sell8w_v2w`` stream.  None when no tile
+    plan fits: the caller falls through to the chunked SELL plan."""
     from .formats.sell8d import (MAX_SPILL_STRIPED, MAX_STRIPES,
                                  column_stripe_bounds, cost_tables,
                                  dense_tile_ns, estimate_sell8d_auto,
@@ -374,6 +536,14 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
         return _finish_rest(plan, [rest_host])
 
     def _plan_windowed(mat, extra):
+        gp = hints.get("graph_prep")
+        if gp is not None and mat is a:
+            # AUTO's graph rung prepared the split (webbase-shaped matrices,
+            # where every single-format estimate explodes)
+            try:
+                return _build_graph_plan(a, gp)
+            except ValueError:
+                pass
         if mat.nnz:
             # pairs-floor pre-gate: the coarse (1024-row slice, 8-window
             # bundle) pair count lower-bounds every windowed format
@@ -517,8 +687,18 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any]) -> Dict[str, Any]:
                 return _plan_windowed(a_main, {"rest_host": rest})
             except ValueError:
                 pass
-    raise _not_ported("no SELL tile plan fits this matrix: the graph "
-                      "plan and the XLA chunked-SELL/scan fall-through", 5)
+        # the last tile plan: the graph split (hub columns + heavy rows),
+        # where every window and slot layout fails
+        if (np.dtype(a.dtype) == np.float32
+                and hints.get("graph_prep") is None):
+            from .formats.graph import prepare_graph_split
+            gprep = prepare_graph_split(a)
+            if _graph_gate(a, gprep):
+                try:
+                    return _build_graph_plan(a, gprep)
+                except ValueError:
+                    pass
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -558,13 +738,24 @@ def _stripe_slices(vis, device) -> Optional[torch.Tensor]:
     return dev_put(vis, device)
 
 
+#: plan keys of index arrays (placed as int64) and of value arrays
+_INDEX_KEYS = ("mega_sub_rows", "fold_rows", "rows", "colidx", "hub_cols",
+               "colidx_pad", "row_start", "row_end", "vrow_start",
+               "vrow_end", "sub_start", "sub_end", "cols", "chunk_ids",
+               "inv_pos", "block_rows", "block_cols")
+_VALUE_KEYS = ("vals", "vals_pad")
+
+
 def _place(plan: Dict[str, Any], device) -> Dict[str, Any]:
     """Host plan → the same plan with its arrays on ``device`` (packs
-    become kernel streams).  The v1 SELL-8W pack is host-only."""
+    become kernel streams).  The v1 SELL-8W pack is host-only: a graph
+    plan's heavy row count stays as its ``fold_k``."""
     out: Dict[str, Any] = {}
     for k, v in plan.items():
         if k == "hybrid":
             out[k] = tuple(_place(p, device) for p in v)
+        elif k in ("light", "heavy"):
+            out[k] = _place(v, device)
         elif k == "sell8d":
             out[k] = sell_ops.prepare_sell(v, device, slot_mode=True)
         elif k == "sell8d_stripes":
@@ -577,10 +768,14 @@ def _place(plan: Dict[str, Any], device) -> Dict[str, Any]:
             out[k] = dia_ops.prepare_dia(v, device)
         elif k == "coo2":
             out[k] = coo2_ops.prepare_coo2(v, device)
-        elif k in ("mega_sub_rows", "fold_rows", "rows", "colidx"):
+        elif k in _INDEX_KEYS:
             out[k] = dev_put(np.asarray(v).astype(np.int64), device)
-        elif k == "vals":
+        elif k in _VALUE_KEYS:
             out[k] = dev_put(_host_values(v), device)
+        elif k == "blocks":
+            b = np.asarray(v)
+            out[k] = dev_put(_bf16.as_torch(b) if b.dtype == np.uint16
+                             else b, device)
         elif k == "rest_rows":
             out["rest"] = _prepare_rest(v, plan["rest_cols"],
                                         plan["rest_vals"], device)
@@ -607,6 +802,44 @@ def light_part_input(handle: "SpmvHandle", x: torch.Tensor) -> torch.Tensor:
         return x
     return _extend_x(_make_bound(handle.method, pd,
                                  pd.get("m_rows", handle.m)), x)
+
+
+def _graph_fns(method: Method, p: Dict[str, Any], m_rows: int):
+    """(x -> the x each part reads, {part: x_part -> y_part}) of a placed
+    graph plan.  The heavy part reads x extended by the hub columns and
+    gives ``fold_k`` rows; the light part, with its straggler stream, reads
+    that vector extended by the heavy output."""
+    light = p["light"]["sell8d"]
+    fns = {"light": _make_bound(method, p["light"], m_rows)}
+    hub = p.get("hub_cols")
+    fold_k = 0
+    if "heavy" in p:
+        fold_k = p["fold_k"]
+        heavy = p["heavy"]["sell8w_v2"]
+        if heavy.m < fold_k or heavy.n + fold_k != light.n:
+            raise ValueError(
+                f"graph plan: the heavy stream ({heavy.m} rows over "
+                f"{heavy.n} columns) does not feed the light stream's "
+                f"{light.n} columns with its {fold_k} rows")
+        fns["heavy"] = _make_bound(method, p["heavy"], fold_k)
+
+    def inputs(x):
+        x_ext = torch.cat([x, x[hub]]) if hub is not None else x
+        if not fold_k:
+            return {"light": x_ext}
+        y_heavy = fns["heavy"](x_ext)[:fold_k]
+        return {"heavy": x_ext, "light": torch.cat([x_ext, y_heavy])}
+
+    return inputs, fns
+
+
+def graph_part_inputs(handle: "SpmvHandle",
+                      x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The x that each part of ``handle``'s graph plan reads: ``"heavy"``
+    (x extended by the hub columns) where the plan has heavy rows, and
+    ``"light"`` (that vector extended by the heavy output).  ``x`` is on
+    the handle's device, in its type."""
+    return _graph_fns(handle.method, handle.plan, handle.m)[0](x)
 
 
 #: the plan keys of SELL tile streams
@@ -656,6 +889,10 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
             fr = pd["fold_rows"]
             return lambda x: f2(x).index_add_(0, fr, f1(x))
         return lambda x: f1(x) + f2(x)
+    if "graph" in p:
+        inputs, fns = _graph_fns(method, p, m_rows)
+        light_fn = fns["light"]
+        return lambda x: light_fn(inputs(x)["light"])
     if any(k in p for k in _SELL_KEYS):
         inner = _sell_fn(p, m_rows)
         fn = inner
@@ -685,9 +922,31 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
     if "coo2" in p:
         c = p["coo2"]
         return lambda x: coo2_ops.coo2_spmv(c, x)
+    if "sub_start" in p:
+        return lambda x: torch_csr.balanced2_spmv(
+            p["colidx_pad"], p["vals_pad"], p["vrow_start"], p["vrow_end"],
+            p["sub_start"], p["sub_end"], x, tile=p["tile"])
+    if "colidx_pad" in p:
+        if method == Method.BALANCED_YID:
+            return lambda x: torch_csr.scan_spmv_global(
+                p["colidx_pad"], p["vals_pad"], p["row_start"],
+                p["row_end"], x)
+        # Balanced, a demoted Balanced2, CSR5's fall-through, the chunked
+        # SELL's fall-back
+        return lambda x: torch_csr.scan_spmv_tiled(
+            p["colidx_pad"], p["vals_pad"], p["row_start"], p["row_end"],
+            x, tile=p["tile"])
+    if "cols" in p:
+        return lambda x: torch_csr.sell_spmv(
+            p["cols"], p["vals"], p["chunk_ids"], p["inv_pos"], x,
+            nslices=p["nslices"], identity_order=p["identity_order"])
+    if "blocks" in p:
+        return lambda x: torch_csr.bcsr_spmv(
+            p["blocks"], p["block_rows"], p["block_cols"], x, m=m_rows,
+            nblock_rows=p["nblock_rows"])
     if method == Method.SERIAL:
-        return lambda x: segment_sum_spmv(p["rows"], p["colidx"],
-                                          p["vals"], x, m=m_rows)
+        return lambda x: torch_csr.segment_sum_spmv(
+            p["rows"], p["colidx"], p["vals"], x, m=m_rows)
     raise ValueError(f"no executor for method {method} and plan "
                      f"{sorted(p)}")
 
@@ -716,26 +975,49 @@ def create_handle(a: CsrMatrix,
     ``device`` is where the plan lives and where ``spmv`` takes x; it is
     never inferred.  On a CUDA device the plan runs the hand-written
     kernels; on the CPU it runs their plain PyTorch versions.
+
+    ``reorder``: "rcm", "window", "cluster" or "length" permutes rows and
+    columns before planning (square matrices only); the handle permutes x
+    in and y out on every call, so ``spmv`` keeps its contract.  With
+    ``mtx_token`` the permutation is cached on disk
+    (``formats/reorder.py:cached_order``).  ``handle.perm`` holds it.
     """
-    if reorder is not None:
-        raise _not_ported("create_handle(reorder=...)", 6)
     if np.dtype(a.dtype) not in (np.dtype(np.float32), np.dtype(np.float64)):
-        raise _not_ported(f"{np.dtype(a.dtype).name} input (the JAX "
-                          "package's XLA plans)", 6)
+        raise _not_ported(f"{np.dtype(a.dtype).name} input (neither f32 "
+                          "nor f64; the JAX package also takes bf16)", 6)
     dev = _resolve_device(device)
     requested = Method(method)
+    a_orig = a
+    perm = None
+    if reorder is not None:
+        from .formats import reorder as reorder_mod
+        if a.m != a.n:
+            raise ValueError("reorder requires a square matrix")
+        if mtx_token:
+            perm = reorder_mod.cached_order(a, mtx_token, kind=reorder)
+        elif reorder == "rcm":
+            perm = reorder_mod.rcm_order(a)
+        elif reorder == "window":
+            perm = reorder_mod.window_cluster_order(a)
+        elif reorder == "cluster":
+            perm = reorder_mod.cluster_order(a)
+        elif reorder == "length":
+            perm = reorder_mod.length_order(a)
+        else:
+            raise ValueError(f"unknown reorder kind {reorder!r}")
+        a, _ = reorder_mod.reorder_symmetric(a, perm)
     resolved = requested
     row_perm = None
     plan_hints: Dict[str, Any] = {}
-    a_orig = a
     if requested == Method.AUTO:
         from .inspector import choose_method
         resolved = choose_method(a)
-        if (resolved == Method.BALANCED
+        if (resolved == Method.BALANCED and perm is None
                 and 10_000 <= a.nnz and a.n <= 20_000_000):
             # heavy-tailed matrices land here only because mega-rows
             # explode the SELL-8W pad estimate: prefer the row-split
-            # hybrid on natural order, else a rows-only length sort
+            # hybrid on natural order, else a rows-only length sort, else
+            # the graph split
             from .formats import reorder as reorder_mod
             from .formats.sell8d import prepare_hybrid
             from .formats.sell8w import estimate_sell8w_tiles, WINDOW
@@ -753,21 +1035,38 @@ def create_handle(a: CsrMatrix,
                 if est <= min(32.0, 6.7e8 / a.nnz):
                     a, row_perm, resolved = (a_try, perm_try,
                                              Method.SELL_C_SIGMA)
-        if resolved == Method.BALANCED:
-            raise _not_ported("AUTO's graph rung and the Balanced scan "
-                              "plan it falls back to", 5)
+            if resolved == Method.BALANCED:
+                # web-graph regime: hub columns + heavy rows
+                # (formats/graph.py), else the tiled scan
+                from .formats.graph import prepare_graph_split
+                gprep = prepare_graph_split(a)
+                if _graph_gate(a, gprep):
+                    resolved = Method.SELL_C_SIGMA
+                    plan_hints["graph_prep"] = gprep
     if (VectorizedWay(vectorized) == VectorizedWay.MXU
             and resolved in (Method.PARALLEL, Method.SELL_C_SIGMA,
                              Method.CSR5) and a.nnz > 0):
+        # MXU: the BCSR block products where the matrix has dense 128×128
+        # blocks worth densifying; requested_method records the ask
         from .formats import bcsr as bcsr_fmt
         nblocks, fill = bcsr_fmt.bcsr_profile(a)
         if fill >= 0.02 and nblocks * bcsr_fmt.BLOCK ** 2 * 8 <= 4e9:
-            raise _not_ported("VectorizedWay.MXU (the BCSR plan)", 6)
+            resolved = Method.BCSR
     plan = _build_plan(a, resolved, nthreads, VectorizedWay(vectorized),
                        hints=plan_hints)
+    if plan.pop("demoted", False):
+        resolved = Method.BALANCED    # the reference's Balanced2 demotion
     placed = _place(plan, dev)
     bound = _make_bound(resolved, placed, a.m)
-    if row_perm is not None:
+    if perm is not None:
+        # y[perm[i]] = y'[i], so y = y'[inv]: two m-gathers a call
+        perm_dev = dev_put(np.asarray(perm).astype(np.int64), dev)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm))
+        inv_dev = dev_put(inv.astype(np.int64), dev)
+        inner = bound
+        bound = lambda x: inner(x[perm_dev])[inv_dev]     # noqa: E731
+    elif row_perm is not None:
         # rows-only reorder: x natural, y back with one m-gather
         inv = np.empty_like(row_perm)
         inv[row_perm] = np.arange(len(row_perm))
@@ -779,7 +1078,7 @@ def create_handle(a: CsrMatrix,
         dtype=np.dtype(a.dtype), m=a.m, n=a.n, nnz=a.nnz,
         nthreads=nthreads, vectorized=VectorizedWay(vectorized),
         mtx_token=mtx_token, device=dev, plan=placed, _bound=bound,
-        _matrix=a_orig)
+        perm=perm, _matrix=a_orig, _reorder=reorder)
     if warm:
         spmv(h, torch.zeros(a.n, dtype=_torch_dtype(h.dtype), device=dev))
     return h

@@ -1,17 +1,22 @@
 """Plain PyTorch execution plans (the port of ``spmv_tpu/ops/xla_csr.py``).
 
 The JAX package computes these in XLA, not Pallas, so they stay plain
-PyTorch here: the Serial plan (AUTO's pick under 10k nonzeros,
-``inspector._decide``), and the mesh's shard bodies, the tiled scan of the
-dist scan plan and the shifted FMAs of the dist DIA plan
-(``parallel/mesh.py``).
+PyTorch here, on the CPU and on the card alike: the Serial plan (AUTO's
+pick under 10k nonzeros, ``inspector._decide``), the scans of Balanced,
+BalancedYid, Balanced2 and CSR5's fall-through, the chunked SELL-C-σ plan
+(``VectorizedWay.NONE``, and the SELL ladder's last rung), the BCSR block
+products, and the mesh's shard bodies (the tiled scan of the dist scan
+plan and the shifted FMAs of the dist DIA plan, ``parallel/mesh.py``).
+The JAX plans' sorted ``segment_sum`` becomes ``index_add_``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gather_x", "segment_sum_spmv", "scan_spmv_tiled", "dia_spmv"]
+__all__ = ["gather_x", "segment_sum_spmv", "scan_spmv_global",
+           "scan_spmv_tiled", "balanced2_spmv", "sell_spmv", "dia_spmv",
+           "bcsr_spmv"]
 
 
 def gather_x(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -28,6 +33,16 @@ def segment_sum_spmv(rows, colidx, vals, x, *, m: int) -> torch.Tensor:
                                                                 prod)
 
 
+def scan_spmv_global(colidx_pad, vals_pad, row_start, row_end,
+                     x) -> torch.Tensor:
+    """Method_BalancedYid plan: one global prefix sum of the product
+    stream; row i is ``csum[end_i] - csum[start_i]`` (the stream carries
+    one prepended zero).  Its f32 sums carry about eps·sqrt(nnz) absolute
+    error, as the JAX plan's do."""
+    csum = torch.cumsum(vals_pad * gather_x(x, colidx_pad), dim=0)
+    return gather_x(csum, row_end) - gather_x(csum, row_start)
+
+
 def scan_spmv_tiled(colidx_pad, vals_pad, row_start, row_end, x, *,
                     tile: int) -> torch.Tensor:
     """Method_Balanced plan: a prefix sum per tile of the product stream
@@ -40,6 +55,51 @@ def scan_spmv_tiled(colidx_pad, vals_pad, row_start, row_end, x, *,
     carry = torch.cat([carry.new_zeros(1), carry[:-1]])
     csum = (local + carry[:, None]).reshape(-1)
     return gather_x(csum, row_end) - gather_x(csum, row_start)
+
+
+def balanced2_spmv(colidx_pad, vals_pad, vrow_start, vrow_end, sub_start,
+                   sub_end, x, *, tile: int) -> torch.Tensor:
+    """Method_Balanced2 plan: the tiled scan over the virtual sub-rows
+    (mega-rows cut into runs of at most ``tile`` nonzeros), then a second
+    short prefix sum folds each row's run of sub-rows."""
+    y_v = scan_spmv_tiled(colidx_pad, vals_pad, vrow_start, vrow_end, x,
+                          tile=tile)
+    csum2 = torch.cat([y_v.new_zeros(1), torch.cumsum(y_v, dim=0)])
+    return gather_x(csum2, sub_end) - gather_x(csum2, sub_start)
+
+
+def sell_spmv(cols, vals, chunk_ids, inv_pos, x, *, nslices: int,
+              identity_order: bool) -> torch.Tensor:
+    """Method_SellCSigma / Method_Parallel plan over the flat chunked SELL
+    stream (``formats/sell.py``): each (8, 128) chunk's lane partials,
+    added into their 128-row slice by ``index_add_``, then one
+    inverse-permutation gather back to row order."""
+    part = (vals * gather_x(x, cols)).sum(dim=1)          # (nchunks, 128)
+    y_all = torch.zeros(nslices, part.shape[1], dtype=part.dtype,
+                        device=x.device).index_add_(0, chunk_ids,
+                                                    part).reshape(-1)
+    if identity_order:
+        return y_all[:inv_pos.shape[0]]
+    return gather_x(y_all, inv_pos)
+
+
+def bcsr_spmv(blocks, block_rows, block_cols, x, *, m: int,
+              nblock_rows: int) -> torch.Tensor:
+    """Method_Bcsr plan: each dense 128×128 block times its 128-column
+    slice of x, then ``index_add_`` of the block partials by block row.
+    bf16 blocks multiply into f32, f32 blocks sum in f32, f64 in f64.  The
+    products are elementwise multiplies and a sum, never a matmul, so
+    TensorFloat-32 (its 10-bit mantissa fails the f32 bound), however the
+    caller has set it, cannot reach them."""
+    acc = torch.float64 if blocks.dtype == torch.float64 else torch.float32
+    bs = blocks.shape[-1]
+    n_pad = -(-x.shape[0] // bs) * bs
+    xp = torch.cat([x.to(acc), x.new_zeros(n_pad - x.shape[0], dtype=acc)])
+    xb = xp.view(-1, bs)[block_cols]                     # (nb, 128)
+    partial = torch.mul(blocks, xb[:, None, :]).sum(dim=2, dtype=acc)
+    y2 = torch.zeros(nblock_rows, bs, dtype=acc,
+                     device=x.device).index_add_(0, block_rows, partial)
+    return y2.reshape(-1)[:m]
 
 
 def dia_spmv(data, x, offsets, m: int, row0: int = 0,

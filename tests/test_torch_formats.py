@@ -359,3 +359,100 @@ def test_pack_sell8w_and_plan_v2_identical_past_2m(f64):
     assert j_8w.estimate_sell8w_tiles(j) == t_8w.estimate_sell8w_tiles(t)
     with pytest.raises(ValueError):
         t_8w.pack_sell8w(t, max_pad_ratio=1.0)
+
+
+def _float(j, t, dtype):
+    """Both packages' matrices with random values of ``dtype``."""
+    v = np.random.default_rng(13).standard_normal(j.nnz).astype(dtype)
+    return (JaxCsr(j.m, j.n, j.rowptr, j.colidx, v),
+            TorchCsr(t.m, t.n, t.rowptr, t.colidx, v))
+
+
+#: the scan plans' matrices: power-law rows (mega-rows past every tile),
+#: empty rows, a single row
+_SCAN_MATRICES = {
+    "powerlaw": lambda g: g.power_law(3000, 3000, 60_000, seed=2),
+    "empty_rows": lambda g: g.with_empty_rows(
+        g.random_uniform(2000, 1500, 6, seed=3), 0.4),
+    "one_row": lambda g: g.random_uniform(1, 5000, 3000, seed=4),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", sorted(_SCAN_MATRICES))
+def test_scan_plans_identical(name, dtype):
+    from spmv_tpu.formats import partition as j_part
+    from spmv_tpu_torch.formats import partition as t_part
+    j, t = _float(*_both(_SCAN_MATRICES[name]), dtype)
+    _same(j_part.row_ids(j), t_part.row_ids(t))
+    for tile in (256, 1024, 4096):
+        _same(j_part.build_tile_scan_plan(j, tile=tile),
+              t_part.build_tile_scan_plan(t, tile=tile))
+        pj = j_part.build_balanced2_plan(j, tile=tile)
+        pt = t_part.build_balanced2_plan(t, tile=tile)
+        assert (pj is None) == (pt is None)
+        if pj is not None:
+            _same(pj, pt)
+    arr = np.arange(10, dtype=dtype)
+    _same(j_part.pad_stream(arr, 8, dtype(0)),
+          t_part.pad_stream(arr, 8, dtype(0)))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("sigma", [1, 32 * 128])
+def test_pack_sell_identical(sigma, dtype):
+    from spmv_tpu.formats import sell as j_sell
+    from spmv_tpu_torch.formats import sell as t_sell
+    for make in (_SCAN_MATRICES["empty_rows"],
+                 lambda g: g.power_law(3000, 2500, 30_000, seed=5)):
+        j, t = _float(*_both(make), dtype)
+        _same(j_sell.pack_sell(j, sigma=sigma), t_sell.pack_sell(t, sigma=sigma))
+
+
+def _community(g, seed=0, ncomm=6, size=300, within=8):
+    """test_locality.py's shuffled communities: block structure RCM cannot
+    see."""
+    rng = np.random.default_rng(seed)
+    m = ncomm * size
+    shuffle = rng.permutation(m)
+    rows = np.concatenate([rng.integers(c * size, (c + 1) * size,
+                                        size * within)
+                           for c in range(ncomm)] + [rng.integers(0, m, 200)])
+    cols = np.concatenate([rng.integers(c * size, (c + 1) * size,
+                                        size * within)
+                           for c in range(ncomm)] + [rng.integers(0, m, 200)])
+    return g.CsrMatrix.from_coo(m, m, shuffle[rows], shuffle[cols],
+                                g.exact_values(rng, rows.size))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", ["community", "scrambled_band", "powerlaw"])
+def test_reorder_identical(name, dtype):
+    from spmv_tpu.formats import reorder as j_re
+    from spmv_tpu_torch.formats import reorder as t_re
+
+    def make(g):
+        if name == "community":
+            return _community(g)
+        if name == "powerlaw":
+            return g.power_law(2000, 2000, 30_000, seed=6)
+        a = g.banded(1500, 1500, 3, seed=2)
+        mod = j_re if g is j_gen else t_re
+        return mod.reorder_symmetric(
+            a, np.random.default_rng(1).permutation(1500))[0]
+
+    j, t = _float(*_both(make), dtype)
+    assert j_re.bandwidth(j) == t_re.bandwidth(t)
+    for fn, kw in (("rcm_order", {}), ("window_cluster_order", {}),
+                   ("window_cluster_order", {"window": 256,
+                                             "row_block": 128}),
+                   ("label_propagation_clusters", {}),
+                   ("label_propagation_clusters", {"min_cluster": 64}),
+                   ("cluster_order", {}), ("length_order", {})):
+        pj = getattr(j_re, fn)(j, **kw)
+        pt = getattr(t_re, fn)(t, **kw)
+        _same(pj, pt)
+    _same(j_re.cluster_split(j, 4), t_re.cluster_split(t, 4))
+    perm = t_re.rcm_order(t)
+    _same(j_re.reorder_symmetric(j, perm), t_re.reorder_symmetric(t, perm))
+    _same(j_re.reorder_rows(j, perm), t_re.reorder_rows(t, perm))

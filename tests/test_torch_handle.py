@@ -221,6 +221,16 @@ def _striped_reference(stripes, x, m_rows):
 def _reference_exec(plan, x, m_rows):
     """The JAX plan's executor with every Pallas kernel in interpret mode
     (the glue of spmv_tpu.handle._make_bound, in numpy)."""
+    if "graph" in plan:
+        # x extended by the hub columns, then by the heavy output (in x's
+        # type), which the light plan's fold entries read
+        hub = plan.get("hub_cols")
+        x_ext = x if hub is None else np.concatenate([x, x[np.asarray(hub)]])
+        if "heavy" in plan:
+            k = plan["fold_k"]
+            y_heavy = _reference_exec(plan["heavy"], x_ext, k)[:k]
+            x_ext = np.concatenate([x_ext, y_heavy.astype(x.dtype)])
+        return _reference_exec(plan["light"], x_ext, m_rows)
     if "hybrid" in plan:
         pd, psp = plan["hybrid"]
         if pd.get("fold_planes_ext"):
@@ -505,41 +515,19 @@ def test_lifecycle_and_spellings():
         h.prepare()
 
 
-def test_not_ported_raises(monkeypatch):
+def test_not_ported_raises():
+    # the one route of create_handle left: a matrix neither f32 nor f64
+    # (the JAX package also takes bf16; ROADMAP item 6)
     a = t_gen.random_uniform(2000, 2000, 8, dtype=np.float32, seed=3)
-    with pytest.raises(NotImplementedError, match="float16"):
+    with pytest.raises(NotImplementedError, match="float16.*item 6"):
         st.create_handle(a.astype(np.float16), device="cpu")
-    for m in (st.Method.BALANCED, st.Method.BALANCED2,
-              st.Method.BALANCED_YID, st.Method.BCSR):
-        with pytest.raises(NotImplementedError):
-            st.create_handle(a, method=m, device="cpu")
-    for m in (st.Method.SELL_C_SIGMA, st.Method.CSR5):
-        with pytest.raises(NotImplementedError):
-            st.create_handle(a, method=m, device="cpu",
-                             vectorized=st.VectorizedWay.NONE)
-    with pytest.raises(NotImplementedError):
-        st.create_handle(a, reorder="rcm", device="cpu")
-    # the graph rung: no SELL tile plan fits; the JAX package falls
-    # through to its graph plan or its XLA plans, neither ported
-    make = (lambda g: g.webbase_like(50000, 50000, 150_000,
-                                     dtype=np.float32, seed=11))
-    with pytest.raises(NotImplementedError, match="graph"):
-        st.create_handle(make(t_gen), device="cpu")
-    ref = _reference_plan(make(j_gen), monkeypatch).plan
-    assert not {"sell8d", "sell8w_v2", "hybrid", "dia_pallas"} & set(ref)
-    # through Method.CSR5: the pass-2 gate refuses and no SELL tile plan
-    # fits; the JAX package falls through to its XLA tiled scan
-    with pytest.raises(NotImplementedError, match="XLA tiled scan"):
-        st.create_handle(make(t_gen), method=st.Method.CSR5, device="cpu")
-    ref = _reference_plan(make(j_gen), monkeypatch, JMethod.CSR5).plan
-    assert not {"coo2", "sell8d", "sell8w_v2", "hybrid"} & set(ref)
 
 
 def test_port_imports_no_jax(tmp_path):
     # spmv_tpu_torch/ alone (no spmv_tpu/ beside it, no build outputs):
     # it imports no JAX, builds its native packer from its own copy of the
-    # source, and runs f32 and f64 SELL plans and a COO2 plan, packed by
-    # the fused C++ pipeline
+    # source, and runs f32 and f64 SELL plans, a COO2 plan, packed by the
+    # fused C++ pipeline, a graph plan and a Balanced scan
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     shutil.copytree(os.path.join(root, "spmv_tpu_torch"),
                     tmp_path / "spmv_tpu_torch",
@@ -572,6 +560,15 @@ def test_port_imports_no_jax(tmp_path):
         "y = st.spmv(h, torch.ones(c.n)).numpy()\n"
         "g = st.spmv_golden(c.astype(np.float64), np.ones(c.n))\n"
         "assert np.allclose(y, g, rtol=1e-4, atol=1e-3)\n"
+        "w = generate.webbase_like(20000, 20000, 60000, dtype=np.float32,"
+        " seed=11, spread=256)\n"
+        "for m, kind in ((st.Method.AUTO, 'graph'),"
+        " (st.Method.BALANCED, 'scan')):\n"
+        "    h = st.create_handle(w, method=m, device='cpu')\n"
+        "    assert plan_kind(h.plan) == kind, plan_kind(h.plan)\n"
+        "    y = st.spmv(h, torch.ones(w.n)).numpy()\n"
+        "    g = st.spmv_golden(w.astype(np.float64), np.ones(w.n))\n"
+        "    assert np.allclose(y, g, rtol=1e-4, atol=1e-3)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'ml_dtypes', 'spmv_tpu')]\n"
         "assert not bad, bad\n")
