@@ -2,8 +2,9 @@
 """Drive the port's f32 and f64 AUTO main paths (the graph plan among them),
 its Method.CSR5 path, its large-n path (n > 2M: column stripes and
 windowed streams), its plain plans (the ones the JAX package runs through
-XLA) and its mesh plans (``spmv_tpu_torch.parallel``) on one NVIDIA card
-and check them.
+XLA), its mesh plans (``spmv_tpu_torch.parallel``) and its execute-many
+layer (``tune``, the solvers, the CSV suite, Matrix Market I/O) on one
+NVIDIA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -83,7 +84,31 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    its plain version, CUDA-event times of the mesh plan beside the
    single-device AUTO plan of the same matrix (what sharding costs on one
    card; in turns: mesh, single, single, mesh), cuSPARSE, and a
-   torch.profiler window.
+   torch.profiler window;
+7. tools: the execute-many layer through its entry points on ``cuda:0``,
+   as one counted run that must launch ``sell_slot``, ``dia`` and
+   ``dia_f64``: ``tune(uniform100k)`` with the default candidates (each
+   candidate's time a SpMV and plan, or its refusal; the winner the
+   minimum and within 1e-5 of ``spmv_golden``; a second call a cache hit
+   that builds only the winner); ``cg`` in f64 on HPCG's reference
+   problem (the 27-point stencil on hpcg.dat's 104³ grid, 1,124,864 rows,
+   29,791,000 nonzeros), 50 iterations at tol 0, on the DIA plan AUTO
+   must pick, its residual within 1e-6 of the same recurrence in numpy
+   f64 on the host and of ‖b − A x‖ there; ``bicgstab`` in f32 on
+   ``diag_plus_random(1M, 6)`` to 1e-5·‖b‖ (converged, ‖b − A x‖ on the
+   host within twice that); ``power_iteration`` on clustered200k, 100
+   iterations, λ within 1e-5 of the host's Rayleigh quotient of the
+   returned v; each solve's time an iteration beside one ``spmv`` on the
+   same handle, its host reads and a profile window; ``bench_matrix`` on
+   builtin banded1m and uniform100k with AUTO, CSR5, SERIAL and the
+   ScipyCsr/TorchCsr yardsticks, each row's rmse within 1e-5 of the rms
+   of (|A||x|)_i, beside ``time_spmv_chain``'s inclusive time and one
+   ``spmv`` of the AUTO handle and the chain with the SpMV replaced by
+   identity (the renormalisation's own cost); and a Matrix Market round
+   trip of clustered200k (``write_mtx``, ``read_mtx`` through the C++
+   parser, which must run, and the numpy path, ``load_matrix`` twice, the
+   second a cache hit), every array equal to the matrix's.  Each line
+   names the card.
 
 Bounds, per row i against (|A||x|)_i:
 - f32: 1e-5 against ``spmv_golden``; f32 sums in another order.
@@ -120,7 +145,7 @@ padded output): what the kernel's format makes it move.  Each kernel's
 nonzeros, except ``coo2_pass1``'s: ``x.take(cols) * vals`` over its
 nonzeros, two PyTorch calls (``library_call`` names it).
 
-Output: one JSON line per family and per windowed form, one
+Output: one JSON line per family, per windowed form and per tool, one
 ``{"kernels": [...]}`` line (a kernel's numbers at its largest stream of
 the main path or the windowed forms, its launches those of the main path),
 the wall time, the ``nvidia-smi`` line, and last
@@ -1173,6 +1198,18 @@ def reference(a, xh, np):
     return y, absref, BOUND_F64, "rowwise_f64"
 
 
+def scan_atol(h, a, ref):
+    """The absolute term of a scan plan's bound (0 for other plans): a row
+    is a difference of two prefix sums, so its error is absolute; the dist
+    scan's term in f32, tests/test_methods.py's in f64."""
+    from spmv_tpu_torch.handle import plan_kind
+    if plan_kind(h.plan) not in SCAN_KINDS:
+        return 0.0
+    if a.vals.dtype != "float64":
+        return 2e-4 * (a.nnz / 150_000) ** 0.5
+    return 1e-10 * max(float(ref.abs().max()), 1.0)
+
+
 def bcsr_tf32(h, x, ref, absref, bound):
     """The BCSR plan once more with TensorFloat-32 switched on for every
     matmul: it must still meet ``bound``.  Beside it, the scaled error of
@@ -1308,14 +1345,7 @@ def main_path(dev, kern):
                 or not bool(torch.isfinite(y).all())):
             raise AssertionError(f"{name}: bad output {y.dtype} "
                                  f"{tuple(y.shape)}")
-        atol = 0.0
-        if plan_kind(h.plan) in SCAN_KINDS:
-            # a row is a difference of two prefix sums, so its error is
-            # absolute: the dist scan's term in f32, tests/test_methods.py's
-            # in f64
-            atol = (2e-4 * (a.nnz / 150_000) ** 0.5
-                    if x.dtype == torch.float32
-                    else 1e-10 * max(float(ref.abs().max()), 1.0))
+        atol = scan_atol(h, a, ref)
         rel, mabs, ok = scaled_err(y, ref, absref, bound, atol)
         if not ok:
             raise AssertionError(f"{name}: max scaled error {rel:.3g} "
@@ -1629,6 +1659,355 @@ def dist_phase(dev, kern):
     return counts
 
 
+#: the tools phase: tune's chain iterations and repeats a candidate; the
+#: HPCG grid (hpcg.dat's 104³) and cg's iterations (one HPCG set); the
+#: kernels its counted run must launch (SELL-8D slot streams for tune and
+#: power_iteration, DIA for the suite's banded1m, f64 DIA for cg)
+TUNE_ITERS, TUNE_REPEATS = 5, 2
+HPCG_NX = 104
+CG_ITERS = 50
+TOOLS_KERNELS = ("sell_slot", "dia", "dia_f64")
+
+
+def hpcg_matrix(nx, np):
+    """HPCG's reference problem: the 27-point stencil on an nx³ grid,
+    26 on the diagonal and -1 for each neighbour, in f64; each row's
+    columns ascend, as the offsets are taken in ascending order."""
+    from spmv_tpu_torch.types import CsrMatrix
+    n = nx ** 3
+    i = np.arange(n, dtype=np.int64)
+    z, y, x = i // (nx * nx), (i // nx) % nx, i % nx
+    cols = np.empty((n, 27), np.int64)
+    ok = np.empty((n, 27), bool)
+    k = 0
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                cols[:, k] = i + (dz * nx + dy) * nx + dx
+                ok[:, k] = ((z + dz >= 0) & (z + dz < nx) & (y + dy >= 0)
+                            & (y + dy < nx) & (x + dx >= 0) & (x + dx < nx))
+                k += 1
+    lengths = ok.sum(1)
+    rowptr = np.zeros(n + 1, np.int64)
+    np.cumsum(lengths, out=rowptr[1:])
+    colidx = cols[ok]
+    vals = np.where(colidx == np.repeat(i, lengths), 26.0, -1.0)
+    return CsrMatrix(n, n, rowptr.astype(np.int32), colidx.astype(np.int32),
+                     vals)
+
+
+def host_cg(s, b, iters, np):
+    """The cg recurrence of ``spmv_tpu_torch.solvers.cg`` (tol = 0) in
+    numpy f64 on the host, over a scipy CSR matrix: the final
+    recurrence residual ‖r‖."""
+    x = np.zeros_like(b)
+    r = b - s @ x
+    p = r.copy()
+    rs = r @ r
+    for _ in range(iters):
+        if not rs > 0:
+            break
+        ap = s @ p
+        alpha = rs / (p @ ap)
+        x += alpha * p
+        r -= alpha * ap
+        rs_new = r @ r
+        p = r + (rs_new / rs) * p
+        rs = rs_new
+    return float(np.sqrt(rs))
+
+
+def solve_record(run, h, x):
+    """A warm solve's costs: ms an iteration (host clock around the solve,
+    which ends in its own host read), its host reads, one ``spmv`` on the
+    same handle (CUDA events), and one torch.profiler window over another
+    solve (device ms, idle share, costliest kernels)."""
+    from spmv_tpu_torch import solvers
+    solvers.host_syncs = 0
+    t0 = time.perf_counter()
+    _, _, it = run()
+    ms = (time.perf_counter() - t0) * 1e3
+    syncs = solvers.host_syncs
+    kernels, window_ms, _seen = profile_window(lambda _x: run(), None, 1)
+    device_ms = sum(t for t, _n in kernels.values())
+    return {"iters": it, "ms": ms,
+            "ms_per_iter": ms / max(it, 1), "host_syncs": syncs,
+            "spmv_cuda_ms": cuda_ms(h, x), "device_ms": device_ms,
+            "window_ms": window_ms,
+            "idle_share": 1 - device_ms / window_ms if window_ms else None,
+            "kernels_ms": {k: t for k, (t, _n) in sorted(
+                kernels.items(), key=lambda kv: -kv[1][0])[:6]},
+            "records": sum(n for _t, n in kernels.values())}
+
+
+def tools_phase(dev, gpu):
+    """tune, the three solvers, the CSV suite and a Matrix Market round
+    trip through the port's entry points at full size, as one counted run.
+    Returns its launch counts."""
+    import io
+    import tempfile
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch import solvers
+    from spmv_tpu_torch.bench import suite, timing
+    from spmv_tpu_torch.handle import plan_kind
+    from spmv_tpu_torch.io import generate, mmio
+
+    t_start = time.perf_counter()
+    uniform = suite.BUILTIN_MATRICES["uniform100k"](np.float32)
+    banded = suite.BUILTIN_MATRICES["banded1m"](np.float32)
+    clustered = _clustered200k(generate, np)
+    hpcg = hpcg_matrix(HPCG_NX, np)
+    nonsym = generate.diag_plus_random(1_000_000, nnz_per_row=6,
+                                       dtype=np.float32, seed=3)
+    for name, a in (("uniform100k", uniform), ("banded1m", banded),
+                    ("clustered200k", clustered), ("hpcg104", hpcg),
+                    ("diag_plus_random1m", nonsym)):
+        log_matrix(name, a)
+    gen_s = time.perf_counter() - t_start
+
+    def host(a):
+        return sp.csr_matrix((a.vals.astype(np.float64), a.colidx,
+                              a.rowptr), shape=(a.m, a.n))
+
+    mark = [time.perf_counter()]
+
+    def tool(rec):
+        """Log a tools line with the seconds since the previous one."""
+        now = time.perf_counter()
+        log(json.dumps({"phase": "tools", "gpu": gpu, **rec,
+                        "wall_s": now - mark[0]}))
+        mark[0] = now
+
+    tmp = tempfile.TemporaryDirectory()
+    saved_env = os.environ.get("SPMV_TPU_TORCH_CACHE")
+    os.environ["SPMV_TPU_TORCH_CACHE"] = tmp.name
+    zero_counts()
+    try:
+        # -- tune: the default candidates on uniform100k, then the cache
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            h, results = st.tune(uniform, iters=TUNE_ITERS,
+                                 repeats=TUNE_REPEATS, verbose=True,
+                                 mtx_token="uniform100k", device=dev)
+        sweep_s = time.perf_counter() - t0
+        winner = st.METHOD_NAMES[h.requested_method]
+        if results[winner] != min(results.values()):
+            raise AssertionError(f"tune: winner {winner} is not the "
+                                 f"minimum of {results}")
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            uniform.n).astype(np.float32)).to(dev)
+        ref, absref, bound, _ = reference(uniform, x.cpu().numpy()
+                                          .astype(np.float64), np)
+        ref, absref = torch.from_numpy(ref), torch.from_numpy(absref)
+        rel, _, ok = scaled_err(st.spmv(h, x).cpu(), ref, absref, bound,
+                                scan_atol(h, uniform, ref))
+        if not ok:
+            raise AssertionError(f"tune's winner: scaled error {rel:.3g}")
+        real_chain = timing.time_spmv_chain
+
+        def no_sweep(*_a, **_k):
+            raise AssertionError("tune's cache hit swept again")
+        timing.time_spmv_chain = no_sweep
+        try:
+            t0 = time.perf_counter()
+            h2, results2 = st.tune(uniform, iters=TUNE_ITERS,
+                                   repeats=TUNE_REPEATS,
+                                   mtx_token="uniform100k", device=dev)
+            hit_s = time.perf_counter() - t0
+        finally:
+            timing.time_spmv_chain = real_chain
+        if h2.method != h.method:
+            raise AssertionError(f"tune's cache hit built {h2.method_name}"
+                                 f", not {h.method_name}")
+        tool({"tool": "tune", "matrix": "uniform100k",
+              "candidates": buf.getvalue().splitlines(),
+              "ms": {k: v * 1e3 for k, v in results.items()},
+              "winner": winner, "resolved": h.method_name,
+              "plan": plan_kind(h.plan), "max_scaled_err": rel, "sweep_s": sweep_s,
+              "cache_hit_s": hit_s, "cache_hit_results": results2})
+        del h, h2
+
+        # -- cg: f64, HPCG 104³, 50 iterations with tol = 0
+        t0 = time.perf_counter()
+        h = st.create_handle(hpcg, device=dev)
+        predeal_s = time.perf_counter() - t0
+        if plan_kind(h.plan) != "dia" or h.method != st.Method.DIA:
+            raise AssertionError(f"cg: AUTO planned {plan_kind(h.plan)} "
+                                 f"({h.method_name}) for HPCG, not DIA")
+        s = host(hpcg)
+        b = s @ np.ones(hpcg.n)              # HPCG's b: A times ones
+        bd = torch.from_numpy(b).to(dev)
+
+        def run_cg():
+            return solvers.cg(h, bd, tol=0.0, maxiter=CG_ITERS)
+        xd, res, it = run_cg()
+        t0 = time.perf_counter()
+        res_host = host_cg(s, b, CG_ITERS, np)
+        host_s = time.perf_counter() - t0
+        true_res = float(np.linalg.norm(b - s @ xd.cpu().numpy()))
+        d_host = abs(res - res_host) / res_host
+        d_true = abs(true_res - res) / res
+        if it != CG_ITERS or d_host > 1e-6 or d_true > 1e-6:
+            raise AssertionError(f"cg: {it} iterations, residual {res!r}, "
+                                 f"host recurrence {res_host!r}, "
+                                 f"|b - Ax| {true_res!r}")
+        tool({"tool": "cg", "matrix": "hpcg104", "m": hpcg.m,
+              "nnz": int(hpcg.nnz), "dtype": "float64",
+              "plan": plan_kind(h.plan), "method": h.method_name,
+              "predeal_s": predeal_s, "residual": res,
+              "host_residual": res_host, "rel_diff_host": d_host,
+              "true_residual": true_res, "rel_diff_true": d_true,
+              "host_recurrence_s": host_s, "b_norm": float(
+                  np.linalg.norm(b)), **solve_record(run_cg, h, bd)})
+        del h, s, bd, xd
+
+        # -- bicgstab: f32 diag_plus_random(1M, 6), to 1e-5·‖b‖
+        t0 = time.perf_counter()
+        h = st.create_handle(nonsym, device=dev)
+        predeal_s = time.perf_counter() - t0
+        b = np.random.default_rng(4).standard_normal(nonsym.n) \
+            .astype(np.float32)
+        bd = torch.from_numpy(b).to(dev)
+        tol = 1e-5 * float(np.linalg.norm(b))
+
+        def run_bicgstab():
+            return solvers.bicgstab(h, bd, tol=tol)
+        xd, res, it = run_bicgstab()
+        true_res = float(np.linalg.norm(
+            b - host(nonsym) @ xd.cpu().numpy().astype(np.float64)))
+        if not (0 < it < 1000 and res <= tol and true_res <= 2 * tol):
+            raise AssertionError(f"bicgstab: {it} iterations, residual "
+                                 f"{res!r}, |b - Ax| {true_res!r}, tol "
+                                 f"{tol!r}")
+        tool({"tool": "bicgstab", "matrix": "diag_plus_random1m",
+              "nnz": int(nonsym.nnz), "dtype": "float32",
+              "plan": plan_kind(h.plan), "method": h.method_name,
+              "predeal_s": predeal_s, "tol": tol, "residual": res,
+              "true_residual": true_res,
+              **solve_record(run_bicgstab, h, bd)})
+        del h, bd, xd
+
+        # -- power_iteration: clustered200k f32, 100 iterations
+        t0 = time.perf_counter()
+        h = st.create_handle(clustered, device=dev)
+        predeal_s = time.perf_counter() - t0
+
+        def run_power():
+            lam, v = solvers.power_iteration(h, iters=100)
+            return lam, v, 100
+        lam, v, _ = run_power()
+        vh = v.cpu().numpy().astype(np.float64)
+        rq = float(vh @ (host(clustered) @ vh) / (vh @ vh))
+        if abs(lam - rq) > 1e-5 * abs(rq):
+            raise AssertionError(f"power_iteration: λ {lam!r}, host "
+                                 f"Rayleigh quotient {rq!r}")
+        tool({"tool": "power_iteration", "matrix": "clustered200k",
+              "dtype": "float32", "plan": plan_kind(h.plan),
+              "predeal_s": predeal_s, "lambda": lam,
+              "host_rayleigh": rq, "rel_diff": abs(lam - rq) / abs(rq),
+              **solve_record(run_power, h, v)})
+        del h, v
+
+        # -- the CSV suite: AUTO, CSR5, SERIAL and the yardsticks
+        suite_rows = {}
+        for name, a in (("banded1m", banded), ("uniform100k", uniform)):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            rows = suite.bench_matrix(
+                name, a, [st.Method.AUTO, st.Method.CSR5,
+                          st.Method.SERIAL], external=True, out=out,
+                device=dev)
+            bench_s = time.perf_counter() - t0
+            xh = np.random.default_rng(0).standard_normal(a.n) \
+                .astype(a.dtype)     # the x bench_matrix draws
+            _, absref, bound, _ = reference(a, xh.astype(np.float64), np)
+            rmse_bound = bound * float(np.sqrt(np.mean(absref ** 2)))
+            for row in rows:
+                f = row.split(",")
+                if len(f) != 10 or not float(f[5]) <= rmse_bound:
+                    raise AssertionError(f"suite row {row!r}: rmse bound "
+                                         f"{rmse_bound!r}")
+            if len(rows) != 5:
+                raise AssertionError(f"suite on {name}: {out.getvalue()}")
+            # the chain's own cost: inclusive ms of the AUTO handle beside
+            # one call's CUDA-event time, and the chain with the SpMV
+            # replaced by identity (only the renormalisation left)
+            h = st.create_handle(a, device=dev)
+            xt = torch.from_numpy(xh).to(dev)
+            chain = timing.time_spmv_chain(h._bound, xt)
+            ident = timing.time_spmv_chain(lambda v: v, xt)
+            tool({"tool": "suite", "matrix": name, "csv": rows,
+                  "comments": [r for r in out.getvalue().splitlines()
+                               if r.startswith("#")],
+                  "rmse_bound": rmse_bound, "bench_s": bench_s,
+                  "auto_plan": plan_kind(h.plan),
+                  "chain_inclusive_ms": chain["inclusive"] * 1e3,
+                  "chain_marginal_ms": chain["marginal"] * 1e3,
+                  "chain_bubble_ms": chain["bubble"] * 1e3,
+                  "spmv_cuda_ms": cuda_ms(h, xt),
+                  "renorm_chain_ms": ident["inclusive"] * 1e3,
+                  "renorm_share": ident["inclusive"] / chain["inclusive"]})
+            suite_rows[name] = rows
+            del h, xt
+
+        # -- Matrix Market: clustered200k through write, both parsers and
+        # the .npz cache
+        path = os.path.join(tmp.name, "clustered200k.mtx")
+        t0 = time.perf_counter()
+        mmio.write_mtx(path, clustered)
+        write_s = time.perf_counter() - t0
+        reads = dict(mmio.reads)
+        t0 = time.perf_counter()
+        a_native = mmio.read_mtx(path, dtype=np.float32)
+        native_s = time.perf_counter() - t0
+        if mmio.reads["native"] != reads["native"] + 1:
+            raise AssertionError(f"read_mtx did not parse natively "
+                                 f"({mmio.reads})")
+        t0 = time.perf_counter()
+        a_numpy = mmio.read_mtx(path, dtype=np.float32, use_native=False)
+        numpy_s = time.perf_counter() - t0
+        cache = os.path.join(tmp.name, "mtx_cache")
+        t0 = time.perf_counter()
+        a_load = mmio.load_matrix(path, dtype=np.float32, cache_dir=cache)
+        load_s = time.perf_counter() - t0
+        reads = dict(mmio.reads)
+        t0 = time.perf_counter()
+        a_hit = mmio.load_matrix(path, dtype=np.float32, cache_dir=cache)
+        hit_s = time.perf_counter() - t0
+        if mmio.reads != reads:
+            raise AssertionError("load_matrix's second call parsed again")
+        for got in (a_native, a_numpy, a_load, a_hit):
+            for k in ("rowptr", "colidx", "vals"):
+                if not np.array_equal(getattr(got, k), getattr(clustered,
+                                                               k)):
+                    raise AssertionError(f"mmio round trip: {k} differs")
+        tool({"tool": "mmio", "matrix": "clustered200k",
+              "nnz": int(clustered.nnz), "file_mb": os.path.getsize(path)
+              / 1e6, "write_s": write_s, "read_native_s": native_s,
+              "read_numpy_s": numpy_s, "load_first_s": load_s,
+              "load_hit_s": hit_s})
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        if saved_env is None:
+            os.environ.pop("SPMV_TPU_TORCH_CACHE", None)
+        else:
+            os.environ["SPMV_TPU_TORCH_CACHE"] = saved_env
+        tmp.cleanup()
+    log(json.dumps({"phase": "main_path_launches", "path": "tools",
+                    **counts}))
+    for k in TOOLS_KERNELS:
+        if counts[k] == 0:
+            raise AssertionError(f"the tools run launched no {k}")
+    log(json.dumps({"phase": "tools", "gpu": gpu, "generate_s": gen_s,
+                    "seconds": time.perf_counter() - t_start}))
+    return counts
+
+
 def kernels_line(launches, kern):
     """The ``kernels`` line's entries, one a kernel."""
     kernels = []
@@ -1716,6 +2095,8 @@ def main() -> int:
     windowed_phase(dev, kern, ctx)
     del ctx
     for k, c in dist_phase(dev, kern).items():
+        launches[k] += c
+    for k, c in tools_phase(dev, smi).items():
         launches[k] += c
     kernels = kernels_line(launches, kern)
     log(json.dumps({"kernels": kernels}))

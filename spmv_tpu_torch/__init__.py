@@ -7,7 +7,9 @@ f32 and f64 AUTO main path and Method.CSR5: DIA, the SELL-8W/SELL-8D tile
 streams and the two-pass COO2 plan through hand-written CUDA kernels for
 ``sm_90a`` (``csrc/``), each with a plain PyTorch version that CPU
 tensors take.  f64 matrices compute in native f64.  ``parallel`` holds the
-mesh plans.  The package imports no JAX.
+mesh plans; ``tune``, ``solvers``, ``io.mmio`` and ``bench`` (timing and
+the CSV suite) are the execute-many layer on top.  The package imports no
+JAX.
 """
 
 from .types import CsrMatrix, Method, VectorizedWay, METHOD_NAMES, VECTORIZED_NAMES
@@ -21,8 +23,8 @@ from .handle import (
     spmv_destroy_handle,
     spmv_destory_handle,
 )
-from .inspector import featurize, choose_method, MatrixFeatures
-from . import io, formats, ops, utils
+from .inspector import featurize, choose_method, tune, MatrixFeatures
+from . import io, formats, ops, parallel, bench, solvers, utils
 
 __version__ = "0.1.0"
 
@@ -32,6 +34,7 @@ __all__ = [
     "SpmvHandle", "create_handle", "spmv",
     "spmv_create_handle_all_in_one", "spmv_clear_handle",
     "spmv_destroy_handle", "spmv_destory_handle",
-    "featurize", "choose_method", "MatrixFeatures",
+    "featurize", "choose_method", "tune", "MatrixFeatures",
+    "solvers",
     "__version__",
 ]

@@ -1,10 +1,12 @@
-"""Matrix inspector: features and the AUTO method choice.
+"""Matrix inspector: features, the AUTO method choice and the tuner.
 
-A jax-free copy of ``spmv_tpu/inspector.py`` (``featurize``,
-``choose_method`` and their helpers, unchanged, so AUTO routes the same way
-in both packages; pinned by ``tests/test_torch_formats.py``).  The gates
+A jax-free copy of ``spmv_tpu/inspector.py``: ``featurize``,
+``choose_method`` and their helpers unchanged, so AUTO routes the same way
+in both packages (pinned by ``tests/test_torch_formats.py``), and ``tune``,
+which times each candidate on the device it is given and caches the winner
+apart from the JAX package's (``tests/test_torch_tune.py``).  The gates
 still price plans with the constants measured on the TPU; retuning them for
-the H100 is later work.  ``tune()`` is not ported yet.
+the H100 is later work.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 
 from .types import CsrMatrix, Method
 
-__all__ = ["MatrixFeatures", "featurize", "choose_method"]
+__all__ = ["MatrixFeatures", "featurize", "choose_method", "tune"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,3 +248,133 @@ def choose_method(a: CsrMatrix, feats: MatrixFeatures = None) -> Method:
         return cache[k]
 
     return _decide(lazy)
+
+
+def _tune_cache_path(mtx_token: str) -> str:
+    """The winner record of ``mtx_token``: ``$SPMV_TPU_TORCH_CACHE`` (by
+    default ``~/.cache/spmv_tpu_torch``), never the JAX package's
+    directory, whose winners were timed on another device."""
+    import os
+    d = os.environ.get("SPMV_TPU_TORCH_CACHE",
+                       os.path.join(os.path.expanduser("~"), ".cache",
+                                    "spmv_tpu_torch"))
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, f"tune_{mtx_token}.json")
+
+
+def _device_name(dev) -> str:
+    """The card's name (``torch.cuda.get_device_name``), or "cpu"."""
+    import torch
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return dev.type
+
+
+def tune(a: CsrMatrix, methods=None, iters: int = 5, repeats: int = 2,
+         x=None, verbose: bool = False, mtx_token: str = None,
+         budget_s: float = None, device="cuda"):
+    """Measurement-based auto-tuner: build each candidate handle on
+    ``device``, time it, return (best_handle, results).
+
+    This completes the reference README's promised-but-empty "Matrix
+    inspect and choose best method to run" (README.md:222-223) by running
+    the candidates and keeping the winner.  ``choose_method`` remains the
+    zero-cost heuristic Method.AUTO uses; ``tune`` is for
+    inspect-once/execute-many workloads where a few seconds of tuning
+    amortize.
+
+    ``results`` maps a method's name to seconds per SpMV
+    (``time_spmv_chain``'s inclusive time, k = 4), ``inf`` for a candidate
+    that failed to plan or was skipped, or the cached winner's recorded
+    time on a cache hit.  A planning refusal (``ValueError``,
+    ``NotImplementedError``: DIA's or BCSR's "unprofitable", say) makes a
+    candidate lose; an error of the card propagates, since it would fail
+    every later candidate too.
+
+    ``mtx_token`` caches the winner on disk (the reference's partition
+    cache, HyperGraphInterface.cpp:22-57): the second call skips the sweep
+    and builds only the winner.  The record holds m, nnz, the dtype and the
+    device's name; any mismatch is a miss, so a winner timed on another
+    card or on the CPU never applies here.
+
+    ``budget_s`` bounds the sweep's own wall time: once spent, the
+    remaining candidates are skipped (``inf``) and the best so far wins.
+    The record stores the sweep's cost as ``sweep_seconds``.
+    """
+    import json
+    import os
+    import time
+
+    import torch
+
+    from .bench import timing
+    from .handle import _resolve_device, _torch_dtype, create_handle, \
+        plan_kind
+    from .types import METHOD_NAMES
+
+    dev = _resolve_device(device)
+    record = {"m": int(a.m), "nnz": int(a.nnz),
+              "dtype": str(np.dtype(a.dtype)), "device": _device_name(dev)}
+    if mtx_token:
+        path = _tune_cache_path(mtx_token)
+        if os.path.exists(path):
+            with open(path) as f:
+                rec = json.load(f)
+            # a reused token must never apply another matrix's (or another
+            # device's) winner; a stale winner that no longer plans (a DIA
+            # pick after the matrix stopped being banded) re-sweeps
+            if all(rec.get(k) == v for k, v in record.items()):
+                try:
+                    h = create_handle(a, method=Method(rec["method"]),
+                                      device=dev)
+                    return h, {METHOD_NAMES[h.method]:
+                               rec.get("seconds", float("nan"))}
+                except (ValueError, NotImplementedError):
+                    pass
+
+    if methods is None:
+        # every distinct execution plan, CSR5 (the COO2/8D scattered
+        # workhorse AUTO itself prefers for moderate scatter) and
+        # BALANCED2 included
+        methods = [Method.DIA, Method.BCSR, Method.SELL_C_SIGMA,
+                   Method.CSR5, Method.BALANCED2, Method.BALANCED,
+                   Method.SERIAL]
+    if x is None:
+        x = np.random.default_rng(0).standard_normal(a.n).astype(a.dtype)
+    xt = torch.as_tensor(x).to(dev, _torch_dtype(a.dtype)).contiguous()
+
+    sweep_t0 = time.perf_counter()
+    best = None
+    results = {}
+    for method in methods:
+        name = METHOD_NAMES[Method(method)]
+        if (budget_s is not None and best is not None
+                and time.perf_counter() - sweep_t0 > budget_s):
+            results[name] = float("inf")      # skipped: budget spent
+            if verbose:
+                print(f"tune: {name} skipped (budget {budget_s:.1f}s "
+                      "spent)")
+            continue
+        try:
+            h = create_handle(a, method=method, device=dev)
+        except (ValueError, NotImplementedError) as e:
+            results[name] = float("inf")      # a refused plan just loses
+            if verbose:
+                print(f"tune: {name} failed: {e}")
+            continue
+        dt = timing.time_spmv_chain(h._bound, xt, iters=iters, k=4,
+                                    repeats=repeats)["inclusive"]
+        results[name] = dt
+        if verbose:
+            print(f"tune: {name}: {dt*1e3:.6f} ms/iter "
+                  f"({plan_kind(h.plan)})")
+        if best is None or dt < best[0]:
+            best = (dt, h, Method(method))
+    if best is None:
+        raise RuntimeError("tune: every candidate method failed")
+    if mtx_token:
+        with open(_tune_cache_path(mtx_token), "w") as f:
+            json.dump({"method": int(best[2]), "seconds": best[0], **record,
+                       "sweep_seconds":
+                           round(time.perf_counter() - sweep_t0, 3)}, f)
+    return best[1], results

@@ -1,2 +1,2 @@
-"""Synthetic generators (Matrix Market I/O is not ported yet)."""
-from . import generate
+"""I/O: Matrix Market parsing, binary cache, synthetic generators."""
+from . import mmio, generate

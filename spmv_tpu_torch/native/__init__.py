@@ -3,13 +3,14 @@
 ``spmv_native.cpp`` beside this file is the port's own copy of the JAX
 package's packer source; its code is unchanged, so both packages emit
 identical packs (``tests/test_torch_formats.py`` pins them).  It is
-compiled with g++ into the port's build directory at first use.  Only the
-entry points the port's packers call are bound: the SELL-8W greedy packer,
-the COO2 packers (the fused pipeline and the pass-1 placer), the SELL-8D
-slot-mode packer and its bundle-width stats.
+compiled with g++ into the port's build directory at first use.  Bound are
+the MatrixMarket parser (``parse_mtx``, for ``io/mmio.py``) and the entry
+points the port's packers call: the SELL-8W greedy packer, the COO2
+packers (the fused pipeline and the pass-1 placer), the SELL-8D slot-mode
+packer and its bundle-width stats.
 
 Everything degrades gracefully, as in the JAX package: if compilation
-fails, the packers fall back to their pure-numpy paths.
+fails, the parser and the packers fall back to their pure-numpy paths.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import numpy as np
 
 from .._build import compile_shared
 
-__all__ = ["load_native", "native_available", "pack_sell8w_native",
+__all__ = ["load_native", "native_available", "parse_mtx",
+           "pack_sell8w_native",
            "coo2_place_native", "coo2_pack_all_native", "pack_sell8d_native",
            "sell8d_stats_native"]
 
@@ -50,6 +52,20 @@ def load_native() -> Optional[ctypes.CDLL]:
         except (OSError, RuntimeError, subprocess.SubprocessError):
             return None
         c = ctypes
+        lib.mtx_parse.restype = c.c_void_p
+        lib.mtx_parse.argtypes = [c.c_char_p, c.POINTER(c.c_int)]
+        lib.mtx_m.restype = c.c_int64
+        lib.mtx_m.argtypes = [c.c_void_p]
+        lib.mtx_n.restype = c.c_int64
+        lib.mtx_n.argtypes = [c.c_void_p]
+        lib.mtx_nnz.restype = c.c_int64
+        lib.mtx_nnz.argtypes = [c.c_void_p]
+        lib.mtx_copy.restype = None
+        lib.mtx_copy.argtypes = [c.c_void_p] + [np.ctypeslib.ndpointer(d)
+                                                for d in (np.int32, np.int32,
+                                                          np.float64)]
+        lib.mtx_free.restype = None
+        lib.mtx_free.argtypes = [c.c_void_p]
         lib.sell8w_pack.restype = c.c_void_p
         lib.sell8w_pack.argtypes = [
             c.c_int64, c.c_int64,
@@ -126,6 +142,28 @@ def load_native() -> Optional[ctypes.CDLL]:
 
 def native_available() -> bool:
     return load_native() is not None
+
+
+def parse_mtx(path: str):
+    """(m, n, rows, cols, vals) COO of a coordinate MatrixMarket file with
+    its symmetry expanded, or None (no native library, a missing or
+    unreadable file, or a file the parser does not take: array format)."""
+    lib = load_native()
+    if lib is None:
+        return None
+    err = ctypes.c_int(0)
+    h = lib.mtx_parse(os.fsencode(path), ctypes.byref(err))
+    if not h:
+        return None
+    try:
+        m, n, nnz = lib.mtx_m(h), lib.mtx_n(h), lib.mtx_nnz(h)
+        rows = np.empty(nnz, np.int32)
+        cols = np.empty(nnz, np.int32)
+        vals = np.empty(nnz, np.float64)
+        lib.mtx_copy(h, rows, cols, vals)
+        return int(m), int(n), rows, cols, vals
+    finally:
+        lib.mtx_free(h)
 
 
 def pack_sell8w_native(m: int, n: int, rowptr: np.ndarray,

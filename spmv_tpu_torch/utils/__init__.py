@@ -1,5 +1,9 @@
-"""Utilities: pre-deal profiling."""
+"""Utilities: the bandwidth model, profiling (pre-deal split, traces,
+timers)."""
 
-from .profiling import dev_put, predeal_profile
+from .perfmodel import bytes_moved, roofline_gflops
+from .profiling import (Stopwatch, dev_asarray, dev_put, predeal_profile,
+                        trace)
 
-__all__ = ["dev_put", "predeal_profile"]
+__all__ = ["bytes_moved", "roofline_gflops", "trace", "Stopwatch",
+           "predeal_profile", "dev_put", "dev_asarray"]

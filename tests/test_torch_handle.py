@@ -527,7 +527,9 @@ def test_port_imports_no_jax(tmp_path):
     # spmv_tpu_torch/ alone (no spmv_tpu/ beside it, no build outputs):
     # it imports no JAX, builds its native packer from its own copy of the
     # source, and runs f32 and f64 SELL plans, a COO2 plan, packed by the
-    # fused C++ pipeline, a graph plan and a Balanced scan
+    # fused C++ pipeline, a graph plan and a Balanced scan, and the
+    # execute-many layer: tune, the solvers, the CSV suite and a Matrix
+    # Market round trip through the C++ parser
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     shutil.copytree(os.path.join(root, "spmv_tpu_torch"),
                     tmp_path / "spmv_tpu_torch",
@@ -569,6 +571,22 @@ def test_port_imports_no_jax(tmp_path):
         "    y = st.spmv(h, torch.ones(w.n)).numpy()\n"
         "    g = st.spmv_golden(w.astype(np.float64), np.ones(w.n))\n"
         "    assert np.allclose(y, g, rtol=1e-4, atol=1e-3)\n"
+        "from spmv_tpu_torch import solvers, tune\n"
+        "from spmv_tpu_torch.bench import suite, timing\n"
+        "from spmv_tpu_torch.io import mmio\n"
+        "s = generate.diag_plus_random(500, nnz_per_row=4, seed=1)\n"
+        "h, res = tune(s, iters=1, repeats=1, device='cpu')\n"
+        "assert len(res) == 7 and h.device.type == 'cpu', res\n"
+        "x, r, it = solvers.bicgstab(h, np.ones(s.n), tol=1e-8)\n"
+        "assert r <= 1e-8 and it > 0 and x.device.type == 'cpu'\n"
+        "import io\n"
+        "rows = suite.bench_matrix('s', s, [st.Method.AUTO], iters=1,"
+        " repeats=1, out=io.StringIO(), device='cpu')\n"
+        "assert len(rows) == 1 and len(rows[0].split(',')) == 10, rows\n"
+        "mmio.write_mtx(sys.argv[1] + '/s.mtx', s)\n"
+        "t = mmio.read_mtx(sys.argv[1] + '/s.mtx')\n"
+        "assert mmio.reads == {'native': 1, 'python': 0}, mmio.reads\n"
+        "assert np.array_equal(t.vals, s.vals)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'ml_dtypes', 'spmv_tpu')]\n"
         "assert not bad, bad\n")
@@ -577,3 +595,14 @@ def test_port_imports_no_jax(tmp_path):
                          cwd=tmp_path, env=env, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+def test_port_all_covers_jax_all():
+    # every public name of the JAX package, tune and solvers among them
+    import spmv_tpu
+    assert set(spmv_tpu.__all__) <= set(st.__all__)
+    for name in st.__all__:
+        assert getattr(st, name) is not None, name
+    from spmv_tpu_torch import bench, parallel, solvers
+    assert st.tune is st.inspector.tune and st.solvers is solvers
+    assert st.bench is bench and st.parallel is parallel
