@@ -2,13 +2,17 @@
 """Drive the port's f32 and f64 AUTO main paths (the graph plan among them),
 its Method.CSR5 path, its large-n path (n > 2M: column stripes and
 windowed streams), its plain plans (the ones the JAX package runs through
-XLA), its mesh plans (``spmv_tpu_torch.parallel``) and its execute-many
-layer (``tune``, the solvers, the CSV suite, Matrix Market I/O) on one
-NVIDIA card and check them.
+XLA), its mesh plans (``spmv_tpu_torch.parallel``) in one process and on
+two ranks (``parallel.multihost``) and its execute-many layer (``tune``,
+the solvers, the CSV suite, Matrix Market I/O) on one NVIDIA card and
+check them.
 
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
+
+(The multihost phase starts this script twice more, as
+``chip_smoke.py --multihost-rank RANK PORT DIR``, one rank process each.)
 
 Phases (any failure exits non-zero and prints no ``"ok"`` line):
 
@@ -85,7 +89,20 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    single-device AUTO plan of the same matrix (what sharding costs on one
    card; in turns: mesh, single, single, mesh), cuSPARSE, and a
    torch.profiler window;
-7. tools: the execute-many layer through its entry points on ``cuda:0``,
+7. multihost: the seven 4-shard dist families on two rank processes of
+   two shards each (``init_distributed(backend="gloo")``,
+   ``global_mesh_1d(device="cuda:0", local_shards=2)``: one card cannot
+   hold two NCCL ranks, so this times the host staging of the collectives,
+   not NCCL), each planned on every rank with its kind and x mode
+   asserted, run once with every count 0 before and read after on the
+   rank (its kernels must launch on both ranks: ``sell_v1``,
+   ``sell_v1_df``, ``sell_slot``), its y bit for bit the dist phase's and
+   within its bound of the reference; per family the median of 30 calls
+   after 3 (CUDA events, a barrier before each) on each rank beside the
+   single-controller plan's, the bytes a call moves between the ranks
+   and one gloo all-gather of as many host bytes; the dist plans are freed
+   first, so three processes fit on the card;
+8. tools: the execute-many layer through its entry points on ``cuda:0``,
    as one counted run that must launch ``sell_slot``, ``dia`` and
    ``dia_f64``: ``tune(uniform100k)`` with the default candidates (each
    candidate's time a SpMV and plan, or its refusal; the winner the
@@ -145,21 +162,24 @@ padded output): what the kernel's format makes it move.  Each kernel's
 nonzeros, except ``coo2_pass1``'s: ``x.take(cols) * vals`` over its
 nonzeros, two PyTorch calls (``library_call`` names it).
 
-Output: one JSON line per family, per windowed form and per tool, one
-``{"kernels": [...]}`` line (a kernel's numbers at its largest stream of
-the main path or the windowed forms, its launches those of the main path),
+Output: one JSON line per family, per windowed form, per multihost family
+and per tool, one ``{"kernels": [...]}`` line (a kernel's numbers at its
+largest stream of the main path or the windowed forms, its launches those
+of the counted runs, the ranks' added),
 the wall time, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -342,6 +362,16 @@ DIST_FAMILIES = {
                                  "sell8d_cols", "col-shards",
                                  ("sell_slot",)),
 }
+
+
+#: the multihost phase: the four-shard mesh families, each run by two
+#: rank processes of two shards each on ``cuda:0`` over gloo
+MULTIHOST_FAMILIES = ("webbase1m_dist4", "clustered200k_8w_dist4",
+                      "clustered200k_f64_8w_dist4", "clustered200k_dist4",
+                      "banded1m_f64_dist4", "powerlaw100k_dist4",
+                      "uniform250k_4m_d64_dist4")
+#: a rank process's time limit, seconds
+RANK_TIMEOUT = 420
 
 
 def method_of(name):
@@ -1537,9 +1567,39 @@ def dist_streams(plan, x):
             for s in leaf(q, x, k)]
 
 
-def dist_phase(dev, kern):
+def dist_family_plan(name, a, mesh):
+    """The plan DIST_FAMILIES gives family ``name`` on ``mesh``, its kind
+    and x mode asserted."""
+    from spmv_tpu_torch import parallel
+    from spmv_tpu_torch.parallel.mesh import DistAutoPlan
+    _base, _nd, build, kind, x_mode, _k = DIST_FAMILIES[name]
+    if build == "auto":
+        plan = parallel.build_dist_auto(a, mesh)
+    else:
+        p8w = parallel.build_dist_sell8w_plan(
+            a, mesh, x_mode=build.split(":")[1], max_pad_ratio=32.0)
+        plan = DistAutoPlan(kind="sell8w", x_mode=p8w.x_mode, m=a.m,
+                            n=a.n, nnz=a.nnz, parts={"sell8w": p8w},
+                            max_pad=p8w.max_pad)
+    if (plan.kind, plan.x_mode) != (kind, x_mode):
+        raise AssertionError(f"{name}: planned {plan.kind} "
+                             f"{plan.x_mode}, expected {kind} {x_mode}")
+    return plan
+
+
+def dist_x(a):
+    """The dist and multihost phases' x of matrix ``a``, on the host."""
+    import numpy as np
+    return np.random.default_rng(0).standard_normal(a.n).astype(
+        a.vals.dtype)
+
+
+def dist_phase(dev, kern, keep):
     """The mesh families on meshes of repeated ``cuda:0``: plans built and
-    asserted, one counted run, then per family its check and times.
+    asserted, one counted run, then per family its check and times.  For
+    the MULTIHOST_FAMILIES it keeps, in directory ``keep``, the counted
+    run's y, the reference, (|A||x|)_i (``<family>.<what>.npy``) and, in
+    ``single.json``, the bound, its absolute term and the per-call ms.
     Returns the counted run's launch counts."""
     import numpy as np
     import torch
@@ -1547,28 +1607,16 @@ def dist_phase(dev, kern):
     from spmv_tpu_torch import parallel
     from spmv_tpu_torch.handle import plan_kind
     from spmv_tpu_torch.io import generate
-    from spmv_tpu_torch.parallel.mesh import DistAutoPlan
 
     mats, plans, pre = {}, {}, {}
-    for name, (base, ndev, build, kind, x_mode, _k) in DIST_FAMILIES.items():
+    for name, (base, ndev, _b, _kind, _x, _k) in DIST_FAMILIES.items():
         if base not in mats:
             mats[base] = FAMILIES[base][0](generate, np)
             log_matrix(base, mats[base])
-        a = mats[base]
-        mesh = parallel.make_mesh_1d(ndev, device=dev)
         t0 = time.perf_counter()
-        if build == "auto":
-            plan = parallel.build_dist_auto(a, mesh)
-        else:
-            p8w = parallel.build_dist_sell8w_plan(
-                a, mesh, x_mode=build.split(":")[1], max_pad_ratio=32.0)
-            plan = DistAutoPlan(kind="sell8w", x_mode=p8w.x_mode, m=a.m,
-                                n=a.n, nnz=a.nnz, parts={"sell8w": p8w},
-                                max_pad=p8w.max_pad)
+        plan = dist_family_plan(name, mats[base],
+                                parallel.make_mesh_1d(ndev, device=dev))
         plan_s = time.perf_counter() - t0
-        if (plan.kind, plan.x_mode) != (kind, x_mode):
-            raise AssertionError(f"{name}: planned {plan.kind} "
-                                 f"{plan.x_mode}, expected {kind} {x_mode}")
         plans[name] = plan
         pre[name] = {"plan_s": plan_s, "parts": {
             k: {"type": type(q).__name__,
@@ -1579,9 +1627,7 @@ def dist_phase(dev, kern):
         log(f"# {name}: {plan.kind} {plan.x_mode} on {ndev} shards, "
             f"planned in {plan_s:.1f} s")
 
-    xs = {b: torch.from_numpy(np.random.default_rng(0).standard_normal(a.n)
-                              .astype(a.vals.dtype)).to(dev)
-          for b, a in mats.items()}
+    xs = {b: torch.from_numpy(dist_x(a)).to(dev) for b, a in mats.items()}
     # the counted run: every count 0, each family once, the counts read
     zero_counts()
     ys = {name: plans[name](xs[DIST_FAMILIES[name][0]]) for name in plans}
@@ -1597,7 +1643,7 @@ def dist_phase(dev, kern):
         if counts[k] == 0:
             raise AssertionError(f"the dist run launched no {k}")
 
-    singles = {}
+    singles, kept = {}, {}
     for name, plan in plans.items():
         base, ndev = DIST_FAMILIES[name][:2]
         a, x = mats[base], xs[base]
@@ -1654,9 +1700,183 @@ def dist_phase(dev, kern):
             "library_ms": library_ms, "reference": ref_name,
             "max_scaled_err": rel, "max_abs_err": float(d.max()),
             "atol": atol, "profile": prof, "streams": streams}))
+        if name in MULTIHOST_FAMILIES:
+            for what, v in (("y", y.numpy()), ("ref", ref.numpy()),
+                            ("absref", absref.numpy())):
+                np.save(os.path.join(keep, f"{name}.{what}.npy"), v)
+            kept[name] = {"bound": bound, "atol": atol, "single_ms": ms}
         if not any(DIST_FAMILIES[n][0] == base for n in ys):
             singles.pop(base, None)     # no later family reads it
+    with open(os.path.join(keep, "single.json"), "w") as f:
+        json.dump(kept, f)
     return counts
+
+
+def multihost_rank(rank, port, work):
+    """One rank of the multihost phase (``chip_smoke.py --multihost-rank
+    RANK PORT DIR``): gloo over ``tcp://localhost:PORT``, two ranks of two
+    shards on ``cuda:0``.  Builds each of MULTIHOST_FAMILIES as the dist
+    phase does, runs it once with the launch counts zeroed before and read
+    after (the family's kernels must launch on this rank), holds y bit for
+    bit to the dist phase's single-controller y and within its bound of
+    the reference (both from DIR), counts the bytes this rank sends in one
+    call, and times calls (CUDA events, the ranks aligned by a barrier
+    before each) and, beside them, the transport alone: one gloo
+    all-gather of as many host bytes (host clock).  Writes
+    ``rank<RANK>.json`` into DIR."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from spmv_tpu_torch.io import generate
+    from spmv_tpu_torch.parallel import mesh as pm
+    from spmv_tpu_torch.parallel.multihost import (global_mesh_1d,
+                                                   init_distributed)
+    dev = torch.device("cuda", 0)
+    init_distributed(init_method=f"tcp://localhost:{port}", world_size=2,
+                     rank=rank, backend="gloo", device=dev)
+    mesh = global_mesh_1d(device=dev, local_shards=2)
+    if mesh.ranks != (0, 0, 1, 1):
+        raise AssertionError(f"mesh ranks {mesh.ranks}")
+    with open(os.path.join(work, "single.json")) as f:
+        kept = json.load(f)
+    mats, out = {}, {"rank": rank, "counts": dict.fromkeys(KERNELS, 0),
+                     "families": {}}
+    for name in MULTIHOST_FAMILIES:
+        base, kernels = DIST_FAMILIES[name][0], DIST_FAMILIES[name][5]
+        if base not in mats:
+            mats[base] = FAMILIES[base][0](generate, np)
+        a = mats[base]
+        t0 = time.perf_counter()
+        plan = dist_family_plan(name, a, mesh)
+        plan_s = time.perf_counter() - t0
+        x = torch.from_numpy(dist_x(a)).to(dev)
+        dist.barrier()
+        zero_counts()
+        y = plan(x).cpu().numpy()
+        counts = read_counts()
+        for k in kernels:
+            if counts[k] == 0:
+                raise AssertionError(f"rank {rank} {name}: kernel {k} was "
+                                     "not launched")
+        for k, c in counts.items():
+            out["counts"][k] += c
+        want = np.load(os.path.join(work, f"{name}.y.npy"))
+        if y.dtype != want.dtype or y.tobytes() != want.tobytes():
+            diff = np.abs(y.astype(np.float64) - want)
+            raise AssertionError(
+                f"rank {rank} {name}: {int((diff > 0).sum())} of {y.size} "
+                f"entries differ from the single-controller y, max "
+                f"{float(diff.max()):.3g}")
+        ref, absref = (np.load(os.path.join(work, f"{name}.{w}.npy"))
+                       for w in ("ref", "absref"))
+        bound, atol = kept[name]["bound"], kept[name]["atol"]
+        d = np.abs(y.astype(np.float64) - ref)
+        if not (d <= bound * absref + atol + 1e-300).all():
+            raise AssertionError(f"rank {rank} {name}: outside its bound")
+        sent = pm.sent_bytes
+        plan(x)
+        torch.cuda.synchronize()
+        sent = pm.sent_bytes - sent
+        for _ in range(3):
+            plan(x)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(ITERS):
+            dist.barrier()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            plan(x)
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        # the transport alone: one all-gather over gloo of a host tensor
+        # of the bytes this rank sends a call, timed the same way
+        buf = torch.zeros(max(sent // 4, 1), dtype=torch.float32)
+        bufs = [torch.empty_like(buf) for _ in range(2)]
+        gloo_ms = []
+        for i in range(3 + ITERS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            dist.all_gather(bufs, buf)
+            if i >= 3:
+                gloo_ms.append((time.perf_counter() - t0) * 1e3)
+        out["families"][name] = {"plan_s": plan_s, "ms": times,
+                                 "sent_bytes": sent, "gloo_ms": gloo_ms}
+        del plan, x
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    print(f"rank{rank} DONE", flush=True)
+    return 0
+
+
+def multihost_phase(work):
+    """MULTIHOST_FAMILIES on two rank processes (``multihost_rank``) of
+    two shards each on ``cuda:0``, over gloo: one card cannot hold two
+    NCCL ranks, so this times the port's host staging, not NCCL.  A rank
+    that exits non-zero or runs past RANK_TIMEOUT fails the phase (the
+    other is stopped, each rank's log tail printed).  Logs one line a
+    family: the median ms a call on each rank and the maximum over ranks,
+    beside the single-controller plan's, the bytes a call moves between
+    the ranks and the median ms of one gloo all-gather of as many host
+    bytes on each rank.  Returns the ranks' launch counts, added."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--multihost-rank", str(r), str(port), work],
+                              stdout=logs[r], stderr=subprocess.STDOUT,
+                              cwd=ROOT) for r in (0, 1)]
+    try:
+        while any(p.poll() is None for p in procs):
+            late = time.perf_counter() - t0 > RANK_TIMEOUT
+            if late or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            for q in (0, 1):
+                with open(os.path.join(work, f"rank{q}.log")) as f:
+                    log(f"# rank {q} (exit {procs[q].returncode}, "
+                        f"{wall:.1f} s):\n{f.read()[-4000:]}")
+            raise AssertionError(f"multihost rank {r} exited "
+                                 f"{p.returncode} after {wall:.1f} s")
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(work, "single.json")) as f:
+        kept = json.load(f)
+    for rk in ranks:
+        log(json.dumps({"phase": "main_path_launches", "path": "multihost",
+                        "rank": rk["rank"], **rk["counts"]}))
+    for name in MULTIHOST_FAMILIES:
+        fam = [rk["families"][name] for rk in ranks]
+        med = [statistics.median(f["ms"]) for f in fam]
+        log(json.dumps({
+            "phase": "multihost", "family": name, "backend": "gloo",
+            "ranks": 2, "shards": 4, "device": "cuda:0 (both ranks)",
+            "plan_s": [f["plan_s"] for f in fam], "ms_rank0": med[0],
+            "ms_ranks": med, "ms_max": max(med),
+            "single_ms": kept[name]["single_ms"],
+            "sent_bytes": [f["sent_bytes"] for f in fam],
+            "bytes_between_ranks": sum(f["sent_bytes"] for f in fam),
+            "gloo_ms": [statistics.median(f["gloo_ms"]) for f in fam]}))
+    log(json.dumps({"phase": "multihost", "seconds": wall}))
+    return {k: sum(rk["counts"][k] for rk in ranks) for k in KERNELS}
 
 
 #: the tools phase: tune's chain iterations and repeats a candidate; the
@@ -2094,8 +2314,15 @@ def main() -> int:
     launches, ctx = main_path(dev, kern)
     windowed_phase(dev, kern, ctx)
     del ctx
-    for k, c in dist_phase(dev, kern).items():
-        launches[k] += c
+    with tempfile.TemporaryDirectory() as work:
+        for k, c in dist_phase(dev, kern, work).items():
+            launches[k] += c
+        # the dist plans are gone: hand their blocks back, so that the
+        # two rank processes fit on the card beside this one
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k, c in multihost_phase(work).items():
+            launches[k] += c
     for k, c in tools_phase(dev, smi).items():
         launches[k] += c
     kernels = kernels_line(launches, kern)
@@ -2111,7 +2338,10 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        if sys.argv[1:2] == ["--multihost-rank"]:
+            rc = multihost_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        else:
+            rc = main()
     except Exception:  # noqa: BLE001 — report the failed phase, no "ok"
         traceback.print_exc()
         rc = 1

@@ -20,8 +20,11 @@ Differences from the reference, all deliberate:
   card), reported as pseudo-methods ``ScipyCsr`` / ``TorchCsr``; the port's
   ``spmv`` never calls the latter.
 
-A planning refusal (``ValueError``, ``NotImplementedError``) is reported
-as a comment line and the sweep goes on; an error of the card propagates.
+A planning refusal (``ValueError``, ``NotImplementedError``), or a plan
+the card cannot hold (``torch.cuda.OutOfMemoryError`` while planning,
+placing, on the first call or in timing; the cache is emptied), is
+reported as a comment line and the sweep goes on, as the JAX suite's
+"report, keep sweeping"; any other error of the card propagates.
 
 CLI::
 
@@ -42,7 +45,8 @@ import torch
 
 from ..types import CsrMatrix, Method, METHOD_NAMES, VECTORIZED_NAMES
 from ..oracle import rmse as _rmse, spmv_golden
-from .timing import is_cuda_error, synchronize, time_spmv, time_spmv_chain
+from .timing import (empty_cache_after_oom, is_cuda_error, synchronize,
+                     time_spmv, time_spmv_chain)
 
 __all__ = ["BUILTIN_MATRICES", "load_any", "bench_matrix", "main",
            "CSV_HEADER"]
@@ -136,24 +140,33 @@ def bench_matrix(name: str, a: CsrMatrix,
             else:
                 laps = {"transfer_s": 0.0}
                 h = create_handle(a, method=method, device=dev)
-        except (ValueError, NotImplementedError) as e:
+        except (ValueError, NotImplementedError,
+                torch.cuda.OutOfMemoryError) as e:
+            empty_cache_after_oom(e)
             print(f"# {name},{METHOD_NAMES[Method(method)]}: "
                   f"handle failed: {e}", file=out, flush=True)
             continue
         predeal_ms = (time.perf_counter() - t0) * 1e3
-        y = h._bound(xt).cpu().numpy()          # first call + correctness
-        rmse = _rmse(y, golden)
-        t1 = time.perf_counter()                # warm second call: the
-        h._bound(xt)                            # per-call magnitude
-        synchronize(dev)
-        exec_s = time.perf_counter() - t1
-        # chained-k protocol: avg = inclusive T(k)/k, fastest = marginal
-        # (T(k)-T(1))/(k-1); plans slower than 0.2 s a call keep the chain
-        # short, as the JAX suite does
-        k_eff = 8 if exec_s < 0.2 else 2
-        iters_eff = iters if exec_s < 0.2 else max(2, iters // 5)
-        r = time_spmv_chain(h._bound, xt, iters=iters_eff, k=k_eff,
-                            repeats=repeats)
+        try:
+            y = h._bound(xt).cpu().numpy()      # first call + correctness
+            rmse = _rmse(y, golden)
+            t1 = time.perf_counter()            # warm second call: the
+            h._bound(xt)                        # per-call magnitude
+            synchronize(dev)
+            exec_s = time.perf_counter() - t1
+            # chained-k protocol: avg = inclusive T(k)/k, fastest =
+            # marginal (T(k)-T(1))/(k-1); plans slower than 0.2 s a call
+            # keep the chain short, as the JAX suite does
+            k_eff = 8 if exec_s < 0.2 else 2
+            iters_eff = iters if exec_s < 0.2 else max(2, iters // 5)
+            r = time_spmv_chain(h._bound, xt, iters=iters_eff, k=k_eff,
+                                repeats=repeats)
+        except torch.cuda.OutOfMemoryError as e:
+            method_name, h = h.method_name, None
+            empty_cache_after_oom(e)
+            print(f"# {name},{method_name}: exec/timing failed: "
+                  f"{str(e).splitlines()[0][:120]}", file=out, flush=True)
+            continue
         avg, best = r["inclusive"], r["marginal"]
         row = _row(name, h.method_name, VECTORIZED_NAMES[h.vectorized],
                    threads, a.nnz, rmse, predeal_ms, avg * 1e3,
@@ -209,8 +222,12 @@ def _external_baselines(name, a, x, xt, golden, iters, out) -> List[str]:
                          2 * a.nnz / dt / 1e9, 2 * a.nnz / dt / 1e9))
         print(rows[-1], file=out, flush=True)
     except RuntimeError as e:
-        if is_cuda_error(e):
+        # an OOM is a RuntimeError that names CUDA, but not sticky: test
+        # for it first
+        if not isinstance(e, torch.cuda.OutOfMemoryError) \
+                and is_cuda_error(e):
             raise
+        empty_cache_after_oom(e)
         print(f"# TorchCsr failed: {str(e).splitlines()[0][:120]}",
               file=out, flush=True)
     return rows

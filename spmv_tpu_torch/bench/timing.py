@@ -23,7 +23,7 @@ import torch
 
 __all__ = ["time_op", "time_op_samples", "time_spmv",
            "time_spmv_samples", "time_spmv_chain", "is_cuda_error",
-           "synchronize"]
+           "empty_cache_after_oom", "synchronize"]
 
 #: the exponent bits of an IEEE float, by its integer view's type
 _EXP_MASK = {torch.float32: (torch.int32, 0x7F800000),
@@ -38,6 +38,16 @@ def is_cuda_error(e: BaseException) -> bool:
     accel = getattr(torch, "AcceleratorError", None)
     return ((accel is not None and isinstance(e, accel))
             or (isinstance(e, RuntimeError) and "CUDA" in str(e)))
+
+
+def empty_cache_after_oom(e: BaseException) -> None:
+    """After ``torch.cuda.OutOfMemoryError``, which is not sticky (one
+    plan did not fit), hand the cached blocks back so a sweep's next
+    candidate starts from a clean pool; the caller drops the failed
+    handle first.  Test for the OOM before :func:`is_cuda_error`, which
+    is true for it too."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        torch.cuda.empty_cache()
 
 
 def synchronize(device: torch.device) -> None:

@@ -144,7 +144,7 @@ def dist_plan_from_reference(plan, mesh):
     from .parallel import mesh as pm
     kind = type(plan).__name__
     if kind == "DistAutoPlan":
-        dev0 = mesh.devices[0]
+        dev0 = mesh.home
         parts = {}
         for k, v in plan.parts.items():
             parts[k] = (dist_plan_from_reference(v, mesh)

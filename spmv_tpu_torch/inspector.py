@@ -288,8 +288,10 @@ def tune(a: CsrMatrix, methods=None, iters: int = 5, repeats: int = 2,
     that failed to plan or was skipped, or the cached winner's recorded
     time on a cache hit.  A planning refusal (``ValueError``,
     ``NotImplementedError``: DIA's or BCSR's "unprofitable", say) makes a
-    candidate lose; an error of the card propagates, since it would fail
-    every later candidate too.
+    candidate lose, and so does ``torch.cuda.OutOfMemoryError`` in its
+    planning, placement or timing (the cache is emptied first); any other
+    error of the card propagates, since it is sticky and would fail every
+    later candidate too.
 
     ``mtx_token`` caches the winner on disk (the reference's partition
     cache, HyperGraphInterface.cpp:22-57): the second call skips the sweep
@@ -357,13 +359,19 @@ def tune(a: CsrMatrix, methods=None, iters: int = 5, repeats: int = 2,
             continue
         try:
             h = create_handle(a, method=method, device=dev)
-        except (ValueError, NotImplementedError) as e:
-            results[name] = float("inf")      # a refused plan just loses
+            dt = timing.time_spmv_chain(h._bound, xt, iters=iters, k=4,
+                                        repeats=repeats)["inclusive"]
+        except (ValueError, NotImplementedError,
+                torch.cuda.OutOfMemoryError) as e:
+            # a refused plan, or one the card cannot hold, just loses; an
+            # OOM is not sticky, so the sweep goes on once the handle is
+            # dropped and the cache emptied
+            h = None
+            timing.empty_cache_after_oom(e)
+            results[name] = float("inf")
             if verbose:
                 print(f"tune: {name} failed: {e}")
             continue
-        dt = timing.time_spmv_chain(h._bound, xt, iters=iters, k=4,
-                                    repeats=repeats)["inclusive"]
         results[name] = dt
         if verbose:
             print(f"tune: {name}: {dt*1e3:.6f} ms/iter "

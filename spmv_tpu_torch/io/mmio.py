@@ -50,9 +50,11 @@ def read_mtx(path: str, dtype=np.float64, use_native: bool = True) -> CsrMatrix:
     reads["python"] += 1
     with open(path, "r") as f:
         header = f.readline()
+        # [\w-]: "skew-symmetric" is one word (the JAX package's \w+
+        # reads "skew" and keeps only the stored triangle)
         m_hdr = re.match(
-            r"%%MatrixMarket\s+matrix\s+(\w+)\s+(\w+)\s+(\w+)", header, re.I
-        )
+            r"%%MatrixMarket\s+matrix\s+([\w-]+)\s+([\w-]+)\s+([\w-]+)",
+            header, re.I)
         if not m_hdr:
             raise ValueError(f"{path}: not a MatrixMarket matrix file")
         fmt, field, symmetry = (s.lower() for s in m_hdr.groups())
@@ -83,12 +85,15 @@ def read_mtx(path: str, dtype=np.float64, use_native: bool = True) -> CsrMatrix:
             per = 2 if field == "complex" else 1
             flat = np.loadtxt(f, dtype=np.float64, ndmin=2)[:, 0:per][:, 0]
             if symmetry != "general":
-                # array+symmetric stores the lower triangle column by column
+                # array+symmetric stores the lower triangle column by
+                # column; skew-symmetric the strictly lower one (its
+                # diagonal is zero)
+                skip = 1 if symmetry == "skew-symmetric" else 0
                 rows_l, cols_l, vals_l = [], [], []
                 k = 0
                 for j in range(n):
-                    cnt = m - j
-                    r = np.arange(j, m)
+                    cnt = max(m - j - skip, 0)
+                    r = np.arange(j + skip, m)
                     rows_l.append(r)
                     cols_l.append(np.full(cnt, j))
                     vals_l.append(flat[k:k + cnt])

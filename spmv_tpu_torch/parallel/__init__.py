@@ -1,5 +1,9 @@
 """Multi-device execution layer (mesh row- and column-partitioned SpMV),
-the port of ``spmv_tpu.parallel``'s single-controller mesh plans."""
+the port of ``spmv_tpu.parallel``: the mesh plans (``mesh``), driven by
+one process or by one controller a ``torch.distributed`` rank
+(``multihost``)."""
+
+from . import multihost
 
 from .mesh import (DistSpmvPlan, build_dist_plan, dist_spmv,
                    DistDiaPlan, build_dist_dia_plan, dist_dia_spmv,

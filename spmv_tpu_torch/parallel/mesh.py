@@ -7,7 +7,8 @@ the SELL-8D slot stream (K1, K2).  The builders pack the same stacked
 ``(ndev, ...)`` numpy arrays as the JAX builders, padded to one length
 across shards, and place shard d's arrays on ``mesh.devices[d]``.
 
-The layer is single-controller, as the JAX one is: one process drives every
+On a mesh of one process (``Mesh.ranks`` None) the layer is
+single-controller, as the JAX one is on one host: one process drives every
 shard (the JAX package jits one ``shard_map``; here the shards run one
 after another from Python).  Its collectives, in that one process:
 
@@ -17,19 +18,41 @@ after another from Python).  Its collectives, in that one process:
 * ``psum``: the partial outputs added in shard order on ``devices[0]``
   (f64 for the double-float modes).
 
-Outputs come back to one y on ``devices[0]``.  Processes and
-``torch.distributed`` belong to the multi-host layer, which is not ported
-yet.
+Outputs come back to one y on ``devices[0]``.
+
+A mesh that spans processes (``multihost.global_mesh_1d``: one controller a
+``torch.distributed`` rank, ``Mesh.ranks`` naming each shard's rank) runs
+the same plans: every rank builds the identical host pack (the builders are
+deterministic) and places only the shards it owns; every rank passes the
+whole x and gets the whole y on its first local device (``Mesh.home``).
+The collectives become ``torch.distributed`` calls between the ranks, each
+giving the bits the single-controller plan gives:
+
+* ``all_gather``: each rank cuts its own x blocks and all-gathers them;
+* the halo ring: point to point (``batch_isend_irecv``), a shard receiving
+  only the blocks (DIA: the band edges) of its window that another rank
+  owns, once a receiving rank; blocks of its own rank are read in place;
+* the outputs: an all-gather of each rank's output blocks;
+* ``psum``: an all-gather of the partials, added in shard order on every
+  rank (not ``all_reduce``, whose order of addition is the backend's);
+* the straggler streams, the hybrid's fold and the graph plan's hub
+  gather: on every rank's home device, against its whole x and y.
+
+NCCL carries the CUDA tensors themselves; gloo carries host tensors, so
+under gloo the collectives copy each CUDA tensor to the host and back.
+``sent_bytes`` counts what this process sends.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..formats import _bf16
 from ..formats.partition import balanced_row_splitter
@@ -52,14 +75,40 @@ _X_MODES = ("replicated", "allgather", "halo")
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh: one torch device a shard (entries may repeat)."""
+    """A 1-D mesh: one torch device a shard (entries may repeat).
+
+    ``ranks``: the ``torch.distributed`` rank that owns each shard, when the
+    mesh spans the processes of the default group
+    (``multihost.global_mesh_1d``); each rank owns as many shards, and
+    ``devices`` holds each shard's device as its rank names it.  None: one
+    process drives every shard."""
 
     devices: Tuple[torch.device, ...]
     axis: str = "rows"
+    ranks: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.ranks is not None and (
+                len(self.ranks) != len(self.devices)
+                or len(set(collections.Counter(self.ranks).values())) != 1):
+            raise ValueError(f"ranks {self.ranks} must name one rank a "
+                             "device, each rank as many times")
 
     @property
     def shape(self) -> Dict[str, int]:
         return {self.axis: len(self.devices)}
+
+    def owns(self, d: int) -> bool:
+        """Whether this process drives shard d."""
+        return self.ranks is None or self.ranks[d] == dist.get_rank()
+
+    @property
+    def home(self) -> torch.device:
+        """Where x is taken and y returned: ``devices[0]`` in one process,
+        the rank's first local device across processes."""
+        if self.ranks is None:
+            return self.devices[0]
+        return self.devices[self.ranks.index(dist.get_rank())]
 
 
 def make_mesh_1d(n_devices: Optional[int] = None, axis: str = "rows",
@@ -87,24 +136,36 @@ def make_mesh_1d(n_devices: Optional[int] = None, axis: str = "rows",
 
 
 # --------------------------------------------------------------------------
-# Placement and the collectives, in one process
+# Placement and the collectives
 # --------------------------------------------------------------------------
+
+#: bytes this process has sent to other ranks through the collectives of a
+#: multi-process mesh: a point-to-point slice once, an all-gather's
+#: contribution once for each other rank
+sent_bytes = 0
+
+
+def _first(items):
+    """The first shard entry this process holds."""
+    return next(v for v in items if v is not None)
+
 
 def _shards(mesh: Mesh, arr: np.ndarray, index: bool = False):
     """A stacked (ndev, ...) host array → shard d's slice on devices[d]
-    (int64 for index arrays)."""
+    (int64 for index arrays); None for the shards of other ranks."""
     return tuple(dev_put(arr[d].astype(np.int64) if index else arr[d], dev)
+                 if mesh.owns(d) else None
                  for d, dev in enumerate(mesh.devices))
 
 
 def _x_in(mesh: Mesh, x, n: int, dtype: torch.dtype) -> torch.Tensor:
-    """x as a contiguous ``dtype`` tensor on devices[0]; a numpy array is
-    copied there."""
+    """x as a contiguous ``dtype`` tensor on the home device; a numpy
+    array is copied there."""
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
     if tuple(x.shape) != (n,):
         raise ValueError(f"x has shape {tuple(x.shape)}, expected ({n},)")
-    return x.to(device=mesh.devices[0], dtype=dtype).contiguous()
+    return x.to(device=mesh.home, dtype=dtype).contiguous()
 
 
 def _pad(x: torch.Tensor, length: int) -> torch.Tensor:
@@ -115,54 +176,132 @@ def _pad(x: torch.Tensor, length: int) -> torch.Tensor:
 
 
 def _blocks(mesh: Mesh, x: torch.Tensor):
-    """x sharded over the mesh: ndev equal blocks, block d on devices[d]."""
+    """x sharded over the mesh: ndev equal blocks, block d on devices[d]
+    (None where another rank owns it)."""
     nd = len(mesh.devices)
-    return [b.to(dev) for b, dev in zip(x.view(nd, -1), mesh.devices)]
+    return [b.to(dev) if mesh.owns(d) else None
+            for d, (b, dev) in enumerate(zip(x.view(nd, -1), mesh.devices))]
+
+
+def _wire(mesh: Mesh) -> torch.device:
+    """The device a collective's tensors travel from: the home device
+    under NCCL, which carries CUDA tensors; the host under gloo, which
+    carries host tensors only (a CUDA block is copied there and back)."""
+    return (torch.device("cpu") if dist.get_backend() == "gloo"
+            else mesh.home)
+
+
+def _gather(mesh: Mesh, parts):
+    """Across processes: every shard's tensor in shard order, on the home
+    device, from ``parts`` holding this rank's (one shape on every shard)
+    and None elsewhere: one all-gather of each rank's tensors, stacked."""
+    global sent_bytes
+    wire = _wire(mesh)
+    mine = torch.stack([p.to(wire) for p in parts if p is not None])
+    got = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(got, mine)
+    sent_bytes += mine.numel() * mine.element_size() * (len(got) - 1)
+    got = [g.to(mesh.home) for g in got]
+    seen = collections.Counter()
+    out = []
+    for r in mesh.ranks:
+        out.append(got[r][seen[r]])
+        seen[r] += 1
+    return out
+
+
+def _exchange(mesh: Mesh, blocks, wants):
+    """For each shard d this process drives, the concatenation of the
+    slices ``wants(d)`` = [(block, lo, hi), ...] of the x blocks on
+    devices[d] (None for other ranks' shards): the halo windows.  In one
+    process every block is at hand.  Across processes a slice of a block
+    another rank owns comes from it point to point, once a receiving rank,
+    as ``ppermute`` moves it, and a block of this rank is read in place;
+    every rank lists the same moves in the same order, so sends and
+    receives pair up (the tag is the move's index)."""
+    global sent_bytes
+    got = {}
+    if mesh.ranks is not None:
+        me, wire, ranks = dist.get_rank(), _wire(mesh), mesh.ranks
+        moves = sorted({(b, lo, hi, ranks[b], ranks[d])
+                        for d in range(len(ranks))
+                        for b, lo, hi in wants(d) if ranks[b] != ranks[d]})
+        like = _first(blocks)
+        ops = []
+        for tag, (b, lo, hi, src, dst) in enumerate(moves):
+            if src == me:
+                t = blocks[b][lo:hi].to(wire).contiguous()
+                sent_bytes += t.numel() * t.element_size()
+                ops.append(dist.P2POp(dist.isend, t, dst, tag=tag))
+            elif dst == me:
+                t = torch.empty(hi - lo, dtype=like.dtype, device=wire)
+                got[b, lo, hi] = t
+                ops.append(dist.P2POp(dist.irecv, t, src, tag=tag))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+    return [torch.cat([(got[b, lo, hi] if (b, lo, hi) in got
+                        else blocks[b][lo:hi]).to(dev)
+                       for b, lo, hi in wants(d)]) if mesh.owns(d)
+            else None for d, dev in enumerate(mesh.devices)]
 
 
 def _all_gather(blocks, dev) -> torch.Tensor:
     return torch.cat([b.to(dev) for b in blocks])
 
 
-def _ring(blocks, d: int, h: int, dev) -> torch.Tensor:
-    """Shard d's halo window: blocks (d-h .. d+h) mod ndev, in order."""
-    nd = len(blocks)
-    return torch.cat([blocks[(d + k) % nd].to(dev) for k in range(-h, h + 1)])
+def _windows(mesh: Mesh, blocks, h: int):
+    """Every shard's halo window: blocks (d-h .. d+h) mod ndev, in order
+    (None for other ranks' shards)."""
+    nd, size = len(blocks), _first(blocks).numel()
+    return _exchange(mesh, blocks, lambda d: [
+        ((d + k) % nd, 0, size) for k in range(-h, h + 1)])
 
 
 def _assemble(mesh: Mesh, x: torch.Tensor, x_mode: str, halo: int, mr: int,
               n: int):
     """Each shard's x: x itself (replicated), the gathered blocks cut to n
-    (allgather), or the halo window."""
+    (allgather), or the halo window; None for other ranks' shards."""
     nd = len(mesh.devices)
     if x_mode == "allgather":
         blocks = _blocks(mesh, _pad(x, -(-n // nd) * nd))
-        return [_all_gather(blocks, dev)[:n] for dev in mesh.devices]
-    if x_mode == "halo":
-        blocks = _blocks(mesh, _pad(x, mr * nd))
-        return [_ring(blocks, d, halo, dev)
+        if mesh.ranks is None:
+            return [_all_gather(blocks, dev)[:n] for dev in mesh.devices]
+        xg = torch.cat(_gather(mesh, blocks))
+        return [xg.to(dev)[:n] if mesh.owns(d) else None
                 for d, dev in enumerate(mesh.devices)]
-    return [x.to(dev) for dev in mesh.devices]
+    if x_mode == "halo":
+        return _windows(mesh, _blocks(mesh, _pad(x, mr * nd)), halo)
+    return [x.to(dev) if mesh.owns(d) else None
+            for d, dev in enumerate(mesh.devices)]
 
 
 def _concat(mesh: Mesh, parts) -> torch.Tensor:
-    """The shards' output blocks in shard order, on devices[0]."""
-    return torch.cat([p.to(mesh.devices[0]) for p in parts])
+    """The shards' output blocks in shard order, on the home device."""
+    if mesh.ranks is not None:
+        parts = _gather(mesh, parts)
+    return torch.cat([p.to(mesh.home) for p in parts])
 
 
 def _psum(mesh: Mesh, parts) -> torch.Tensor:
-    """The shards' partial outputs added in shard order on devices[0]."""
-    y = parts[0].to(mesh.devices[0])
+    """The shards' partial outputs added in shard order on the home device.
+    Across processes the partials are gathered and added in that same
+    order on every rank, so every rank's y has the single-controller
+    plan's bits (an ``all_reduce`` would add in the backend's order)."""
+    if mesh.ranks is not None:
+        parts = _gather(mesh, parts)
+    y = parts[0].to(mesh.home)
     for p in parts[1:]:
-        y = y + p.to(mesh.devices[0])
+        y = y + p.to(mesh.home)
     return y
 
 
 def _place_rest(mesh: Mesh, rest):
-    """A host (rows, cols, vals) straggler stream → tensors on devices[0]."""
+    """A host (rows, cols, vals) straggler stream → tensors on the home
+    device (every rank's, across processes)."""
     if rest is None:
         return None
-    dev = mesh.devices[0]
+    dev = mesh.home
     rows, cols, vals = (np.asarray(r) for r in rest)
     return (dev_put(rows.astype(np.int64), dev),
             dev_put(cols.astype(np.int64), dev), dev_put(vals, dev))
@@ -348,7 +487,7 @@ def _pack_scan_halo(a: CsrMatrix, ndev: int, tile: int, h_min: int):
 
 def _place_scan(mesh: Mesh, axis: str, s: Dict[str, Any],
                 arr: Dict[str, Optional[np.ndarray]]) -> DistSpmvPlan:
-    dev0 = mesh.devices[0]
+    dev0 = mesh.home
     halo = s["x_mode"] == "halo"
 
     def idx(name):
@@ -374,30 +513,31 @@ def _place_scan(mesh: Mesh, axis: str, s: Dict[str, Any],
 
 def dist_spmv(plan: DistSpmvPlan, x) -> torch.Tensor:
     """Execute y = A @ x across the mesh."""
-    x = _x_in(plan.mesh, x, plan.n, plan.vals_pad[0].dtype)
-    devs = plan.mesh.devices
+    mesh = plan.mesh
+    x = _x_in(mesh, x, plan.n, _first(plan.vals_pad).dtype)
     scan = torch_csr.scan_spmv_tiled
     if plan.x_mode == "halo":
         if plan.in_index is None:           # uniform split: pure zero-pad
             xb = _pad(x, plan.mr * plan.ndev)
         else:                               # splitter-aligned block gather
             xb = torch.cat([x, x.new_zeros(1)])[plan.in_index]
-        blocks = _blocks(plan.mesh, xb)
+        blocks = _blocks(mesh, xb)
+        windows = _windows(mesh, blocks, plan.halo)
         # the local stream reads only the shard's own block; the remote one
         # its halo window
         ys = [scan(plan.loc_colidx[d], plan.loc_vals[d],
                    plan.loc_row_start[d], plan.loc_row_end[d], blocks[d],
                    tile=plan.loc_tile)
               + scan(plan.colidx_pad[d], plan.vals_pad[d],
-                     plan.row_start[d], plan.row_end[d],
-                     _ring(blocks, d, plan.halo, dev), tile=plan.tile)
-              for d, dev in enumerate(devs)]
+                     plan.row_start[d], plan.row_end[d], windows[d],
+                     tile=plan.tile) if mesh.owns(d) else None
+              for d in range(plan.ndev)]
     else:
-        xs = _assemble(plan.mesh, x, plan.x_mode, 0, plan.mr, plan.n)
+        xs = _assemble(mesh, x, plan.x_mode, 0, plan.mr, plan.n)
         ys = [scan(plan.colidx_pad[d], plan.vals_pad[d], plan.row_start[d],
                    plan.row_end[d], xs[d], tile=plan.tile)
-              for d in range(plan.ndev)]
-    y = _concat(plan.mesh, ys)
+              if mesh.owns(d) else None for d in range(plan.ndev)]
+    y = _concat(mesh, ys)
     if plan.identity_out:
         return y[:plan.m]
     return y[plan.out_index]
@@ -430,7 +570,7 @@ class DistDiaPlan:
 
     @property
     def dtype(self) -> torch.dtype:
-        return (torch.float64 if self.data[0].dtype == torch.float64
+        return (torch.float64 if _first(self.data).dtype == torch.float64
                 else torch.float32)
 
 
@@ -475,37 +615,39 @@ def _place_dia(mesh: Mesh, axis: str, s: Dict[str, Any],
         mesh=mesh, axis=axis, ndev=mesh.shape[axis], m=s["m"], n=s["n"],
         nnz=s["nnz"], offsets=tuple(int(o) for o in s["offsets"]),
         mr=s["mr"], x_mode=s["x_mode"],
-        data=tuple(dev_put(v, dev) for v, dev in zip(data, mesh.devices)))
+        data=tuple(dev_put(v, dev) if mesh.owns(d) else None
+                   for d, (v, dev) in enumerate(zip(data, mesh.devices))))
 
 
 def dist_dia_spmv(plan: DistDiaPlan, x) -> torch.Tensor:
-    x = _x_in(plan.mesh, x, plan.n, plan.dtype)
-    offsets, mr, n = plan.offsets, plan.mr, plan.n
+    mesh = plan.mesh
+    x = _x_in(mesh, x, plan.n, plan.dtype)
+    offsets, mr, n, nd = plan.offsets, plan.mr, plan.n, plan.ndev
     ys = []
     if plan.x_mode == "halo":
         h = max(max(abs(o) for o in offsets), 1) if offsets else 1
-        blocks = _blocks(plan.mesh, _pad(x, mr * plan.ndev))
-        for d, dev in enumerate(plan.mesh.devices):
-            # the band edges of the neighbouring blocks, circular as the
-            # ppermute rings are (wrapped values meet zero diagonals)
-            x_ext = torch.cat([blocks[(d - 1) % plan.ndev][-h:].to(dev),
-                               blocks[d],
-                               blocks[(d + 1) % plan.ndev][:h].to(dev)])
-            ys.append(torch_csr.dia_spmv(plan.data[d], x_ext, offsets, mr,
-                                         pad_l=h))
-        return _concat(plan.mesh, ys)[:plan.m]
-    xs = _assemble(plan.mesh, x, plan.x_mode, 0, mr, n)
+        # the band edges of the neighbouring blocks, circular as the
+        # ppermute rings are (wrapped values meet zero diagonals)
+        x_ext = _exchange(mesh, _blocks(mesh, _pad(x, mr * nd)), lambda d: [
+            ((d - 1) % nd, mr - h, mr), (d, 0, mr), ((d + 1) % nd, 0, h)])
+        ys = [torch_csr.dia_spmv(plan.data[d], x_ext[d], offsets, mr,
+                                 pad_l=h) if mesh.owns(d) else None
+              for d in range(nd)]
+        return _concat(mesh, ys)[:plan.m]
+    xs = _assemble(mesh, x, plan.x_mode, 0, mr, n)
     pad_l = max(0, -min(offsets)) if offsets else 0
-    pad_r = (max(0, mr * plan.ndev + max(offsets) - n) + mr) if offsets \
-        else 0
-    for d, dev in enumerate(plan.mesh.devices):
+    pad_r = (max(0, mr * nd + max(offsets) - n) + mr) if offsets else 0
+    for d in range(nd):
+        if not mesh.owns(d):
+            ys.append(None)
+            continue
         # shard d computes rows [d*mr, (d+1)*mr): its x offsets shift by
         # d*mr; x is padded so every slice is in range
         xpad = torch.cat([xs[d].new_zeros(pad_l), xs[d],
                           xs[d].new_zeros(pad_r)])
         ys.append(torch_csr.dia_spmv(plan.data[d], xpad, offsets, mr,
                                      row0=d * mr, pad_l=pad_l))
-    return _concat(plan.mesh, ys)[:plan.m]
+    return _concat(mesh, ys)[:plan.m]
 
 
 # --------------------------------------------------------------------------
@@ -540,7 +682,7 @@ class DistSell8WPlan:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.streams[0].dtype
+        return _first(self.streams).dtype
 
 
 def _halo_depth(a: CsrMatrix, ndev: int, mr: int) -> int:
@@ -659,6 +801,7 @@ def _place_sell8w(mesh: Mesh, axis: str, s: Dict[str, Any],
                             arr["meta"][d], arr["vals"][d], s["nslices"],
                             s["mr"], n_local, dev,
                             vals_lo=None if lo is None else lo[d])
+        if mesh.owns(d) else None
         for d, dev in enumerate(mesh.devices))
     return DistSell8WPlan(
         mesh=mesh, axis=axis, ndev=mesh.shape[axis], m=s["m"], n=s["n"],
@@ -670,8 +813,15 @@ def _place_sell8w(mesh: Mesh, axis: str, s: Dict[str, Any],
 def dist_sell8w_spmv(plan: DistSell8WPlan, x) -> torch.Tensor:
     x = _x_in(plan.mesh, x, plan.n, plan.dtype)
     xs = _assemble(plan.mesh, x, plan.x_mode, plan.halo, plan.mr, plan.n)
-    return _concat(plan.mesh, [sell_ops.sell_spmv(st, xd)[:plan.mr]
-                               for st, xd in zip(plan.streams, xs)])[:plan.m]
+    return _concat(plan.mesh, _run_streams(plan.streams, xs,
+                                           plan.mr))[:plan.m]
+
+
+def _run_streams(streams, xs, rows: int):
+    """Each shard stream this process holds on its x, cut to ``rows``;
+    None for other ranks' shards."""
+    return [None if st is None else sell_ops.sell_spmv(st, xd)[:rows]
+            for st, xd in zip(streams, xs)]
 
 
 # --------------------------------------------------------------------------
@@ -702,7 +852,7 @@ class DistSell8DPlan:
     x_mode: str
     streams: tuple              # one slot SellStream a shard
     max_pad: float = 0.0
-    rest: Optional[tuple] = None   # (rows, cols, vals) on devices[0]
+    rest: Optional[tuple] = None   # (rows, cols, vals) on mesh.home
     halo: int = 0
 
     def __call__(self, x) -> torch.Tensor:
@@ -710,7 +860,7 @@ class DistSell8DPlan:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.streams[0].dtype
+        return _first(self.streams).dtype
 
 
 def _shared_value_mode(vals: np.ndarray, nw: int, df: bool):
@@ -871,7 +1021,7 @@ def _slot_streams(mesh: Mesh, s: Dict[str, Any], arr, m: int, n: int):
             palette=np.asarray(arr["pal"])[0],
             palette_lo=(None if arr.get("pal_lo") is None
                         else np.asarray(arr["pal_lo"])[0])),
-            dev, slot_mode=True)
+            dev, slot_mode=True) if mesh.owns(d) else None
         for d, dev in enumerate(mesh.devices))
 
 
@@ -891,8 +1041,8 @@ def _place_sell8d(mesh: Mesh, axis: str, s: Dict[str, Any],
 def dist_sell8d_spmv(plan: DistSell8DPlan, x) -> torch.Tensor:
     x = _x_in(plan.mesh, x, plan.n, plan.dtype)
     xs = _assemble(plan.mesh, x, plan.x_mode, plan.halo, plan.mr, plan.n)
-    y = _concat(plan.mesh, [sell_ops.sell_spmv(st, xd)[:plan.mr]
-                            for st, xd in zip(plan.streams, xs)])[:plan.m]
+    y = _concat(plan.mesh, _run_streams(plan.streams, xs,
+                                        plan.mr))[:plan.m]
     return _add_rest(y, plan.rest, x)
 
 
@@ -928,7 +1078,7 @@ class DistSell8DColsPlan:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.streams[0].dtype
+        return _first(self.streams).dtype
 
 
 def build_dist_sell8d_cols_plan(a: CsrMatrix, mesh: Mesh,
@@ -1030,8 +1180,7 @@ def _place_sell8d_cols(mesh: Mesh, axis: str, s: Dict[str, Any],
 def dist_sell8d_cols_spmv(plan: DistSell8DColsPlan, x) -> torch.Tensor:
     x = _x_in(plan.mesh, x, plan.n, plan.dtype)
     blocks = _blocks(plan.mesh, _pad(x, plan.cw * plan.ndev))
-    y = _psum(plan.mesh, [sell_ops.sell_spmv(st, b)[:plan.m]
-                          for st, b in zip(plan.streams, blocks)])
+    y = _psum(plan.mesh, _run_streams(plan.streams, blocks, plan.m))
     return _add_rest(y, plan.rest, x)
 
 
@@ -1052,7 +1201,7 @@ class DistAutoPlan:
     parts: dict
     value_mode: Optional[str] = None
     max_pad: float = 0.0
-    #: halo-mode straggler stream (rows, cols, vals) on devices[0]: the
+    #: halo-mode straggler stream (rows, cols, vals) on mesh.home: the
     #: ≤0.1% long-range nonzeros split out so the quantile halo gate holds
     rest: Optional[tuple] = None
 
@@ -1100,7 +1249,7 @@ def build_dist_auto(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
     else the exact-nnz scan.  Every builder falls back down the ladder on
     ValueError."""
     ndev = mesh.shape[axis]
-    dev0 = mesh.devices[0]
+    dev0 = mesh.home
     xm = _auto_x_mode(a, ndev) if x_mode == "auto" else x_mode
     auto_rest = None
     if xm == "halo" and a.m == a.n and a.nnz:

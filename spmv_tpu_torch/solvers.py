@@ -48,10 +48,11 @@ def _as_fn(a) -> Callable:
 
 
 def _device_of(a) -> torch.device:
-    """A handle's device, a mesh plan's first device, else the card."""
+    """A handle's device, a mesh plan's home device (where it takes x),
+    else the card."""
     dev = getattr(a, "device", None)
     if dev is None and getattr(a, "mesh", None) is not None:
-        dev = a.mesh.devices[0]
+        dev = a.mesh.home
     return torch.device(dev if dev is not None else "cuda")
 
 

@@ -336,7 +336,8 @@ def test_parallel_exports_the_reference_names():
 
 
 def test_parallel_imports_no_jax():
-    code = ("import sys, spmv_tpu_torch.parallel, spmv_tpu_torch.convert; "
+    code = ("import sys, spmv_tpu_torch.parallel, spmv_tpu_torch.convert, "
+            "spmv_tpu_torch.parallel.multihost; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'spmv_tpu.')) "
             "or m == 'spmv_tpu'); print(bad); sys.exit(1 if bad else 0)")

@@ -3,7 +3,9 @@
 
 Held, bit for bit: ``read_mtx`` on the grid of symmetry × field (and a
 dense array file), through the C++ parser and through the numpy text path,
-each against the JAX package's ``read_mtx`` on the same path; the bytes
+each against the JAX package's ``read_mtx`` on the same path, except a
+skew-symmetric file on the numpy path, which the port expands whole and
+the JAX package does not (it is held to both C++ parsers there); the bytes
 ``write_mtx`` writes; ``load_matrix`` through its ``.npz`` cache (the
 second load a hit, no parse); ``parse_mtx`` giving None where it cannot
 parse.
@@ -69,15 +71,19 @@ def test_read_mtx_equals_jax(tmp_path, symmetry, field, use_native):
     a = mmio.read_mtx(path, use_native=use_native)
     path_taken = "native" if use_native else "python"
     assert mmio.reads[path_taken] == before[path_taken] + 1
-    _same(a, j_mmio.read_mtx(path, use_native=use_native))
-    if symmetry != "skew-symmetric":
-        # both paths give one matrix; on a skew-symmetric file the numpy
-        # path's banner regex reads "skew" and keeps only the stored
-        # triangle, in both packages (ROADMAP.md F3)
-        _same(a, mmio.read_mtx(path, use_native=not use_native))
+    # on a skew-symmetric file the JAX numpy path reads the banner's
+    # "skew" and keeps only the stored triangle; the port's numpy path
+    # reads "skew-symmetric" and expands it as both C++ parsers do
+    skew_numpy = symmetry == "skew-symmetric" and not use_native
+    ref_native = use_native or skew_numpy
+    _same(a, j_mmio.read_mtx(path, use_native=ref_native))
+    if skew_numpy:
+        assert a.nnz > j_mmio.read_mtx(path, use_native=False).nnz
+    # both of the port's paths give one matrix
+    _same(a, mmio.read_mtx(path, use_native=not use_native))
     for dtype in (np.float32, np.float64):
         _same(mmio.read_mtx(path, dtype=dtype, use_native=use_native),
-              j_mmio.read_mtx(path, dtype=dtype, use_native=use_native))
+              j_mmio.read_mtx(path, dtype=dtype, use_native=ref_native))
 
 
 @pytest.mark.parametrize("symmetry", ["general", "symmetric"])
@@ -98,6 +104,27 @@ def test_read_array_file_equals_jax(tmp_path, symmetry):
     before = mmio.reads["python"]
     _same(mmio.read_mtx(path), j_mmio.read_mtx(path))
     assert mmio.reads["python"] == before + 1
+
+
+def test_read_skew_array_file(tmp_path):
+    # a skew-symmetric array file stores the strictly lower triangle
+    # column by column; the numpy path mirrors it with the sign flipped
+    rng = np.random.default_rng(2)
+    m = 5
+    flat = rng.random(m * (m - 1) // 2)
+    dense = np.zeros((m, m))
+    dense[np.triu_indices(m, 1)[::-1]] = flat    # column-major lower
+    dense -= dense.T
+    path = str(tmp_path / "s.mtx")
+    with open(path, "w") as f:
+        f.write(f"%%MatrixMarket matrix array real skew-symmetric\n"
+                f"{m} {m}\n")
+        f.write("".join(f"{float(v)!r}\n" for v in flat))
+    a = mmio.read_mtx(path)
+    got = np.zeros((m, m))
+    rows = np.repeat(np.arange(m), np.diff(a.rowptr))
+    got[rows, a.colidx] = a.vals
+    np.testing.assert_array_equal(got, dense)
 
 
 def test_parse_mtx_none_for_missing_file(tmp_path):

@@ -5,9 +5,10 @@ its bandwidth model (``utils/perfmodel.py``) against the JAX copy.
 Held: the reference's CSV header, character for character; rows of ten
 columns (twelve with ``split_predeal``) with rmse below 1e-4 against the
 golden product, on uniform10k and on rectangular matrices; the builtin
-matrices' arrays equal the JAX generators'; a planning refusal reported as
-a comment while the sweep goes on, and an error of the card propagating;
-the CLI, and its bf16 refusal.
+matrices' arrays equal the JAX generators'; a planning refusal, or a plan
+out of card memory at any stage, reported as a comment while the sweep
+goes on, and an error of the card propagating; the CLI, and its bf16
+refusal.
 """
 
 import io as _io
@@ -22,6 +23,7 @@ import spmv_tpu_torch as st
 from spmv_tpu_torch.bench import suite
 from spmv_tpu_torch.io import generate
 from spmv_tpu_torch.utils import perfmodel
+from test_torch_tune import OOM_POINTS, oom_in
 
 
 def test_csv_header_and_builtins_equal_jax():
@@ -119,6 +121,26 @@ def test_bench_matrix_cuda_error_propagates(monkeypatch):
         suite.bench_matrix("b", a, [st.Method.SERIAL, st.Method.DIA],
                            iters=1, repeats=1, out=_io.StringIO(),
                            device="cpu")
+
+
+@pytest.mark.parametrize("where", OOM_POINTS)
+def test_bench_matrix_out_of_memory_reported(monkeypatch, where):
+    # a plan the card cannot hold prints the comment row and the sweep
+    # goes on ("report, keep sweeping")
+    emptied = oom_in(monkeypatch, st.Method.SERIAL, where)
+    a = generate.banded(100, 100, 2, dtype=np.float32, seed=1)
+    out = _io.StringIO()
+    rows = suite.bench_matrix("b", a, [st.Method.SERIAL, st.Method.DIA],
+                              iters=1, repeats=1, external=True, out=out,
+                              device="cpu")
+    stage = ("handle failed" if where in ("plan", "place")
+             else "exec/timing failed")
+    assert (f"# b,Method_Serial: {stage}: CUDA out of memory"
+            in out.getvalue())
+    assert [r.split(",")[1] for r in rows] == ["Method_Dia", "ScipyCsr",
+                                               "TorchCsr"]
+    _check_rows(rows, a, "b")
+    assert emptied
 
 
 def test_cli(tmp_path, capsys):

@@ -5,8 +5,9 @@
 Held: the same default candidates; the winner cached and built without a
 sweep on the second call; ``budget_s=0.0`` measuring one candidate; a
 record of another device, or one at the JAX package's path, being a miss;
-an error of the card propagating out of the sweep; ``time_spmv_chain``'s
-dict with the JAX keys and positive times.  A tuned handle's y is held to
+an error of the card propagating out of the sweep, while a candidate out
+of card memory (in planning, placement, its first call or timing) loses;
+``time_spmv_chain``'s dict with the JAX keys and positive times.  A tuned handle's y is held to
 the golden product at 1e-4, test_tune.py's bound.
 """
 
@@ -159,6 +160,70 @@ def test_tune_cuda_error_propagates(cache, monkeypatch):
         tune(a, iters=2, repeats=1, device="cpu")
     assert timing.is_cuda_error(RuntimeError("CUDA error: out of memory"))
     assert not timing.is_cuda_error(ValueError("DIA unprofitable"))
+
+
+#: where a candidate runs out of card memory: planning, placement, its
+#: first call, a later (timed) call
+OOM_POINTS = ("plan", "place", "first_call", "timing")
+
+
+def oom_in(monkeypatch, victim, where):
+    """Make candidate ``victim`` raise ``torch.cuda.OutOfMemoryError`` at
+    ``where``; returns the count of ``torch.cuda.empty_cache`` calls."""
+    import spmv_tpu_torch.handle as th
+    real_build, real_place, real_create = (th._build_plan, th._place,
+                                           th.create_handle)
+    last = {}
+    emptied = []
+
+    def oom():
+        return torch.cuda.OutOfMemoryError(
+            "CUDA out of memory. Tried to allocate 20.00 GiB")
+
+    def build(a, method, *args, **kw):
+        last["method"] = method
+        if where == "plan" and method == victim:
+            raise oom()
+        return real_build(a, method, *args, **kw)
+
+    def place(plan, device):
+        if where == "place" and last.get("method") == victim:
+            raise oom()
+        return real_place(plan, device)
+
+    def create(*args, **kw):
+        h = real_create(*args, **kw)
+        if h.method == victim and where in ("first_call", "timing"):
+            bound, calls = h._bound, []
+
+            def failing(x):
+                calls.append(1)
+                if where == "first_call" or len(calls) > 2:
+                    raise oom()
+                return bound(x)
+            h._bound = failing
+        return h
+
+    monkeypatch.setattr(th, "_build_plan", build)
+    monkeypatch.setattr(th, "_place", place)
+    monkeypatch.setattr(th, "create_handle", create)
+    monkeypatch.setattr(torch.cuda, "empty_cache",
+                        lambda: emptied.append(1))
+    return emptied
+
+
+@pytest.mark.parametrize("where", OOM_POINTS)
+def test_tune_out_of_memory_loses(cache, monkeypatch, where):
+    # an OOM is not sticky: the candidate that does not fit loses and the
+    # sweep goes on, as the JAX sweep's "a failing plan just loses"
+    emptied = oom_in(monkeypatch, st.Method.SERIAL, where)
+    a = generate.random_uniform(400, 400, 5, dtype=np.float32, seed=4)
+    h, results = tune(a, iters=2, repeats=1, device="cpu")
+    assert results["Method_Serial"] == float("inf")
+    assert h.method != st.Method.SERIAL
+    assert results[st.METHOD_NAMES[h.requested_method]] == \
+        min(results.values()) < float("inf")
+    assert emptied
 
 
 def test_chain_timing_rect_protocol():
