@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the port's f32 and f64 AUTO main paths (the graph plan among them),
 its Method.CSR5 path, its large-n path (n > 2M: column stripes and
-windowed streams), its plain plans (the ones the JAX package runs through
-XLA), its mesh plans (``spmv_tpu_torch.parallel``) in one process and on
+windowed streams), the planner's calibration (the probes, the price table
+they give, the routes under it), its plain plans (the ones the JAX package
+runs through XLA), its mesh plans (``spmv_tpu_torch.parallel``) in one process and on
 two ranks (``parallel.multihost``) and its execute-many layer (``tune``,
 the solvers, the CSV suite, Matrix Market I/O) on one NVIDIA card and
 check them.
@@ -65,13 +66,33 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    (``torch.sparse_csr_tensor(...) @ x``, timed only: the port never
    calls it), a torch.profiler window, and each kernel against its plain
    version at the main path's shapes, with its bound;
-5. windowed forms: each striped family packed as one windowed slot stream
+5. prices: the planner's calibration (``spmv_tpu_torch/bench/probes.py``,
+   ``formats/prices.py``).  One counted run of the nine probes P1-P9 on
+   the main path's clustered200k (``pack_sell8w(max_pad_ratio=3.0)``,
+   ``plan_v2(g=16)``) and P9's own arrays, which must launch each probe
+   kernel (``tile_stream``, ``tile_body``, ``window_gather``, ``tiny``,
+   ``fma_err``), each figure on a line under the JAX probe's field names;
+   each probe kernel against its plain version on every input its probes
+   give it (f32 sums within 1e-5 of the sum of magnitudes; ``tiny`` and
+   ``fma_err`` bit for bit, ``fma_err`` also equal to the exact product
+   error); the real kernels' co-timings (the slot kernel on uniform100k
+   and its f64 form at nw 1-8, the windowed slot kernel on the first
+   625,000 rows of clustered2500k_s64 at nw 1-8, the row kernel on
+   clustered200k in f32, df16 and df, webbase1m's light part at g 8 and 16,
+   its straggler stream in f32 and f64, its hub gather and fold); the table
+   ``derive_prices`` makes of them beside the committed ``H100`` and
+   ``REFERENCE``, with the drift (not a failure); then the North star's
+   nine families and the three striped large-n families planned under
+   ``H100`` beside their main-path plan, each route printed; where the
+   routes differ, both y against the family's reference and bound, and
+   both timed in turns (CUDA events, median of 30, and a profile each);
+6. windowed forms: each striped family packed as one windowed slot stream
    (as the JAX planner packs it when its gate vetoes the stripes), and
    clustered2500k_s64 and its f64 form packed as a ``sell8w_v2w`` row
    stream, each against the family's reference, each stream against its
    plain version with its bound, and each timed beside the striped plan
    of the same matrix, per call and on the card;
-6. dist path: ten mesh families through ``spmv_tpu_torch.parallel`` on a
+7. dist path: ten mesh families through ``spmv_tpu_torch.parallel`` on a
    mesh of N entries of ``cuda:0`` ("distN"), ``build_dist_auto`` (or
    ``build_dist_sell8w_plan`` where the name says ``8w``) with the plan
    kind and x mode asserted: webbase1m on 1 and 4 shards (graph: heavy
@@ -89,7 +110,7 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    single-device AUTO plan of the same matrix (what sharding costs on one
    card; in turns: mesh, single, single, mesh), cuSPARSE, and a
    torch.profiler window;
-7. multihost: the seven 4-shard dist families on two rank processes of
+8. multihost: the seven 4-shard dist families on two rank processes of
    two shards each (``init_distributed(backend="gloo")``,
    ``global_mesh_1d(device="cuda:0", local_shards=2)``: one card cannot
    hold two NCCL ranks, so this times the host staging of the collectives,
@@ -102,7 +123,7 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    single-controller plan's, the bytes a call moves between the ranks
    and one gloo all-gather of as many host bytes; the dist plans are freed
    first, so three processes fit on the card;
-8. tools: the execute-many layer through its entry points on ``cuda:0``,
+9. tools: the execute-many layer through its entry points on ``cuda:0``,
    as one counted run that must launch ``sell_slot``, ``dia`` and
    ``dia_f64``: ``tune(uniform100k)`` with the default candidates (each
    candidate's time a SpMV and plan, or its refusal; the winner the
@@ -425,6 +446,23 @@ KERNELS = {
                    "spmv_tpu/ops/pallas_sell.py:132"),
     "sell_v1_bin": ("spmv_tpu_torch/csrc/sell.cu",
                     "spmv_tpu/ops/pallas_sell.py:77"),
+    # the planner's calibration probes (P1-P9 of baselines/)
+    "tile_stream": ("spmv_tpu_torch/csrc/probes.cu",
+                    "baselines/probe2_stream.py:55"),
+    "tile_body": ("spmv_tpu_torch/csrc/probes.cu",
+                  "baselines/probe3_v2proto.py:151"),
+    "window_gather": ("spmv_tpu_torch/csrc/probes.cu",
+                      "baselines/probe_wide_gather_r5.py:88"),
+    "tiny": ("spmv_tpu_torch/csrc/probes.cu", "baselines/probe5_floor.py:69"),
+    "fma_err": ("spmv_tpu_torch/csrc/probes.cu",
+                "baselines/probe_r4_compute.py:60"),
+}
+#: the probe kernels that replace more than one Pallas probe: the others
+ALSO_REPLACES = {
+    "tile_stream": ("baselines/probe3_v2proto.py:56",
+                    "baselines/probe_step_overhead.py:54"),
+    "tile_body": ("baselines/probe2_stream.py:107",
+                  "baselines/probe4_body.py:94"),
 }
 
 
@@ -457,8 +495,11 @@ def _cmd_line(cmd):
 
 def read_counts():
     """Every kernel's launch count."""
+    from spmv_tpu_torch.bench import probes
     from spmv_tpu_torch.ops import coo2, dia, sell
-    return {"sell_row": sell.row_launches, "sell_slot": sell.slot_launches,
+    return {**{k: getattr(probes, a)
+               for k, a in probes.KERNEL_COUNTS.items()},
+            "sell_row": sell.row_launches, "sell_slot": sell.slot_launches,
             "dia": dia.launches, "sell_row_df": sell.row_df_launches,
             "sell_slot_df": sell.slot_df_launches,
             "dia_f64": dia.f64_launches,
@@ -473,7 +514,10 @@ def read_counts():
 
 
 def zero_counts():
+    from spmv_tpu_torch.bench import probes
     from spmv_tpu_torch.ops import coo2, dia, sell
+    for attr in probes.KERNEL_COUNTS.values():
+        setattr(probes, attr, 0)
     sell.row_launches = sell.slot_launches = 0
     sell.row_df_launches = sell.slot_df_launches = 0
     sell.row_bin_launches = 0
@@ -1364,7 +1408,7 @@ def main_path(dev, kern):
         for k, c in counts.items():
             launches[k] += c
 
-    windowed_ctx = {}
+    windowed_ctx, prices_ctx = {}, {}
     for name, h in handles.items():
         a, x = mats[name], xs[name]
         xh = x.cpu().numpy().astype(np.float64)
@@ -1439,7 +1483,9 @@ def main_path(dev, kern):
             **extra, "profile": prof, "streams": streams}))
         if name in WINDOWED_FORMS:
             windowed_ctx[name] = (h, a, x, ref, absref, bound)
-    return launches, windowed_ctx
+        if name in PRICE_FAMILIES:
+            prices_ctx[name] = (h, a, x, ref, absref, bound)
+    return launches, windowed_ctx, prices_ctx
 
 
 def windowed_slot_plan(a):
@@ -2228,11 +2274,315 @@ def tools_phase(dev, gpu):
     return counts
 
 
+# -- the prices phase: the probes, the calibration, the routes -------------
+
+#: the f32 families planned under the long stream's straggler price
+CHEAP_FAMILIES = ("clustered200k", "uniform100k", "powerlaw100k")
+#: the families the prices phase plans under both tables: the North star's
+#: nine and the large-n path's striped three
+PRICE_FAMILIES = ("banded4m", "clustered200k", "uniform100k", "powerlaw100k",
+                  "webbase1m", "banded1m_f64", "uniform100k_f64",
+                  "clustered200k_f64", "powerlaw100k_f64",
+                  "clustered2500k_s64", "clustered2500k_s64_f64",
+                  "uniform250k_4m_d64")
+#: the rows of clustered2500k_s64 that the windowed kernel's co-timing
+#: packs at each bundle width (a quarter: four windowed packs of the whole
+#: matrix would take most of the phase's time on the host)
+WIDE_ROWS = 625_000
+
+
+def _bound_ms(nbytes, ops=0.0):
+    """(bound_ms, bound_by) of moving ``nbytes`` and doing ``ops`` f32
+    operations on the H100."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _held(name, y, ref, absref, bound, exact=False):
+    """max |y - ref|, raising unless within bound · absref (bit for bit
+    with ``exact``)."""
+    import torch
+    y, ref = y.double().cpu(), ref.double().cpu()
+    d = (y - ref).abs()
+    ok = (bool(torch.equal(y, ref)) if exact else
+          bool((d <= bound * absref.double().cpu() + 1e-300).all()))
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             "version (max abs error "
+                             f"{float(d.max()):.3g})")
+    return float(d.max())
+
+
+def probe_kernel_records(dev, mats):
+    """Each probe kernel against its plain version on the card, on every
+    input its probes give it (f32 sums: 1e-5 of the sum of magnitudes, the
+    plain version over |values| and |x|; ``tiny`` and ``fma_err`` bit for
+    bit), timed on its main input: ``tile_stream`` on P1's S_big,
+    ``tile_body`` on P4's f32 stream, ``window_gather`` on P9's loop,
+    ``tiny`` on P6's tile, ``fma_err`` on P8's.  Returns the kernels
+    line's records by name."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from spmv_tpu_torch.bench import probes as pr
+    a, packed, v2 = pr.probe_inputs(mats["clustered"])
+    vals = torch.from_numpy(packed.vals).to(dev)
+    recs = {}
+    ones = torch.ones(8, 128, dtype=torch.float32, device=dev)
+
+    # tile_stream: S_big (64, carried), S_nodep (8, a sum a step), P3 (512)
+    err = 0.0
+    for block, acc in ((64, True), (8, False), (1, True), (512, True)):
+        ref = pr.tile_stream_plain(vals, block, acc, ones)
+        absref = pr.tile_stream_plain(vals.abs(), block, acc, ones)
+        err = max(err, _held("tile_stream", pr.tile_stream(vals, block, acc,
+                                                           ones),
+                             ref, absref, BOUND))
+    nt = vals.shape[0] // 64 * 64
+    bound, by = _bound_ms(nt * 4096 + 2 * 4096, nt * 1024)
+    recs["tile_stream"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda c: pr.tile_stream(vals, 64, True,
+                                                             c), ones),
+        plain_ms=cuda_ms(lambda c: pr.tile_stream_plain(vals, 64, True, c),
+                         ones),
+        library_ms=cuda_ms(lambda c: torch.sum(vals[:nt], 0), ones),
+        library_call="torch.sum(tiles, 0)", bound_ms=bound, bound_by=by,
+        bytes=nt * 4096 + 2 * 4096, family="clustered200k pack_sell8w "
+        "tiles (P1 S_big)")
+
+    # tile_body: P2, P4's three value modes, P5's seven variants; held on
+    # a random x and carry (the probes' x of ones would hide a gather at
+    # the wrong column, sub-row or window), timed on the probes' own
+    bodies = [pr.g8_stream(packed, dev)]
+    bodies += [pr.v2proto_stream(packed, m, dev)
+               for m in ("f32", "palette", "bf16")]
+    bodies += [pr.body_stream(v2, v, g, dev) for v, g in pr.BODY_VARIANTS]
+    rng = np.random.default_rng(3)
+    c0 = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32)
+                          ).to(dev)
+    err = 0.0
+    for b in bodies:
+        b = dc.replace(b, x=torch.from_numpy(rng.standard_normal(
+            b.x.numel()).astype(np.float32)).to(dev))
+        babs = dc.replace(b, palette=b.palette.abs(), x=b.x.abs(),
+                          vals=None if b.vals is None else b.vals.abs())
+        err = max(err, _held("tile_body", pr.tile_body(b, c0),
+                             pr.tile_body_plain(b, c0),
+                             pr.tile_body_plain(babs, c0.abs()), BOUND))
+    main = bodies[1]                   # P4, f32 values
+    slots = main.ntiles * 1024
+    nbytes = (slots * 6 + main.tinfo.numel() * 4 + main.ginfo.numel() * 4
+              + main.x.numel() * 4 + main.ngroups * 4096)
+    bound, by = _bound_ms(nbytes, 2 * slots)
+    recs["tile_body"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda c: pr.tile_body(main, c), ones),
+        plain_ms=cuda_ms(lambda c: pr.tile_body_plain(main, c), ones),
+        library_ms=None, library_call=None, bound_ms=bound, bound_by=by,
+        bytes=nbytes, family="clustered200k pack_sell8w, G 16, f32 (P4)")
+
+    # window_gather: P9's loop and wide forms
+    loop, wide, x, oracle = pr.p9_arrays()
+    xd = torch.from_numpy(x).to(dev)
+    args = {False: [torch.from_numpy(v).to(dev) for v in loop],
+            True: [torch.from_numpy(v).to(dev) for v in wide] + [None]}
+    err = 0.0
+    for w, (a0, a1, a2) in args.items():
+        y = pr.window_gather(w, a0, a1, a2, xd, 2048)
+        err = max(err, _held("window_gather", y,
+                             pr.window_gather_plain(w, a0, a1, a2, xd),
+                             pr.window_gather_plain(w, a0, a1, a2,
+                                                    xd.abs()), BOUND))
+        _held("window_gather (oracle)", y, torch.from_numpy(oracle),
+              pr.window_gather_plain(w, a0, a1, a2, xd.abs()), BOUND)
+    a0, a1, a2 = args[False]
+    nbytes = 3 * a0.numel() * 4 + xd.numel() * 4 + 4096
+    bound, by = _bound_ms(nbytes, a0.numel())
+    recs["window_gather"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda v: pr.window_gather(False, a0, a1, a2, v, 2048),
+                   xd),
+        plain_ms=cuda_ms(lambda v: pr.window_gather_plain(False, a0, a1, a2,
+                                                          v), xd),
+        library_ms=None, library_call=None, bound_ms=bound, bound_by=by,
+        bytes=nbytes, family="P9 loop, g 32, 2048 steps")
+
+    # tiny and fma_err, bit for bit
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32)
+                         ).to(dev)
+    recs["tiny"] = dict(
+        max_abs_err=_held("tiny", pr.tiny(v), pr.tiny_plain(v), None, None,
+                          exact=True),
+        ms=cuda_ms(pr.tiny, v), plain_ms=cuda_ms(pr.tiny_plain, v),
+        library_ms=cuda_ms(lambda t: torch.mul(t, 2.0), v),
+        library_call="torch.mul(v, 2.0)", bytes=8192, family="P6 tile",
+        **dict(zip(("bound_ms", "bound_by"), _bound_ms(8192, 1024))))
+    a8, b8 = (torch.from_numpy(rng.standard_normal((8, 128)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    p8 = a8 * b8
+    recs["fma_err"] = dict(
+        max_abs_err=_held("fma_err", pr.fma_err(a8, b8, p8),
+                          pr.fma_err_plain(a8, b8, p8), None, None,
+                          exact=True),
+        ms=cuda_ms(lambda t: pr.fma_err(t, b8, p8), a8),
+        plain_ms=cuda_ms(lambda t: pr.fma_err_plain(t, b8, p8), a8),
+        library_ms=None, library_call=None, bytes=16384, family="P8 tile",
+        **dict(zip(("bound_ms", "bound_by"), _bound_ms(16384, 2048))))
+    return recs
+
+
+def _rest_nnz(plan):
+    """Nonzeros of every straggler stream in a placed plan."""
+    if isinstance(plan, dict):
+        own = int(plan["rest"]["cols"].numel()) if "rest" in plan else 0
+        return own + sum(_rest_nnz(v) for k, v in plan.items()
+                         if k != "rest")
+    if isinstance(plan, (tuple, list)):
+        return sum(_rest_nnz(v) for v in plan)
+    return 0
+
+
+def route_of(h):
+    """A plan's route: its kind and value mode, each stream's kernel, nw,
+    g and tiles, and its straggler nonzeros."""
+    from spmv_tpu_torch.handle import plan_kind
+    parts = [plan_kind(h.plan), str(h.plan.get("value_mode"))]
+    for st, _cols in family_streams(h.plan):
+        if is_dia(st) or is_coo2(st):
+            parts.append(kernel_of(st))
+        else:
+            parts.append(f"{kernel_of(st)}:nw{st.nw}:g{st.g}:"
+                         f"t{st.meta.shape[0]}")
+    parts.append(f"rest{_rest_nnz(h.plan)}")
+    return " ".join(parts)
+
+
+def prices_calibration(dev, kern, mats):
+    """The probes (one counted run: each probe kernel must launch), each
+    probe kernel against its plain version, the calibration's figures and
+    the table derived from them, printed beside ``H100`` and
+    ``REFERENCE`` with the drift from ``H100``.  Returns (the derived
+    table, the figures, the probe kernels' launches)."""
+    import dataclasses as dc
+    from spmv_tpu_torch.bench import probes as pr
+    from spmv_tpu_torch.formats import prices as pm
+    for attr in pr.KERNEL_COUNTS.values():
+        setattr(pr, attr, 0)
+    runs = pr.run_probes(mats, dev)
+    counts = {k: getattr(pr, a) for k, a in pr.KERNEL_COUNTS.items()}
+    log(json.dumps({"phase": "main_path_launches", "path": "prices",
+                    **counts}))
+    for k, c in counts.items():
+        if c == 0:
+            raise AssertionError(f"prices: probe kernel {k} was not "
+                                 "launched")
+    for probe, recs in runs.items():
+        for rec in recs if isinstance(recs, list) else [recs]:
+            log(json.dumps({"phase": "prices", "probe": probe, **rec}))
+    for name, rec in probe_kernel_records(dev, mats).items():
+        kern[name].update(rec)
+        log(json.dumps({"phase": "prices", "kernel": name, **rec}))
+    cal = pr.calibrate(mats, dev, runs)
+    log(json.dumps({"phase": "prices", "figures": cal["figures"],
+                    "detail": cal["detail"]}))
+    derived = pm.derive_prices(cal["figures"])
+    table = {}
+    for f in dc.fields(pm.Prices):
+        d, h, r = (getattr(t, f.name) for t in (derived, pm.H100,
+                                                pm.REFERENCE))
+        dd, hh = (d, h) if isinstance(d, tuple) else ((d,), (h,))
+        table[f.name] = {"derived": d, "H100": h, "REFERENCE": r,
+                         "drift": [(u - v) / v if v else None
+                                   for u, v in zip(dd, hh)]}
+    log(json.dumps({"phase": "prices", "table": table}))
+    return derived, cal["figures"], counts
+
+
+def prices_routes(dev, ctx, table, names=PRICE_FAMILIES, label="h100"):
+    """Each family of ``names`` planned under ``table`` beside its
+    REFERENCE plan from the main path (``ctx``); where the routes differ,
+    both plans' y against the family's reference and bound, and both timed
+    in turns (reference, table, table, reference: CUDA events, median of
+    30) with a profile each.  ``label`` names the table in the rows."""
+    import gc
+    import spmv_tpu_torch as st
+    import torch
+    from spmv_tpu_torch.handle import plan_kind
+    rows = []
+    for name in names:
+        h_ref, a, x, ref, absref, bound = ctx[name]
+        t0 = time.perf_counter()
+        h = st.create_handle(a, method=st.Method.AUTO, device=dev,
+                             prices=table)
+        plan_s = time.perf_counter() - t0
+        r_ref, r_new = route_of(h_ref), route_of(h)
+        row = {"phase": "prices", "family": name, "route_reference": r_ref,
+               f"route_{label}": r_new, "differs": r_ref != r_new,
+               "plan_s": plan_s}
+        if r_ref != r_new:
+            for tag, hh in (("reference", h_ref), (label, h)):
+                y = hh(x)
+                # a scan plan's bound has its absolute term
+                rel, mabs, ok = scaled_err(y.cpu(), ref, absref, bound,
+                                           scan_atol(hh, a, ref))
+                if not ok:
+                    raise AssertionError(f"prices {name}: the {tag} plan's "
+                                         f"max scaled error {rel:.3g}")
+                row[f"{tag}_scaled_err"] = rel
+            ms_ref = [cuda_ms(h_ref, x)]
+            ms_new = [cuda_ms(h, x), cuda_ms(h, x)]
+            ms_ref.append(cuda_ms(h_ref, x))
+            row.update({"ms_reference": ms_ref, f"ms_{label}": ms_new,
+                        "device_ms_reference":
+                        profile_calls(h_ref, x)["device_ms"],
+                        f"device_ms_{label}":
+                        profile_calls(h, x)["device_ms"]})
+        if plan_kind(h.plan) in SCAN_KINDS:
+            raise AssertionError(f"prices {name}: the {label} table leaves "
+                                 "AUTO the tiled scan")
+        log(json.dumps(row))
+        rows.append(row)
+        del h
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def prices_phase(dev, kern, ctx):
+    """The planner's calibration: :func:`prices_calibration` on the main
+    path's matrices, then :func:`prices_routes` under the committed
+    ``H100`` table, and on :data:`CHEAP_FAMILIES` under this run's table
+    with the straggler priced on the long stream (a tenth of a tile or
+    less: the depth cap must keep each route within its spill gate).
+    Returns the probe kernels' launches."""
+    from spmv_tpu_torch.bench.probes import row_slice
+    from spmv_tpu_torch.formats.prices import H100
+    t0 = time.perf_counter()
+    mats = {"clustered": ctx["clustered200k"][1],
+            "clustered_f64": ctx["clustered200k_f64"][1],
+            "uniform": ctx["uniform100k"][1],
+            "uniform_f64": ctx["uniform100k_f64"][1],
+            "webbase": ctx["webbase1m"][1],
+            "wide": row_slice(ctx["clustered2500k_s64"][1], WIDE_ROWS)}
+    derived, figures, counts = prices_calibration(dev, kern, mats)
+    prices_routes(dev, ctx, H100)
+    long_ns = figures["rest_ns_long"]
+    prices_routes(dev, ctx, dataclasses.replace(derived, spill_ns=long_ns,
+                                                pair_spill_ns=long_ns),
+                  CHEAP_FAMILIES, "cheap_stragglers")
+    log(json.dumps({"phase": "prices", "seconds":
+                    time.perf_counter() - t0}))
+    return counts
+
+
 def kernels_line(launches, kern):
     """The ``kernels`` line's entries, one a kernel."""
     kernels = []
     for name, (src, rep) in KERNELS.items():
         k = kern[name]
+        # the probe kernels have no profile windows or padded stream
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[name],
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
@@ -2240,15 +2590,18 @@ def kernels_line(launches, kern):
                         "bound_by": k["bound_by"],
                         "library_ms": k["library_ms"],
                         "library_call": k["library_call"],
-                        "device_ms": k["device_ms"],
-                        "device_ms_spread": k["device_ms_spread"],
-                        "cold_ms": k["cold_ms"],
-                        "cold_device_ms": k["cold_device_ms"],
-                        "cold_device_ms_spread": k["cold_device_ms_spread"],
+                        "device_ms": k.get("device_ms"),
+                        "device_ms_spread": k.get("device_ms_spread"),
+                        "cold_ms": k.get("cold_ms"),
+                        "cold_device_ms": k.get("cold_device_ms"),
+                        "cold_device_ms_spread":
+                        k.get("cold_device_ms_spread"),
                         "bytes": k["bytes"],
-                        "stream_bound_ms": k["stream_bound_ms"],
-                        "stream_bytes": k["stream_bytes"],
+                        "stream_bound_ms": k.get("stream_bound_ms"),
+                        "stream_bytes": k.get("stream_bytes"),
                         "family": k["family"]})
+        if name in ALSO_REPLACES:
+            kernels[-1]["also_replaces"] = list(ALSO_REPLACES[name])
     return kernels
 
 
@@ -2311,7 +2664,10 @@ def main() -> int:
                     "events_without_kernels": seen}))
     kern = {k: {"max_abs_err": 0.0} for k in KERNELS}
     kernel_phase(dev, kern)
-    launches, ctx = main_path(dev, kern)
+    launches, ctx, pctx = main_path(dev, kern)
+    for k, c in prices_phase(dev, kern, pctx).items():
+        launches[k] += c
+    del pctx
     windowed_phase(dev, kern, ctx)
     del ctx
     with tempfile.TemporaryDirectory() as work:

@@ -112,6 +112,15 @@ def load_kernels() -> SimpleNamespace:
                                      [p] * 13 + [i64] * 7 + [p]),
                 "spmv_coo2_launch": ("coo2", ctypes.c_int,
                                      [p] * 6 + [i64] * 3 + [p]),
+                "spmv_probe_tile_stream": ("probes", ctypes.c_int,
+                                           [p] * 5 + [i64] * 4 + [p]),
+                "spmv_probe_tile_body": ("probes", ctypes.c_int,
+                                         [p] * 8 + [i64] * 7 + [p]),
+                "spmv_probe_window_gather": ("probes", ctypes.c_int,
+                                             [p] * 5 + [i64] * 3 + [p]),
+                "spmv_probe_tiny": ("probes", ctypes.c_int, [p] * 3),
+                "spmv_probe_fma_err": ("probes", ctypes.c_int,
+                                       [p] * 4 + [i64, p]),
                 "spmv_cuda_error_string": ("errors", ctypes.c_char_p,
                                            [ctypes.c_int])}.items():
             fn = getattr(libs[stem], name)

@@ -1,7 +1,9 @@
 """Graph tier: the hub-column / heavy-row split for web-graph matrices
 (the port's copy of ``spmv_tpu/formats/graph.py``; the mesh's graph plan
-builds on it).  The costs below are the JAX package's TPU prices, kept so
-the port routes as the reference does.
+builds on it).  Its costs come from a price table
+(:mod:`.prices`): by default the JAX package's, so the port routes as the
+reference does.  The figures quoted below were measured by the JAX package
+on its matrices and, where they are times, on the TPU.
 
 Ultra-sparse power-law graphs (webbase-shaped: ~2-3 nnz/row, crawl
 locality plus popular "hub" columns) defeat every single-format plan
@@ -12,7 +14,7 @@ locality plus popular "hub" columns) defeat every single-format plan
 * the row-split hybrid: length-sorting the heavy rows destroys their crawl
   locality (each compacted slice mixes rows from everywhere → every slice
   touches every window) → pad ~77;
-* XLA scan plans: the 0.13-0.5 Gelem/s gather floor (PERFNOTES.md).
+* XLA scan plans: the TPU's gather floor (PERFNOTES.md).
 
 The split that works (measured est. pad ~18 on the same matrix, 4-6x
 better, all parts riding Pallas kernels):
@@ -20,8 +22,8 @@ better, all parts riding Pallas kernels):
 1. **Hub columns** (degree ≥ max(hub_min_count, 3x the mean) — a few
    thousand columns holding 15-20% of nnz, see ``_hub_columns``) are
    REMAPPED to a compact range appended after n; the executor
-   builds ``x_ext = concat(x, x[hub_cols])`` per call (a K-element gather,
-   ~30 µs at K=4096).  Scattered hub references collapse into ≤ K/1024
+   builds ``x_ext = concat(x, x[hub_cols])`` per call (a K-element
+   gather).  Scattered hub references collapse into ≤ K/1024
    extra windows shared by BOTH parts (x_ext's prefix is x, so non-hub
    ids index it unchanged).
 2. **Heavy rows** (≥ R nnz, R scanned) are compacted in NATURAL order —
@@ -31,7 +33,7 @@ better, all parts riding Pallas kernels):
    max_len ≈ 32, not the global 8·nwin default: a 4k-link crawl row has
    ~700 links per window and must split to fill sublanes; measured
    38k → 11.7k tiles).  Packed as SELL-8W v2; output folds back with ONE
-   combined scatter-add over all compact+sub rows (~15 ns/row).
+   combined scatter-add over all compact+sub rows.
 3. **Light rows** (the 1-3-link tail, 80% crawl-local) ride SELL-8D
    bundles in natural order over the remapped columns.
 
@@ -51,15 +53,10 @@ import numpy as np
 
 from ..types import CsrMatrix
 from .sell8w import WINDOW, estimate_sell8w_tiles, split_megarows
-from .sell8d import (estimate_sell8d_auto, palette_entry_count, _TILE_NS,
-                     _SPILL_NS, _VALS_NS)
+from .prices import Prices, table as price_table
+from .sell8d import estimate_sell8d_auto, palette_entry_count
 
 __all__ = ["GraphPrep", "prepare_graph_split"]
-
-#: per-element cost of the heavy-output fold scatter-add (XLA scatter floor)
-_FOLD_NS = 15.0
-#: per-element cost of the x[hub_cols] gather (XLA gather floor)
-_HUB_NS = 8.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,17 +100,22 @@ def prepare_graph_split(a: CsrMatrix,
                         row_thresholds=(8, 16, 32),
                         mega_lens=(32, 64),
                         hub_min_count: int = 8,
-                        hub_max: int = 65536) -> Optional[GraphPrep]:
+                        hub_max: int = 65536,
+                        prices: Optional[Prices] = None
+                        ) -> Optional[GraphPrep]:
     """Build the graph-split parts, scanning the heavy-row threshold R and
     the mega-row split length.
 
     Returns None when the matrix has no exploitable split (no hubs AND no
     heavy rows — then the plain 8D/hybrid ladder is already optimal).
     The caller gates on ``cost``/``pad_ratio`` — this function only builds
-    the best candidate under the calibrated cost model.
+    the best candidate under the cost model, priced by ``prices``
+    (None is ``REFERENCE``).
     """
     if a.nnz == 0 or a.m == 0:
         return None
+    p = price_table(prices)
+    tile_ns = Prices.by_nw(p.tile_ns)
     hub_cols = _hub_columns(a, hub_min_count, hub_max)
     k = len(hub_cols) if hub_cols is not None else 0
     n_ext = a.n + k
@@ -167,9 +169,9 @@ def prepare_graph_split(a: CsrMatrix,
                 hm = m2 if subs is not None else compact
                 th = estimate_sell8w_tiles(hm)
                 nfold = hm.m
-                fold_cost = min(nfold * _FOLD_NS,
-                                1.5 * fold_slices * _TILE_NS[1])
-                hcost = th * _TILE_NS[1] + fold_cost
+                fold_cost = min(nfold * p.fold_ns,
+                                1.5 * fold_slices * p.row_tile_ns)
+                hcost = th * p.row_tile_ns + fold_cost
                 if heavy_best is None or hcost < heavy_best[0]:
                     fold = (np.concatenate([rows_h, rows_h[subs]])
                             if subs is not None else rows_h)
@@ -190,14 +192,14 @@ def prepare_graph_split(a: CsrMatrix,
                   if npal <= (64 >> (w.bit_length() - 1))] or [1, 2, 4, 8]
         best_l = None
         for w in widths:
-            tl_w, _c, sp_w = estimate_sell8d_auto(light, nw=w)
-            tns_w = _TILE_NS[w] + (
-                0.0 if npal <= (64 >> (w.bit_length() - 1)) else _VALS_NS)
-            c_w = tl_w * tns_w + sp_w * _SPILL_NS
+            tl_w, _c, sp_w = estimate_sell8d_auto(light, nw=w, prices=p)
+            tns_w = tile_ns[w] + (
+                0.0 if npal <= (64 >> (w.bit_length() - 1)) else p.vals_ns)
+            c_w = tl_w * tns_w + sp_w * p.spill_ns
             if best_l is None or c_w < best_l[0]:
                 best_l = (c_w, tl_w, sp_w, w)
         _cl, tl, spilled, nw = best_l
-        cost = (tl * _TILE_NS[nw] + spilled * _SPILL_NS + k * _HUB_NS
+        cost = (tl * tile_ns[nw] + spilled * p.spill_ns + k * p.hub_ns
                 + (heavy_best[0] if heavy_best else 0.0))
         if heavy_best is not None:
             _h, hm, fold, th = heavy_best

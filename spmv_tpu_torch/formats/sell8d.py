@@ -51,6 +51,7 @@ import numpy as np
 
 from ..types import CsrMatrix
 from . import _bf16
+from .prices import Prices, table as price_table
 from .sell8w import (LANES, SUB, WINDOW, df16_encode_lo, df16_safe,
                      value_palette)
 
@@ -123,16 +124,17 @@ class _SortedMembership:
 
 
 def _cost_cap(sizes: np.ndarray, dmax_per_pair: np.ndarray,
-              nw: int, tile_ns: Optional[float] = None,
-              spill_ns: Optional[float] = None) -> int:
+              tile_ns: float, spill_ns: float,
+              budget: Optional[int] = None) -> int:
     """Depth cap minimizing the measured cost model over candidate caps:
 
-        cost(d) = tiles(d)·TILE_NS  +  tail(d)·SPILL_NS
+        cost(d) = tiles(d)·tile_ns  +  tail(d)·spill_ns
 
     with tiles(d) = Σ_pairs min(dmax, d) and tail(d) = Σ_groups
     max(size−d, 0) (the nnz above the cap, spilled to the XLA straggler
     stream).  Both curves come from histograms — O(smax), no per-entry
-    work."""
+    work.  With a ``budget`` (nnz), only caps whose tail fits it compete
+    while any does (``Prices.cap_within_gate``)."""
     smax = int(sizes.max())
     cand_max = min(smax, 1024)
     hist_s = np.bincount(np.minimum(sizes, cand_max + 1))
@@ -157,8 +159,9 @@ def _cost_cap(sizes: np.ndarray, dmax_per_pair: np.ndarray,
     total_d = sum_d_ge[0]
     tiles = (total_d - suffix(sum_d_ge, d + 1)) + d * suffix(cnt_d_ge,
                                                             d + 1)
-    cost = tiles * (_TILE_NS[nw] if tile_ns is None else tile_ns) \
-        + tail * (_SPILL_NS if spill_ns is None else spill_ns)
+    cost = tiles * tile_ns + tail * spill_ns
+    if budget is not None and (tail <= budget).any():
+        cost = np.where(tail <= budget, cost, np.inf)
     return int(d[np.argmin(cost)])
 
 
@@ -314,30 +317,31 @@ def _apply_values(meta, slot_flat, vals_k, lb, ntiles,
 
 
 def _choose_g(slice_tiles: np.ndarray, tile_ns: float,
-              windowed: bool, keep_empty: bool = True) -> int:
+              windowed: bool, keep_empty: bool = True,
+              prices: Optional[Prices] = None) -> int:
     """Cost-optimal tiles-per-step under the calibrated step/tile model.
 
-    cost(g) = padded_tiles(g)·tile_ns + steps(g)·_STEP_NS, where padding
+    cost(g) = padded_tiles(g)·tile_ns + steps(g)·step_ns, where padding
     rounds each slice's tile run up to a multiple of g (min g).  Few
     tiles per touched slice (web graphs) → padding dominates, pick small
-    g; many → the ~75 ns step cost dominates, pick large g
-    (probe_webbase_r4e: the old always-g=8 heuristic cost webbase
-    0.13 ms/exec).  Windowed-DMA kernels cap at g=16: each step streams
-    g separate x-window bundles through VMEM."""
+    g; many → the step cost (the price table's ``step_ns``) dominates,
+    pick large g.  Windowed streams cap at g=16, as the JAX package's
+    windowed kernels stream g x-window bundles a step."""
+    step_ns = price_table(prices).step_ns
     best_g, best_c = 8, None
     for g in (8, 16) if windowed else (8, 16, 32):
         pad = -(-slice_tiles // g) * g
         if keep_empty:           # untouched slices still cost g zero tiles
             pad = np.maximum(pad, g)
         t = int(pad.sum())
-        c = t * tile_ns + (t // g) * _STEP_NS
+        c = t * tile_ns + (t // g) * step_ns
         if best_c is None or c < best_c:
             best_g, best_c = g, c
     return best_g
 
 
 def _regroup_slices(tinfo, ginfo, meta_flat, slot_flat, nslices,
-                    tile_ns, windowed, keep_empty=True):
+                    tile_ns, windowed, keep_empty=True, prices=None):
     """Re-pad a g=1 (ungrouped) native pack to the cost-optimal g.
 
     The native packer's tile layout is g-independent (g only inserts
@@ -373,7 +377,7 @@ def _regroup_slices(tinfo, ginfo, meta_flat, slot_flat, nslices,
             slice_of_tile = slice_of_tile[tile_keep]
             nt = len(tinfo)
     counts = np.bincount(slice_of_tile, minlength=nslices)
-    g = _choose_g(counts, tile_ns, windowed, keep_empty)
+    g = _choose_g(counts, tile_ns, windowed, keep_empty, prices)
     padded = -(-counts // g) * g
     if keep_empty:   # every output block visited once → zero-initialized
         padded = np.maximum(padded, g)
@@ -406,7 +410,8 @@ def pack_sell8d(a: CsrMatrix, g: Union[int, str] = 16,
                 palette_values: Optional[np.ndarray] = None,
                 use_native: bool = True,
                 keep_empty_slices: bool = True,
-                cell_w: bool = False
+                cell_w: bool = False,
+                prices: Optional[Prices] = None
                 ) -> Tuple["Sell8D", Optional[tuple]]:
     """Pack into the slot-mode deep-slice stream.
 
@@ -439,6 +444,9 @@ def pack_sell8d(a: CsrMatrix, g: Union[int, str] = 16,
     consumers that compact output blocks to visited slices, i.e. the
     striped executor (the v2 kernels zero an output block on first visit;
     a never-visited block holds garbage unless the consumer drops it).
+
+    ``prices``: the table the depth cap, the pair spills and ``g="auto"``
+    are priced with (:mod:`.prices`; None is ``REFERENCE``).
     """
     if a.nnz == 0:
         raise ValueError("empty matrix has no SELL-8D packing")
@@ -465,7 +473,9 @@ def pack_sell8d(a: CsrMatrix, g: Union[int, str] = 16,
     # packer allocates a DENSE (slice, bundle) table — skip it when that
     # table would exceed ~2 GB (huge m·n; the numpy path is sparse).
     df_in = np.dtype(a.dtype) == np.dtype(np.float64)
-    tns_tab, spill_ns = cost_tables(n > _V2_MAX_N, df_in)
+    tns_tab, spill_ns = cost_tables(n > _V2_MAX_N, df_in, prices)
+    pair_spill_ns = (price_table(prices).pair_spill_ns_df if df_in
+                     else price_table(prices).pair_spill_ns)
     if use_native and nslices * nwin <= (1 << 28) \
             and (keep_empty_slices or g_auto) \
             and (depth_cap == "auto"
@@ -475,16 +485,16 @@ def pack_sell8d(a: CsrMatrix, g: Union[int, str] = 16,
             m, n, a.rowptr, a.colidx, nw=nw, g=1 if g_auto else g,
             depth_cap=-1 if depth_cap == "auto" else int(depth_cap),
             tile_ns=tns_tab[nw], spill_ns=spill_ns,
-            pair_spill_ns=(_PAIR_SPILL_NS_DF if df_in
-                           else _PAIR_SPILL_NS),
-            max_spill=max_spill, cell_w=bool(cell_w and nw > 1))
+            pair_spill_ns=pair_spill_ns,
+            max_spill=max_spill, cell_w=bool(cell_w and nw > 1),
+            cap_within_gate=price_table(prices).cap_within_gate)
         if nat is not None:
             (tinfo, ginfo, meta_flat, slot_flat, kept_idx, spill_idx,
              _cap) = nat
             if g_auto:
                 tinfo, ginfo, meta_flat, slot_flat, g = _regroup_slices(
                     tinfo, ginfo, meta_flat, slot_flat, nslices,
-                    tns_tab[nw], n > _V2_MAX_N, keep_empty_slices)
+                    tns_tab[nw], n > _V2_MAX_N, keep_empty_slices, prices)
             ntiles = len(tinfo)
             nnz_kept = len(kept_idx)
             if nnz_kept == 0:
@@ -541,8 +551,9 @@ def pack_sell8d(a: CsrMatrix, g: Union[int, str] = 16,
     dmax_all = np.maximum.reduceat(fsizes[po], pstarts_f)
 
     if depth_cap == "auto":
-        cap = _cost_cap(fsizes, dmax_all, nw, tile_ns=tns_tab[nw],
-                        spill_ns=spill_ns)
+        cap = _cost_cap(fsizes, dmax_all, tns_tab[nw], spill_ns,
+                        int(max_spill * len(rows))
+                        if price_table(prices).cap_within_gate else None)
     elif depth_cap is None:
         cap = int(rank.max()) + 1
     else:
@@ -556,9 +567,7 @@ def pack_sell8d(a: CsrMatrix, g: Union[int, str] = 16,
     capped_f = np.minimum(fsizes, cap)
     kept_all = np.add.reduceat(capped_f[po], pstarts_f)
     drop_pairs = _pair_spill_set(pairs_all, np.minimum(dmax_all, cap),
-                                 kept_all, tns_tab[nw],
-                                 _PAIR_SPILL_NS_DF if df_in
-                                 else _PAIR_SPILL_NS,
+                                 kept_all, tns_tab[nw], pair_spill_ns,
                                  int(max_spill * len(rows))
                                  - int((fsizes - capped_f).sum()))
 
@@ -595,9 +604,8 @@ def pack_sell8d(a: CsrMatrix, g: Union[int, str] = 16,
     # cell occupancy cuts the round-1 s-conflict rate ~2×, measured 11% →
     # 5.6% on uniform100k), and repair bumps WRAP within the budget;
     # whatever a full cycle cannot place gets fresh OVERFLOW depth levels
-    # afterwards (a spilled nonzero costs ~15 ns on the XLA gather floor
-    # vs ~30 ns for a whole overflow tile that absorbs many — measured
-    # uniform100k: 51k conflict-spills cost 0.79 ms, 4× the kernel).
+    # afterwards (the JAX package measured on the TPU that a spilled
+    # nonzero costs about half a whole overflow tile, which absorbs many).
     kdmax = np.minimum(dmax_all[np.searchsorted(pairs_all, kpair)], cap)
     # stride covers the budget plus the overflow levels (≤ cap + bumps)
     md = 2 * cap + max_repair + 8
@@ -665,8 +673,8 @@ def pack_sell8d(a: CsrMatrix, g: Union[int, str] = 16,
 
     # overflow phase: whatever the wrap cycle could not place opens FRESH
     # depth levels above the pair budget (an overflow tile absorbs up to
-    # 1024 leftovers at tile cost; the XLA straggler path costs ~15 ns per
-    # nonzero).  Fresh levels cannot collide with settled entries (every
+    # 1024 leftovers at tile cost; the straggler path costs a spill price
+    # a nonzero).  Fresh levels cannot collide with settled entries (every
     # prior cell/slot key has depth < budget), only among themselves —
     # ranks are distinct per (row, bundle) group, so only the s-table can
     # conflict, resolved by plain upward bumps.
@@ -738,7 +746,7 @@ def pack_sell8d(a: CsrMatrix, g: Union[int, str] = 16,
     np.add.at(slice_tiles, slice_of_pair, tiles_per_pair)
     if g_auto:
         g = _choose_g(slice_tiles, tns_tab[nw], n > _V2_MAX_N,
-                      keep_empty_slices)
+                      keep_empty_slices, prices)
     slice_padded = -(-slice_tiles // g) * g
     if keep_empty_slices:   # untouched output blocks must be visited once
         slice_padded = np.maximum(slice_padded, g)
@@ -816,14 +824,14 @@ def pack_sell8d(a: CsrMatrix, g: Union[int, str] = 16,
     return packed, rest
 
 
-#: column-striped resident mode (round 4).  Past the VMEM-x envelope the
-#: windowed kernels pay an nw·4 KB x-window DMA PER TILE (_TILE_NS_W:
-#: 236 ns/tile at nw=8 vs 29 resident — 8x) while a column stripe of
-#: ≤ _V2_MAX_N keeps its x slice VMEM-resident and pays the slice load
-#: ONCE per pallas_call.  Stripe widths are multiples of WINDOW·8 = 8192
-#: so stripe-local bundle grids align with the global grid for every
-#: nw ∈ {1,2,4,8} — per-stripe tile counts sum to the whole-matrix
-#: estimate (no bundle straddles a boundary).
+#: column-striped resident mode.  Past the JAX package's VMEM-x envelope
+#: its windowed kernels pay an nw·4 KB x-window DMA a tile (the price
+#: table's ``tile_ns_w`` against ``tile_ns``), while a column stripe of
+#: ≤ _V2_MAX_N keeps its x slice resident and pays the slice load once a
+#: call (``stripe_overhead_ns``).  Stripe widths are multiples of
+#: WINDOW·8 = 8192 so stripe-local bundle grids align with the global
+#: grid for every nw ∈ {1,2,4,8} — per-stripe tile counts sum to the
+#: whole-matrix estimate (no bundle straddles a boundary).
 STRIPE_ALIGN = WINDOW * 8
 #: per-exec stripe budget: past this the per-call overhead dominates and
 #: the windowed kernels take back over (n > ~128M)
@@ -832,9 +840,10 @@ MAX_STRIPES = 64
 #: bundles at uniform scatter spill same-row-same-bundle collisions
 #: (measured 3.2% on uniform d=32 over n=4M — each row expects ~1 repeat
 #: among 489 bundles); housing them as depth-2 tiles DOUBLES the stream
-#: (48k → 98k tiles measured) while the compact rest path costs
-#: ~2-28 ns/nnz.  The cost model prices both — this gate only guards
-#: against rest-stream blowups, so it sits above the collision regime.
+#: (48k → 98k tiles measured) while the compact rest path costs a
+#: straggler price a nonzero.  The cost model prices both — this gate
+#: only guards against rest-stream blowups, so it sits above the
+#: collision regime.
 MAX_SPILL_STRIPED = 0.05
 
 
@@ -850,19 +859,20 @@ def column_stripe_bounds(n: int):
     return [(lo, min(lo + width, n)) for lo in range(0, n, width)]
 
 
-def stripe_overhead_ns(n: int) -> float:
-    """Per-exec overhead of the striped plan: one pallas_call plus one
-    x-slice VMEM load per stripe (~0.027 ns/B at the ~150 GB/s stream
-    rate the tile tables are calibrated against)."""
+def stripe_overhead_ns(n: int, prices: Optional[Prices] = None) -> float:
+    """Per-exec overhead of the striped plan: one kernel call a stripe
+    (``stripe_call_ns``) plus x's bytes once (``stripe_x_ns_per_byte``)."""
+    p = price_table(prices)
     nstripes = len(column_stripe_bounds(n))
-    return nstripes * _STRIPE_CALL_NS + n * 4 * 0.027
+    return nstripes * p.stripe_call_ns + n * 4 * p.stripe_x_ns_per_byte
 
 
 def pack_sell8d_striped(a: CsrMatrix, max_pad_ratio: float = 10.0,
                         nw: int = 1,
                         max_spill: float = MAX_SPILL_STRIPED,
                         force_value_mode: Optional[str] = None,
-                        use_native: bool = True, cell_w: bool = False):
+                        use_native: bool = True, cell_w: bool = False,
+                        prices: Optional[Prices] = None):
     """Column-striped resident slot-mode pack for n > _V2_MAX_N.
 
     Slices the matrix into bundle-aligned column stripes, packs each as
@@ -908,7 +918,7 @@ def pack_sell8d_striped(a: CsrMatrix, max_pad_ratio: float = 10.0,
                 sub, g="auto", max_pad_ratio=float("inf"), max_spill=1.0,
                 depth_cap=depth_cap, nw=nw,
                 force_value_mode=force_value_mode, use_native=use_native,
-                keep_empty_slices=False, cell_w=cell_w)
+                keep_empty_slices=False, cell_w=cell_w, prices=prices)
             gi = np.asarray(packed.ginfo)
             sl = gi >> 1
             vis = np.unique(sl)      # ginfo is output-block monotone
@@ -937,7 +947,7 @@ def pack_sell8d_striped(a: CsrMatrix, max_pad_ratio: float = 10.0,
     # shallow cap — the existing retry remains the safety net.
     start_cap = "auto"
     t_est, _c_est, sp_est = estimate_sell8d_auto(
-        a, nw=int(nw), windowed=False, max_spill=max_spill)
+        a, nw=int(nw), windowed=False, max_spill=max_spill, prices=prices)
     if t_est and t_est * WINDOW / max(a.nnz - sp_est, 1) \
             > 1.5 * max_pad_ratio:
         start_cap = 1
@@ -947,8 +957,9 @@ def pack_sell8d_striped(a: CsrMatrix, max_pad_ratio: float = 10.0,
             and tot_tiles * WINDOW / tot_kept > max_pad_ratio
             and any(s[3].ntiles for s in stripes)):
         # the auto cap chooser decides on tile-vs-spill ECONOMICS alone
-        # (a near-tie at 28-vs-29 ns goes deep, measured cap=2 pad 33 vs
-        # cap=1 pad 15.5 on uniform d=32 n=4M) — the pad/HBM budget is
+        # (a near-tie of the two prices goes deep: the JAX package found
+        # cap=2 pad 33 vs cap=1 pad 15.5 on uniform d=32 n=4M) — the
+        # pad/HBM budget is
         # enforced here, so retry shallow before giving up
         s1 = _pack_all(1)
         if s1[3] and s1[2] * WINDOW / s1[3] < tot_tiles * WINDOW \
@@ -1040,7 +1051,8 @@ class HybridPrep:
 
 
 def prepare_hybrid(a: CsrMatrix,
-                   row_thresholds=(16, 32, 64, 128)
+                   row_thresholds=(16, 32, 64, 128),
+                   prices: Optional[Prices] = None
                    ) -> Optional[HybridPrep]:
     """Build the row-split hybrid's parts and routing estimates.
 
@@ -1052,8 +1064,8 @@ def prepare_hybrid(a: CsrMatrix,
     natural vs 3.6k with heavy rows removed).  Light rows ride SELL-8D
     bundles in natural order (slot mode needs no reorder).  The heavy
     output folds back with one small scatter-add (heavy rows only), NOT a
-    whole-m inverse gather (~15 ns/row on the gather floor, ~0.4 ms at
-    100k rows — measured via the AUTO length-sort route).
+    whole-m inverse gather (which the JAX package measured on the TPU
+    via the AUTO length-sort route).
 
     Scans ``row_thresholds`` and keeps the cheapest under the calibrated
     cost model.  Returns None when every split is degenerate.
@@ -1086,14 +1098,15 @@ def prepare_hybrid(a: CsrMatrix,
         rp_l[1:] = np.cumsum(np.where(heavy, 0, lens))
         light = CsrMatrix(a.m, a.n, rp_l, colidx[~mask], vals[~mask])
         td = estimate_sell8w_tiles(dense_sorted)
-        ts, _cap, spilled, nw = estimate_sell8d_auto(light, nw=None)
+        ts, _cap, spilled, nw = estimate_sell8d_auto(light, nw=None,
+                                                     prices=prices)
         # dtype-aware costing: double-float tiles stream two value
         # planes (+ EFT arithmetic) so the R/nw optimum shifts — f32
-        # tables mis-place the split for f64 (measured powerlaw100k_f64
-        # 2.49 GF/s with the f32-table split vs the 1.67x kernel ratio)
+        # tables mis-place the split for f64 (the JAX package measured it
+        # on the TPU on powerlaw100k_f64)
         df = np.dtype(a.dtype) == np.dtype(np.float64)
-        ts_tab, spill_ns = cost_tables(a.n > _V2_MAX_N, df)
-        dense_ns = dense_tile_ns(df)
+        ts_tab, spill_ns = cost_tables(a.n > _V2_MAX_N, df, prices)
+        dense_ns = dense_tile_ns(df, prices)
         cost = (td * dense_ns + ts * ts_tab[nw] + spilled * spill_ns)
         if best is None or cost < best[0]:
             best = (cost, HybridPrep(
@@ -1122,100 +1135,42 @@ def estimate_sell8d_tiles(a: CsrMatrix, depth_cap: Optional[int] = None,
     return int(np.maximum.reduceat(sizes, pstarts).sum())
 
 
-#: per-tile cost model for the nw chooser, CALIBRATED ON-CHIP for the
-#: round-5 cell_w layout (baselines/probe_cell_w_r5*.out, uniform100k
-#: co-timed): merging the nw take0 gathers before ONE take1 flattens the
-#: width curve — measured marginal 12.0-13.4 / 11.1-12.8 / 10.1-13.3
-#: ns/tile for nw = 2/4/8 (classic layout: 17.3 / 24.5 / 27.6-30.3).
-#: nw=1 has no window loop and keeps its round-3 calibration.
-_TILE_NS = {1: 20.0, 2: 13.0, 4: 12.0, 8: 12.0}
-#: fixed per-grid-step cost of the slot kernel (scalar-prefetch decode +
-#: output block switch), CALIBRATED ON-CHIP (baselines/probe_webbase_r4e
-#: .out: the same light matrix packed at g=8 (3932 steps / 31456 tiles)
-#: vs g=16 (2061 / 32976) ran 0.748 vs 0.615 ms — solving the two-point
-#: system gives ~75 ns/step + ~14 ns/tile).  This is why ``g="auto"``
-#: exists: per-slice padding costs ~g/2 tiles per touched slice, the
-#: step cost ~_STEP_NS/g per tile — the optimum depends on tiles/slice.
-_STEP_NS = 75.0
-#: windowed-DMA regime (n > V2_MAX_N, x not VMEM-resident): each tile adds
-#: an nw·4 KB x-window DMA (~27 ns/window at ~150 GB/s stream rate) on top
-#: of the resident-mode cost — wider bundles get expensive fast here
-_TILE_NS_W = {1: 47.0, 2: 74.0, 4: 128.0, 8: 236.0}
-#: mirror of ops/pallas_sell.V2_MAX_N (kept host-side: formats must not
-#: import the kernel module; equality pinned by tests/test_sell8d.py)
+#: mirror of ops/sell.V2_MAX_N (kept host-side: formats must not import
+#: the kernel module)
 _V2_MAX_N = 2_000_000
-#: fixed cost of one extra pallas_call in the striped plan (dispatch +
-#: grid warm-up) — conservative placeholder pending on-chip calibration
-#: (baselines/validate_slot_v2w_onchip.py re-run measures the real value)
-_STRIPE_CALL_NS = 30_000.0
-#: XLA straggler cost per spilled nnz — measured through the handle:
-#: 51k spilled cost 0.79 ms (gather + segment-sum floor)
-_SPILL_NS = 15.0
-#: a bf16 value stream doubles tile bytes but rides the same DMA window —
-#: measured nw=8-bf16 28.5 vs nw=4-palette 26.9 ns/tile
-_VALS_NS = 4.0
-#: double-float (f64) per-tile multipliers vs the f32 tables: two value
-#: planes + the EFT arithmetic chain.  CALIBRATED ON-CHIP
-#: (baselines/probe_df_costs.out, powerlaw100k f32/f64 co-timed on
-#: identical 14184/3928-tile splits, window-normalized by the f32
-#: dense 18.5-vs-20 ratio): dense 25.7 ns/tile → 1.4x; slot nw=8
-#: 69.0 ns/tile → (69/0.93 − 2·_VALS_NS)/29 ≈ 2.2x.
-_DF_DENSE_MULT = 1.4
-_DF_SLOT_MULT = 2.2
-#: df16 (int16 lo plane, the default f64 mode) slot costs, CALIBRATED
-#: ON-CHIP for the cell_w layout (baselines/probe_cell_w_r5*.out,
-#: uniform100k f64 co-timed): 9.7-20.5 / 19.3-19.7 / 26.6-28.3 ns/tile
-#: for nw = 2/4/8 (classic: 20.5-22.8 / 28.6-31.0 / 44.6-46.1 — the
-#: round-4 compute-bound problem, attacked by merging the per-plane
-#: window gathers).  nw=2 take the conservative mid of a noisy pair.
-#: Dense (row-mode) df16 keeps the scaled estimate.
-_TILE_NS_DF16 = {1: 25.0, 2: 18.0, 4: 19.5, 8: 27.5}
-_DF16_DENSE_MULT = 1.25
-#: XLA straggler cost per spilled f64 nnz, measured END-TO-END through
-#: the handle's compact rest path (baselines/probe_webbase_r4b.out:
-#: 768 f64 stragglers cost 0.07 ms at m=100k ≈ 90 ns/nnz — any separate
-#: f64 rest pathway pays m-length f64 tail ops + the XLA per-element
-#: floor).  Pricing it honestly makes the cap chooser carry deep tails
-#: as tiles instead of creating a rest stream that costs more.
-_SPILL_NS_DF = 90.0
-#: pair-level spill price: the measured end-to-end f32 straggler cost
-#: at large m (probe_webbase_r4b.out: 13.2k rest nnz cost 0.37 ms at
-#: m=1M ≈ 28 ns/nnz), well above the 15 ns depth-cap calibration at
-#: m=100k — the round-4 rule prices pair spills conservatively so it
-#: only fires on clear wins (isolated links vs deep tiles), never
-#: 1-tile-vs-1-straggler washes
-_PAIR_SPILL_NS = 28.0
-_PAIR_SPILL_NS_DF = 100.0
 
 
-def dense_tile_ns(df) -> float:
+def dense_tile_ns(df, prices: Optional[Prices] = None) -> float:
     """Per-tile cost of the row-mode (SELL-8W v2) kernel — the hybrid
     gate's dense-side unit, co-located with the slot tables so the two
     sides stay calibrated against each other."""
+    p = price_table(prices)
     if not df:
-        return _TILE_NS[1]
-    return _TILE_NS[1] * (_DF_DENSE_MULT if df == "df"
-                          else _DF16_DENSE_MULT)
+        return p.row_tile_ns
+    return p.row_tile_ns * (p.df_dense_mult if df == "df"
+                            else p.df16_dense_mult)
 
 
-def cost_tables(windowed: bool, df):
+def cost_tables(windowed: bool, df, prices: Optional[Prices] = None):
     """(tile_ns_by_nw, spill_ns) for the (windowed-DMA, double-float)
     regime — the single source every estimator/cap chooser draws from so
     plan decisions and pack-time depth caps stay consistent.  ``df``:
     False | True (→ df16, the default f64 value mode) | "df"."""
-    base = _TILE_NS_W if windowed else _TILE_NS
+    p = price_table(prices)
+    base = Prices.by_nw(p.tile_ns_w if windowed else p.tile_ns)
     if not df:
-        return base, _SPILL_NS
+        return base, p.spill_ns
     if df == "df":
-        return ({w: v * _DF_SLOT_MULT for w, v in base.items()},
-                _SPILL_NS_DF)
+        return ({w: v * p.df_slot_mult for w, v in base.items()},
+                p.spill_ns_df)
+    df16 = Prices.by_nw(p.tile_ns_df16)
     if windowed:
-        # windowed df16: the f32 windowed DMA curve plus the measured
-        # df16 compute delta plus the second (lo) x-window plane's DMA
-        # (~27 ns per 4 KB window, PERFNOTES)
-        return ({w: _TILE_NS_W[w] + (_TILE_NS_DF16[w] - _TILE_NS[w])
-                 + 27.0 * w for w in base}, _SPILL_NS_DF)
-    return dict(_TILE_NS_DF16), _SPILL_NS_DF
+        # windowed df16: the f32 windowed curve plus the df16 compute
+        # delta plus the second (lo) x-window plane, a window a tile
+        res = Prices.by_nw(p.tile_ns)
+        return ({w: base[w] + (df16[w] - res[w]) + p.x_window_ns * w
+                 for w in base}, p.spill_ns_df)
+    return df16, p.spill_ns_df
 
 
 def slot_stream_budget(vals: np.ndarray, nw: int, df: bool) -> float:
@@ -1275,7 +1230,8 @@ def palette_entry_count(vals: np.ndarray, limit: int = 65) -> int:
 
 def estimate_sell8d_auto(a: CsrMatrix, nw: Union[int, None] = 1,
                          windowed: Optional[bool] = None,
-                         max_spill: float = 0.02):
+                         max_spill: float = 0.02,
+                         prices: Optional[Prices] = None):
     """(tiles, cap, spilled_nnz[, nw]) under the auto depth-cap rule — the
     inspector's pre-pack cost probe (mirrors pack_sell8d's cap choice).
 
@@ -1300,12 +1256,15 @@ def estimate_sell8d_auto(a: CsrMatrix, nw: Union[int, None] = 1,
     if cache is None:
         cache = {}
         object.__setattr__(a, "_e8d_cache", cache)
+    p = price_table(prices)
     ckey = (None if nw is None else int(nw), bool(windowed),
-            float(max_spill))
+            float(max_spill), p)
     if ckey in cache:
         return cache[ckey]
     df = np.dtype(a.dtype) == np.dtype(np.float64)
-    _tns, _sns = cost_tables(windowed, df)
+    _tns, _sns = cost_tables(windowed, df, p)
+    pair_spill_ns = p.pair_spill_ns_df if df else p.pair_spill_ns
+    vals_ns = 1.5 * p.vals_ns if df else p.vals_ns
     res = None
     if (max(-(-a.m // SLICE_ROWS), 1)
             * max(-(-a.n // WINDOW), 1)) <= (1 << 28):
@@ -1314,16 +1273,15 @@ def estimate_sell8d_auto(a: CsrMatrix, nw: Union[int, None] = 1,
         res = sell8d_stats_native(
             a.m, a.n, a.rowptr, a.colidx,
             [_tns[w] for w in (1, 2, 4, 8)], _sns,
-            pair_spill_ns=(_PAIR_SPILL_NS_DF if df
-                           else _PAIR_SPILL_NS),
-            max_spill=max_spill)
+            pair_spill_ns=pair_spill_ns, max_spill=max_spill,
+            cap_within_gate=p.cap_within_gate)
     if res is not None:
         tiles4, cap4, spill4 = res
         # one native stats pass prices ALL four widths — populate every
         # width's cache entry so per-width probe loops (graph prep's
         # light chooser) cost one call instead of four
         for wi2, w2 in enumerate((1, 2, 4, 8)):
-            cache[(w2, bool(windowed), float(max_spill))] = (
+            cache[(w2, bool(windowed), float(max_spill), p)] = (
                 int(tiles4[wi2]), int(cap4[wi2]), int(spill4[wi2]))
         if nw is not None:
             wi = int(nw).bit_length() - 1
@@ -1337,7 +1295,7 @@ def estimate_sell8d_auto(a: CsrMatrix, nw: Union[int, None] = 1,
             if npal > (64 >> wi):
                 # infeasible palette pays a raw value stream: one bf16
                 # plane (f32 input) or the f32-hi + int16-lo df16 pair
-                tns += 1.5 * _VALS_NS if df else _VALS_NS
+                tns += vals_ns
             cost = tiles4[wi] * tns + spill4[wi] * _sns
             if best_w is None or cost < best_w[0]:
                 best_w = (cost, wi, w)
@@ -1357,7 +1315,9 @@ def estimate_sell8d_auto(a: CsrMatrix, nw: Union[int, None] = 1,
             pw, sizes = pw[o], sizes[o]
         pstarts = np.nonzero(_first_of_group(pw))[0]
         dmax = np.maximum.reduceat(sizes, pstarts)
-        cap = _cost_cap(sizes, dmax, w, tile_ns=_tns[w])
+        cap = _cost_cap(sizes, dmax, _tns[w], p.spill_ns,
+                        int(max_spill * a.nnz) if p.cap_within_gate
+                        else None)
         capped = np.minimum(sizes, cap)
         spilled = int((sizes - capped).sum())
         dcap = np.minimum(dmax, cap)
@@ -1366,15 +1326,14 @@ def estimate_sell8d_auto(a: CsrMatrix, nw: Union[int, None] = 1,
         # see the tile counts the pack will actually realize
         kept = np.add.reduceat(capped, pstarts)
         drop = _pair_spill_set(np.arange(len(dcap)), dcap, kept, _tns[w],
-                               _PAIR_SPILL_NS_DF if df
-                               else _PAIR_SPILL_NS,
+                               pair_spill_ns,
                                int(max_spill * a.nnz) - spilled)
         if drop is not None:
             tiles -= int(dcap[drop].sum())
             spilled += int(kept[drop].sum())
         tile_ns = _tns[w]
         if nw is None and npal > (64 >> (w.bit_length() - 1)):
-            tile_ns += 1.5 * _VALS_NS if df else _VALS_NS
+            tile_ns += vals_ns
         cost = tiles * tile_ns + spilled * _sns
         if best is None or cost < best[0]:
             best = (cost, tiles, cap, spilled, w)

@@ -453,8 +453,9 @@ def split_offpalette(a: CsrMatrix, max_entries: int = 64,
     grow a long tail of distinct values where duplicate (row, col) entries
     are summed at load (webbase: 8 base values, 429 distinct after
     summing) — value_palette then rejects the WHOLE stream and the plan
-    ships a full f32 value plane (4 KB/tile, measured 21 vs ~10 ns/tile
-    on the webbase heavy part, probe_webbase_r4e).  Keeping the
+    ships a full f32 value plane (4 KB/tile; the JAX package measured
+    about twice the palette tile's time on the TPU for the webbase heavy
+    part, probe_webbase_r4e).  Keeping the
     ``max_entries - 1`` most frequent values in-palette and moving the
     exceptions (webbase: 1,433 of 1.32M nnz) to the XLA rest stream
     restores palette mode for the 99.9%.

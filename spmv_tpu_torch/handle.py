@@ -63,6 +63,7 @@ from .types import CsrMatrix, Method, VectorizedWay, METHOD_NAMES, INT_DTYPE
 from .formats import (_bf16, dia as dia_fmt, partition, sell as sell_fmt,
                       sell8w as sell8w_fmt)
 from .ops import coo2 as coo2_ops, dia as dia_ops, sell as sell_ops
+from .formats.prices import Prices, table as price_table
 from .ops import torch_csr
 from .ops.sell import V2_MAX_N
 from .utils.profiling import dev_put
@@ -109,6 +110,7 @@ class SpmvHandle:
     perm: Any = None             # reorder permutation (None if not reordered)
     _matrix: Any = None          # host CsrMatrix before any reorder
     _reorder: Optional[str] = None  # reorder kind requested at create
+    _prices: Optional[Prices] = None  # the price table planned with
 
     def __call__(self, x) -> torch.Tensor:
         return spmv(self, x)
@@ -137,7 +139,8 @@ class SpmvHandle:
                               nthreads=self.nthreads,
                               vectorized=self.vectorized,
                               mtx_token=self.mtx_token,
-                              reorder=self._reorder, device=self.device)
+                              reorder=self._reorder, device=self.device,
+                              prices=self._prices)
         self.method = fresh.method
         self.requested_method = req
         self.plan = fresh.plan
@@ -199,18 +202,20 @@ def _tile_for(nnz: int, nthreads: int, method: Method) -> int:
 
 def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
                 vectorized: VectorizedWay = VectorizedWay.VPU,
-                hints: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                hints: Optional[Dict[str, Any]] = None,
+                prices: Optional[Prices] = None) -> Dict[str, Any]:
     """The JAX planner's f32 and f64 branches, as it routes on a TPU: the
     SELL tile plans and COO2 first, then the plans the JAX package runs
-    through XLA, which every route falls back to."""
+    through XLA, which every route falls back to.  The SELL plans are
+    priced with ``prices`` (None is the JAX package's table)."""
     if (method in (Method.SELL_C_SIGMA, Method.PARALLEL)
             and vectorized != VectorizedWay.NONE):
-        plan = _plan_sell(a, hints or {})
+        plan = _plan_sell(a, hints or {}, prices)
         if plan is not None:
             return plan
     if (method == Method.CSR5 and vectorized != VectorizedWay.NONE
             and a.nnz > 0):
-        plan = _plan_csr5(a, nthreads, vectorized, hints)
+        plan = _plan_csr5(a, nthreads, vectorized, hints, prices)
         if plan is not None:
             return plan
     if method == Method.SERIAL:
@@ -280,7 +285,9 @@ def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
 
 
 def _plan_csr5(a: CsrMatrix, nthreads: int, vectorized: VectorizedWay,
-                hints: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+                hints: Optional[Dict[str, Any]],
+                prices: Optional[Prices] = None
+                ) -> Optional[Dict[str, Any]]:
     """The JAX planner's CSR5 branch on a TPU: the two-pass COO2 plan in
     f32; when its pass-2 gate refuses, and for any f64 matrix (the
     reference's CSR5 is f64 only), the SELL-8D / hybrid retry for n ≤ 2M
@@ -298,13 +305,13 @@ def _plan_csr5(a: CsrMatrix, nthreads: int, vectorized: VectorizedWay,
         # the cheap estimates first, as the JAX planner does
         from .formats.sell8d import estimate_sell8d_auto, prepare_hybrid
         WINDOW = sell8w_fmt.WINDOW
-        t8d, _c, sp, _w = estimate_sell8d_auto(a, nw=None)
+        t8d, _c, sp, _w = estimate_sell8d_auto(a, nw=None, prices=prices)
         ok = (t8d and sp <= 0.02 * a.nnz and t8d * WINDOW / a.nnz <= 32.0
               and t8d * WINDOW <= 6.7e8)
         sub_hints = hints
         if not ok:
             # heavy-tailed scatter: the row-split hybrid may still hold
-            prep = prepare_hybrid(a)
+            prep = prepare_hybrid(a, prices=prices)
             if (prep is not None and prep.tiles * WINDOW / a.nnz <= 32.0
                     and prep.tiles * WINDOW <= 6.7e8
                     and prep.spilled <= 0.02 * a.nnz):
@@ -312,7 +319,7 @@ def _plan_csr5(a: CsrMatrix, nthreads: int, vectorized: VectorizedWay,
                 sub_hints = {**(hints or {}), "hybrid_prep": prep}
         if ok:
             alt = _build_plan(a, Method.SELL_C_SIGMA, nthreads, vectorized,
-                              hints=sub_hints)
+                              hints=sub_hints, prices=prices)
             # a graph or XLA plan from the SELL branch does not count: the
             # JAX planner's CSR5 branch then takes its own tiled scan
             if any(k in alt for k in ("sell8d", "sell8d_stripes", "sell8w",
@@ -363,7 +370,8 @@ def _graph_gate(a: CsrMatrix, prep) -> bool:
             and prep.spilled <= 0.02 * a.nnz)
 
 
-def _build_graph_plan(a: CsrMatrix, prep) -> Dict[str, Any]:
+def _build_graph_plan(a: CsrMatrix, prep,
+                      prices: Optional[Prices] = None) -> Dict[str, Any]:
     """Pack the graph plan (``spmv_tpu/handle.py:_build_graph_plan``): hub
     columns appended to x, the heavy rows as SELL-8W v2 (K1 row mode), the
     light rows as SELL-8D (K1 slot mode) with one 1.0-valued entry a heavy
@@ -376,6 +384,7 @@ def _build_graph_plan(a: CsrMatrix, prep) -> Dict[str, Any]:
     stream adds into the full-m output.  Raises ``ValueError`` when a pack
     refuses or the two streams pass the 6.7e8-slot cap."""
     from .formats import sell8d as sell8d_fmt
+    p = price_table(prices)
     mem_cap = 6.7e8 / max(a.nnz, 1)
     rest_parts = []
     light_mat = prep.light
@@ -392,14 +401,14 @@ def _build_graph_plan(a: CsrMatrix, prep) -> Dict[str, Any]:
             hm = hm_p
         palette_ok = sell8w_fmt.value_palette(
             np.asarray(hm.vals)) is not None
-        tile_price = 10.0 if palette_ok else 20.0
+        # a palette tile is priced at half a row-mode tile
+        tile_price = p.row_tile_ns / 2 if palette_ok else p.row_tile_ns
         hm2, hrest, hfrac = sell8w_fmt.split_stragglers(hm)
         if hrest is not None and hfrac <= 0.05:
-            # split only when the tiles saved (at the JAX package's TPU
-            # prices a tile) beat the straggler stream's 28 ns a nonzero
+            # split only when the tiles saved beat the straggler stream
             saved = (sell8w_fmt.estimate_sell8w_tiles(hm)
                      - sell8w_fmt.estimate_sell8w_tiles(hm2))
-            if saved * tile_price > len(hrest[0]) * 28.0:
+            if saved * tile_price > len(hrest[0]) * p.pair_spill_ns:
                 rest_parts.append((prep.fold_rows[np.asarray(hrest[0])],
                                    hrest[1], hrest[2]))
                 hm = hm2
@@ -414,7 +423,7 @@ def _build_graph_plan(a: CsrMatrix, prep) -> Dict[str, Any]:
         fold_k = hm.m
     packed, rest8d = sell8d_fmt.pack_sell8d(
         light_mat, max_pad_ratio=_pad_allow(48.0, mem_cap), nw=prep.nw,
-        g="auto", cell_w=prep.nw > 1)
+        g="auto", cell_w=prep.nw > 1, prices=prices)
     rest_parts.insert(0, rest8d)
     light_plan: Dict[str, Any] = {
         "sell8d": packed, "pad_ratio": packed.pad_ratio,
@@ -446,16 +455,18 @@ def _build_graph_plan(a: CsrMatrix, prep) -> Dict[str, Any]:
     return plan
 
 
-def _plan_sell(a: CsrMatrix,
-               hints: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+def _plan_sell(a: CsrMatrix, hints: Dict[str, Any],
+               prices: Optional[Prices] = None) -> Optional[Dict[str, Any]]:
     """SELL_C_SIGMA / PARALLEL: row mode (SELL-8W v2) vs slot mode
     (SELL-8D) vs the row-split hybrid, by estimated tile count (f32) or
     estimated cost (the f64 hybrid gate) — the JAX planner's
     ``_plan_windowed`` ladder, with its graph plan (AUTO's ``graph_prep``
     hint, and the f32 last resort).  Past V2_MAX_N columns slot mode is
     column stripes or one windowed stream, by the JAX planner's cost gate,
-    and row mode is a windowed ``sell8w_v2w`` stream.  None when no tile
-    plan fits: the caller falls through to the chunked SELL plan."""
+    and row mode is a windowed ``sell8w_v2w`` stream.  Every cost is
+    priced with ``prices`` (None is the JAX package's table).  None when
+    no tile plan fits: the caller falls through to the chunked SELL
+    plan."""
     from .formats.sell8d import (MAX_SPILL_STRIPED, MAX_STRIPES,
                                  column_stripe_bounds, cost_tables,
                                  dense_tile_ns, estimate_sell8d_auto,
@@ -493,14 +504,16 @@ def _plan_sell(a: CsrMatrix,
             # slot stream over the slices it touches; the rest gets global
             # columns
             stripes, rest8d, pad = pack_sell8d_striped(
-                mat, max_pad_ratio=allow, nw=nw, cell_w=nw > 1)
+                mat, max_pad_ratio=allow, nw=nw, cell_w=nw > 1,
+                prices=prices)
             vm = max(stripes, key=lambda s: s[3].ntiles)[3].value_mode
             plan = {"sell8d_stripes": stripes, "pad_ratio": pad,
                     "value_mode": vm, "nw": nw}
             return _finish_rest(plan, [rest8d, extra.get("rest_host")])
         packed, rest8d = pack_sell8d(
             mat, max_pad_ratio=allow, nw=nw, g="auto",
-            max_spill=extra.get("sell8d_max_spill", 0.02), cell_w=nw > 1)
+            max_spill=extra.get("sell8d_max_spill", 0.02), cell_w=nw > 1,
+            prices=prices)
         plan = {"sell8d": packed, "pad_ratio": packed.pad_ratio,
                 "value_mode": packed.value_mode, "nw": packed.nw}
         return _finish_rest(plan, [rest8d, extra.get("rest_host")])
@@ -541,7 +554,7 @@ def _plan_sell(a: CsrMatrix,
             # AUTO's graph rung prepared the split (webbase-shaped matrices,
             # where every single-format estimate explodes)
             try:
-                return _build_graph_plan(a, gp)
+                return _build_graph_plan(a, gp, prices)
             except ValueError:
                 pass
         if mat.nnz:
@@ -574,20 +587,22 @@ def _plan_sell(a: CsrMatrix,
             # past V2_MAX_N: column stripes (resident tiles plus a per-
             # stripe overhead) against one windowed stream, each with its
             # own bundle width and the striped spill budget, priced by the
-            # JAX package's TPU cost tables
+            # price table
             t_res, _cr, sp_res, nw_res = estimate_sell8d_auto(
-                mat, nw=None, windowed=False, max_spill=MAX_SPILL_STRIPED)
+                mat, nw=None, windowed=False, max_spill=MAX_SPILL_STRIPED,
+                prices=prices)
             if sp_res > MAX_SPILL_STRIPED * mat.nnz:
                 t_res = 0
             t_win, _cw, sp_win, nw_win = estimate_sell8d_auto(
-                mat, nw=None, windowed=True, max_spill=MAX_SPILL_STRIPED)
+                mat, nw=None, windowed=True, max_spill=MAX_SPILL_STRIPED,
+                prices=prices)
             if sp_win > MAX_SPILL_STRIPED * mat.nnz:
                 t_win = 0
-            ts_res, sns = cost_tables(False, df)
-            ts_win, _s2 = cost_tables(True, df)
+            ts_res, sns = cost_tables(False, df, prices)
+            ts_win, _s2 = cost_tables(True, df, prices)
             inf = float("inf")
             cost_res = (t_res * ts_res[nw_res] + sp_res * sns
-                        + stripe_overhead_ns(mat.n)) if t_res else inf
+                        + stripe_overhead_ns(mat.n, prices)) if t_res else inf
             cost_win = (t_win * ts_win[nw_win] + sp_win * sns
                         ) if t_win else inf
             striped = cost_res < cost_win
@@ -598,7 +613,7 @@ def _plan_sell(a: CsrMatrix,
                 t8d, spilled, nw = t_win, sp_win, nw_win
         else:
             t8d, _cap, spilled, nw = estimate_sell8d_auto(
-                mat, nw=None, max_spill=max_sp)
+                mat, nw=None, max_spill=max_sp, prices=prices)
             if spilled > max_sp * mat.nnz:
                 t8d = 0                   # 8D alone not viable
         tried_8d = False
@@ -616,15 +631,15 @@ def _plan_sell(a: CsrMatrix,
             # the hint was prepared from the ORIGINAL matrix
             hint = hints.get("hybrid_prep")
             prep = (hint if hint is not None and mat is a
-                    else prepare_hybrid(mat))
+                    else prepare_hybrid(mat, prices=prices))
             if prep is None:
                 hybrid_wins = False
             elif df:
                 # f64 compares estimated costs, not tile counts: dense
                 # (8W) and slot (8D) double-float tiles price differently
                 ts_tab, spill_ns = cost_tables(
-                    mat.n > V2_MAX_N and not striped, True)
-                cost_8w = (t8w * dense_tile_ns(True) if t8w
+                    mat.n > V2_MAX_N and not striped, True, prices)
+                cost_8w = (t8w * dense_tile_ns(True, prices) if t8w
                            else float("inf"))
                 cost_8d = (t8d * ts_tab[nw] + spilled * spill_ns if t8d
                            else float("inf"))
@@ -692,10 +707,10 @@ def _plan_sell(a: CsrMatrix,
         if (np.dtype(a.dtype) == np.float32
                 and hints.get("graph_prep") is None):
             from .formats.graph import prepare_graph_split
-            gprep = prepare_graph_split(a)
+            gprep = prepare_graph_split(a, prices=prices)
             if _graph_gate(a, gprep):
                 try:
-                    return _build_graph_plan(a, gprep)
+                    return _build_graph_plan(a, gprep, prices)
                 except ValueError:
                     pass
     return None
@@ -726,6 +741,17 @@ def _prepare_rest(rows, cols, vals, device) -> Dict[str, Any]:
                             device),
             "vals": dev_put(_host_values(vals)[order], device),
             "nseg": int(seg[-1]) + 1 if len(seg) else 0}
+
+
+def add_rest(r: Dict[str, Any], x: torch.Tensor,
+             y: torch.Tensor) -> torch.Tensor:
+    """y += the straggler stream ``r`` (:func:`_prepare_rest`) times x, in
+    place: the products, their per-row sums on the compact domain, one
+    scatter-add into y."""
+    prod = r["vals"] * x[r["cols"]]
+    sums = torch.zeros(max(r["nseg"], 1), dtype=prod.dtype,
+                       device=x.device).index_add_(0, r["seg"], prod)
+    return y.index_add_(0, r["uniq"], sums[:r["nseg"]])
 
 
 def _stripe_slices(vis, device) -> Optional[torch.Tensor]:
@@ -909,11 +935,7 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
             kern = fn
 
             def fn(x):
-                prod = r["vals"] * x[r["cols"]]
-                sums = torch.zeros(max(r["nseg"], 1), dtype=prod.dtype,
-                                   device=x.device).index_add_(
-                                       0, r["seg"], prod)
-                return kern(x).index_add_(0, r["uniq"], sums[:r["nseg"]])
+                return add_rest(r, x, kern(x))
 
         return fn
     if "dia" in p:
@@ -969,7 +991,8 @@ def create_handle(a: CsrMatrix,
                   mtx_token: Optional[str] = None,
                   reorder: Optional[str] = None,
                   warm: bool = False,
-                  device="cuda") -> SpmvHandle:
+                  device="cuda",
+                  prices: Optional[Prices] = None) -> SpmvHandle:
     """Inspect the matrix, build the plan, place it on ``device``.
 
     ``device`` is where the plan lives and where ``spmv`` takes x; it is
@@ -981,6 +1004,11 @@ def create_handle(a: CsrMatrix,
     in and y out on every call, so ``spmv`` keeps its contract.  With
     ``mtx_token`` the permutation is cached on disk
     (``formats/reorder.py:cached_order``).  ``handle.perm`` holds it.
+
+    ``prices``: the table every plan cost is priced with
+    (``formats/prices.py``): None is ``REFERENCE``, the JAX package's
+    values, which give the JAX planner's routes; ``prices.H100`` is the
+    table derived on an H100.
     """
     if np.dtype(a.dtype) not in (np.dtype(np.float32), np.dtype(np.float64)):
         raise _not_ported(f"{np.dtype(a.dtype).name} input (neither f32 "
@@ -1021,7 +1049,7 @@ def create_handle(a: CsrMatrix,
             from .formats import reorder as reorder_mod
             from .formats.sell8d import prepare_hybrid
             from .formats.sell8w import estimate_sell8w_tiles, WINDOW
-            prep = prepare_hybrid(a)
+            prep = prepare_hybrid(a, prices=prices)
             if (prep is not None
                     and prep.tiles * WINDOW / a.nnz
                     <= min(32.0, 6.7e8 / a.nnz)
@@ -1039,7 +1067,7 @@ def create_handle(a: CsrMatrix,
                 # web-graph regime: hub columns + heavy rows
                 # (formats/graph.py), else the tiled scan
                 from .formats.graph import prepare_graph_split
-                gprep = prepare_graph_split(a)
+                gprep = prepare_graph_split(a, prices=prices)
                 if _graph_gate(a, gprep):
                     resolved = Method.SELL_C_SIGMA
                     plan_hints["graph_prep"] = gprep
@@ -1053,7 +1081,7 @@ def create_handle(a: CsrMatrix,
         if fill >= 0.02 and nblocks * bcsr_fmt.BLOCK ** 2 * 8 <= 4e9:
             resolved = Method.BCSR
     plan = _build_plan(a, resolved, nthreads, VectorizedWay(vectorized),
-                       hints=plan_hints)
+                       hints=plan_hints, prices=prices)
     if plan.pop("demoted", False):
         resolved = Method.BALANCED    # the reference's Balanced2 demotion
     placed = _place(plan, dev)
@@ -1078,7 +1106,7 @@ def create_handle(a: CsrMatrix,
         dtype=np.dtype(a.dtype), m=a.m, n=a.n, nnz=a.nnz,
         nthreads=nthreads, vectorized=VectorizedWay(vectorized),
         mtx_token=mtx_token, device=dev, plan=placed, _bound=bound,
-        perm=perm, _matrix=a_orig, _reorder=reorder)
+        perm=perm, _matrix=a_orig, _reorder=reorder, _prices=prices)
     if warm:
         spmv(h, torch.zeros(a.n, dtype=_torch_dtype(h.dtype), device=dev))
     return h

@@ -170,9 +170,9 @@ def _decide(f) -> Method:
     if f("coo2_pad") <= 6.0:
         return Method.CSR5
     # High-pad direct SELL-8W: with x resident in VMEM (n <= V2_MAX_N) the
-    # grouped v2 kernel pays only the meta/value streams + ~20 ns/tile, so
-    # even pad ~20 beats the XLA gather floor by >10x (measured 4.8 vs
-    # 0.25 GF/s, uniform100k).  Memory cap keeps the padded tile stream
+    # grouped v2 kernel pays only the meta/value streams and a tile cost,
+    # so even pad ~20 beat the XLA gather floor by >10x on the TPU (the
+    # JAX package's measurement, uniform100k).  Memory cap keeps the padded tile stream
     # under ~4 GB (mirrors handle._sell8w_plan's allowance).
     if (f("n") <= 2_000_000
             and f("sell8w_pad") <= min(32.0, 6.7e8 / max(f("nnz"), 1))):
@@ -272,7 +272,7 @@ def _device_name(dev) -> str:
 
 def tune(a: CsrMatrix, methods=None, iters: int = 5, repeats: int = 2,
          x=None, verbose: bool = False, mtx_token: str = None,
-         budget_s: float = None, device="cuda"):
+         budget_s: float = None, device="cuda", prices=None):
     """Measurement-based auto-tuner: build each candidate handle on
     ``device``, time it, return (best_handle, results).
 
@@ -302,6 +302,9 @@ def tune(a: CsrMatrix, methods=None, iters: int = 5, repeats: int = 2,
     ``budget_s`` bounds the sweep's own wall time: once spent, the
     remaining candidates are skipped (``inf``) and the best so far wins.
     The record stores the sweep's cost as ``sweep_seconds``.
+
+    ``prices`` goes to every ``create_handle`` (the price table; None is
+    the JAX package's).
     """
     import json
     import os
@@ -328,7 +331,7 @@ def tune(a: CsrMatrix, methods=None, iters: int = 5, repeats: int = 2,
             if all(rec.get(k) == v for k, v in record.items()):
                 try:
                     h = create_handle(a, method=Method(rec["method"]),
-                                      device=dev)
+                                      device=dev, prices=prices)
                     return h, {METHOD_NAMES[h.method]:
                                rec.get("seconds", float("nan"))}
                 except (ValueError, NotImplementedError):
@@ -358,7 +361,7 @@ def tune(a: CsrMatrix, methods=None, iters: int = 5, repeats: int = 2,
                       "spent)")
             continue
         try:
-            h = create_handle(a, method=method, device=dev)
+            h = create_handle(a, method=method, device=dev, prices=prices)
             dt = timing.time_spmv_chain(h._bound, xt, iters=iters, k=4,
                                         repeats=repeats)["inclusive"]
         except (ValueError, NotImplementedError,

@@ -116,7 +116,7 @@ def load_native() -> Optional[ctypes.CDLL]:
             np.ctypeslib.ndpointer(np.int32),
             np.ctypeslib.ndpointer(np.int32),
             c.c_int, c.c_int, c.c_int, c.c_double, c.c_double,
-            c.c_double, c.c_double, c.c_int,
+            c.c_double, c.c_double, c.c_int, c.c_int,
             c.POINTER(c.c_int64), c.POINTER(c.c_int64),
             c.POINTER(c.c_int64), c.POINTER(c.c_int)]
         lib.sell8d_copy.restype = None
@@ -132,7 +132,7 @@ def load_native() -> Optional[ctypes.CDLL]:
             np.ctypeslib.ndpointer(np.int32),
             np.ctypeslib.ndpointer(np.int32),
             np.ctypeslib.ndpointer(np.float64), c.c_double, c.c_double,
-            c.c_double,
+            c.c_double, c.c_int,
             np.ctypeslib.ndpointer(np.int64),
             np.ctypeslib.ndpointer(np.int64),
             np.ctypeslib.ndpointer(np.int64)]
@@ -254,11 +254,13 @@ def coo2_place_native(s_arr, r_arr, v_arr, group_w, group_lo, group_hi):
 
 def pack_sell8d_native(m, n, rowptr, colidx, nw=1, g=16, depth_cap=-1,
                        tile_ns=25.0, spill_ns=15.0, pair_spill_ns=28.0,
-                       max_spill=0.02, cell_w=False):
+                       max_spill=0.02, cell_w=False,
+                       cap_within_gate=False):
     """(tinfo, ginfo, meta_flat, slot_flat, kept_idx, spill_idx, cap) or
     None if the native library is unavailable.
 
-    ``depth_cap``: -1 = auto (the cost-model rule); positive pins it.
+    ``depth_cap``: -1 = auto (the cost-model rule, its tail within
+    ``max_spill`` with ``cap_within_gate``); positive pins it.
     """
     lib = load_native()
     if lib is None:
@@ -271,7 +273,7 @@ def pack_sell8d_native(m, n, rowptr, colidx, nw=1, g=16, depth_cap=-1,
     cap = ctypes.c_int(0)
     h = lib.sell8d_pack(m, n, rowptr, colidx, nw, g, depth_cap,
                         tile_ns, spill_ns, pair_spill_ns, max_spill,
-                        1 if cell_w else 0,
+                        1 if cell_w else 0, 1 if cap_within_gate else 0,
                         ctypes.byref(nt), ctypes.byref(nk),
                         ctypes.byref(ns), ctypes.byref(cap))
     if not h:
@@ -293,7 +295,8 @@ def pack_sell8d_native(m, n, rowptr, colidx, nw=1, g=16, depth_cap=-1,
 
 
 def sell8d_stats_native(m, n, rowptr, colidx, tile_ns, spill_ns,
-                        pair_spill_ns=28.0, max_spill=0.02):
+                        pair_spill_ns=28.0, max_spill=0.02,
+                        cap_within_gate=False):
     """Per-nw (tiles, cap, spilled) arrays for nw = 1,2,4,8, or None."""
     lib = load_native()
     if lib is None:
@@ -305,5 +308,6 @@ def sell8d_stats_native(m, n, rowptr, colidx, tile_ns, spill_ns,
     cap = np.empty(4, np.int64)
     spill = np.empty(4, np.int64)
     lib.sell8d_stats(m, n, rowptr, colidx, t_ns, spill_ns,
-                     pair_spill_ns, max_spill, tiles, cap, spill)
+                     pair_spill_ns, max_spill,
+                     1 if cap_within_gate else 0, tiles, cap, spill)
     return tiles, cap, spill

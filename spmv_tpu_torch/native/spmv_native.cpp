@@ -584,6 +584,7 @@ extern "C" void* sell8d_pack(
     int nw, int g, int depth_cap /* <=0: auto */, double tile_ns,
     double spill_ns, double pair_spill_ns, double max_spill,
     int cell_w /* round 5: window-select joins s in the cell table */,
+    int cap_within_gate /* the cap's tail within max_spill while any fits */,
     int64_t* out_ntiles, int64_t* out_nkept, int64_t* out_nspill,
     int* out_cap) {
   if (m <= 0 || n <= 0 || rowptr[m] <= 0) return nullptr;
@@ -682,13 +683,20 @@ extern "C" void* sell8d_pack(
       sd[i] = sd[i + 1] + hd[i] * i;
     }
     const int64_t total_d = sd[0] + excess_d;
+    const int64_t budget = cap_within_gate
+        ? static_cast<int64_t>(max_spill * static_cast<double>(nnz)) : -1;
     double best = 1e300;
+    bool fits = false;
     cap = 1;
     for (int64_t d = 1; d <= cm; ++d) {
       const int64_t tail = (ss[d + 1] + excess_s) - d * cs[d + 1];
       const int64_t tiles = (total_d - (sd[d + 1] + excess_d)) + d * cd[d + 1];
       const double cost = tiles * tile_ns + tail * spill_ns;
-      if (cost < best) { best = cost; cap = static_cast<int>(d); }
+      // formats/sell8d._cost_cap's budget: a fitting cap beats any other
+      const bool f = budget >= 0 && tail <= budget;
+      if ((f && !fits) || (f == fits && cost < best)) {
+        best = cost; cap = static_cast<int>(d); fits = f;
+      }
     }
   }
 
@@ -962,7 +970,8 @@ extern "C" void sell8d_free(void* h) { delete static_cast<Sell8dBuffer*>(h); }
 extern "C" void sell8d_stats(int64_t m, int64_t n, const int32_t* rowptr,
                              const int32_t* colidx, const double* tile_ns,
                              double spill_ns, double pair_spill_ns,
-                             double max_spill, int64_t* out_tiles,
+                             double max_spill, int cap_within_gate,
+                             int64_t* out_tiles,
                              int64_t* out_cap, int64_t* out_spill) {
   const int64_t nnz_total = rowptr[m];
   for (int wi = 0; wi < 4; ++wi) {
@@ -1019,15 +1028,21 @@ extern "C" void sell8d_stats(int64_t m, int64_t n, const int32_t* rowptr,
       sd[i] = sd[i + 1] + hd[i] * i;
     }
     const int64_t total_d = sd[0] + excess_d;
+    const int64_t cap_budget = cap_within_gate
+        ? static_cast<int64_t>(max_spill * static_cast<double>(nnz_total))
+        : -1;
     double best = 1e300;
+    bool fits = false;
     int64_t bcap = 1, btiles = 0, bspill = 0;
     for (int64_t d = 1; d <= cm; ++d) {
       const int64_t tail = (ss[d + 1] + excess_s) - d * cs[d + 1];
       const int64_t tiles =
           (total_d - (sd[d + 1] + excess_d)) + d * cd[d + 1];
       const double cost = tiles * tile_ns[wi] + tail * spill_ns;
-      if (cost < best) {
+      const bool f = cap_budget >= 0 && tail <= cap_budget;
+      if ((f && !fits) || (f == fits && cost < best)) {
         best = cost;
+        fits = f;
         bcap = d;
         btiles = tiles;
         bspill = tail;

@@ -56,6 +56,7 @@ import torch.distributed as dist
 
 from ..formats import _bf16
 from ..formats.partition import balanced_row_splitter
+from ..formats.prices import Prices
 from ..ops import sell as sell_ops
 from ..ops import torch_csr
 from ..types import CsrMatrix, INT_DTYPE
@@ -944,17 +945,20 @@ def _common_steps(packs, nslices: int):
 def build_dist_sell8d_plan(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
                            x_mode: str = "replicated",
                            nw: Optional[int] = None,
-                           max_pad_ratio: float = 32.0) -> DistSell8DPlan:
+                           max_pad_ratio: float = 32.0,
+                           prices: Optional[Prices] = None
+                           ) -> DistSell8DPlan:
     """Shard rows into 1024·nw-aligned blocks and pack each as SELL-8D, with
-    nw and the value mode chosen for the whole matrix."""
+    nw and the value mode chosen for the whole matrix (priced with
+    ``prices``; None is the JAX package's table)."""
     if x_mode not in _X_MODES:
         raise ValueError(f"unknown x_mode {x_mode!r}")
     return _place_sell8d(mesh, axis, *_pack_sell8d(
-        a, mesh.shape[axis], x_mode, nw, max_pad_ratio))
+        a, mesh.shape[axis], x_mode, nw, max_pad_ratio, prices))
 
 
 def _pack_sell8d(a: CsrMatrix, ndev: int, x_mode: str, nw: Optional[int],
-                 max_pad_ratio: float):
+                 max_pad_ratio: float, prices: Optional[Prices] = None):
     from ..formats.sell8d import SLICE_ROWS, estimate_sell8d_auto, \
         pack_sell8d
     df = np.dtype(a.dtype) == np.float64
@@ -965,7 +969,7 @@ def _pack_sell8d(a: CsrMatrix, ndev: int, x_mode: str, nw: Optional[int],
     if a.nnz == 0:
         raise ValueError("empty matrix has no SELL-8D packing")
     if nw is None:
-        _t, _c, _s, nw = estimate_sell8d_auto(a, nw=None)
+        _t, _c, _s, nw = estimate_sell8d_auto(a, nw=None, prices=prices)
     align = SLICE_ROWS * nw
     mr = max(-(-a.m // (ndev * align)) * align, align)
     halo = _halo_depth(a, ndev, mr) if x_mode == "halo" else 0
@@ -978,7 +982,8 @@ def _pack_sell8d(a: CsrMatrix, ndev: int, x_mode: str, nw: Optional[int],
             continue
         p, rest = pack_sell8d(local, max_pad_ratio=max_pad_ratio, nw=nw,
                               force_value_mode=force_mode,
-                              palette_values=pal_shared, cell_w=nw > 1)
+                              palette_values=pal_shared, cell_w=nw > 1,
+                              prices=prices)
         packs.append(p)
         if rest is not None:
             # rows and columns back to global ids
@@ -1084,20 +1089,21 @@ class DistSell8DColsPlan:
 def build_dist_sell8d_cols_plan(a: CsrMatrix, mesh: Mesh,
                                 axis: str = "rows",
                                 nw: Optional[int] = None,
-                                max_pad_ratio: float = 32.0
+                                max_pad_ratio: float = 32.0,
+                                prices: Optional[Prices] = None
                                 ) -> DistSell8DColsPlan:
     """Shard COLUMNS into bundle-aligned blocks, pack each as SELL-8D.
 
     Each block must fit the JAX package's resident-x bound (raises when
     n/ndev > V2_MAX_N after alignment).  Packs keep empty slices, so every
     shard's partial covers all m rows and the sum needs no visibility
-    maps."""
+    maps.  Priced with ``prices`` (None is the JAX package's table)."""
     return _place_sell8d_cols(mesh, axis, *_pack_sell8d_cols(
-        a, mesh.shape[axis], nw, max_pad_ratio))
+        a, mesh.shape[axis], nw, max_pad_ratio, prices))
 
 
 def _pack_sell8d_cols(a: CsrMatrix, ndev: int, nw: Optional[int],
-                      max_pad_ratio: float):
+                      max_pad_ratio: float, prices: Optional[Prices] = None):
     from ..formats.sell8d import (SLICE_ROWS, STRIPE_ALIGN, _V2_MAX_N,
                                   estimate_sell8d_auto, pack_sell8d)
     from ..formats.sell8w import LANES, SUB
@@ -1115,7 +1121,8 @@ def _pack_sell8d_cols(a: CsrMatrix, ndev: int, nw: Optional[int],
             f"({_V2_MAX_N}); use the row-sharded windowed plan")
     if nw is None:
         # resident pricing: each shard's x slice is resident
-        _t, _c, _s, nw = estimate_sell8d_auto(a, nw=None, windowed=False)
+        _t, _c, _s, nw = estimate_sell8d_auto(a, nw=None, windowed=False,
+                                              prices=prices)
     force_mode, pal_shared = _shared_value_mode(np.asarray(a.vals), nw,
                                                df)
     lens = a.row_lengths.astype(np.int64)
@@ -1139,7 +1146,8 @@ def _pack_sell8d_cols(a: CsrMatrix, ndev: int, nw: Optional[int],
         p, rest = pack_sell8d(sub, max_pad_ratio=float("inf"),
                               max_spill=1.0, nw=nw, g=g_use,
                               force_value_mode=force_mode,
-                              palette_values=pal_shared, cell_w=nw > 1)
+                              palette_values=pal_shared, cell_w=nw > 1,
+                              prices=prices)
         g_use = p.g
         packs.append(p)
         tot_tiles += p.ntiles
@@ -1240,9 +1248,11 @@ def _halo_straggler_split(a: CsrMatrix, mr: int):
 
 
 def build_dist_auto(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
-                    x_mode: str = "auto") -> DistAutoPlan:
+                    x_mode: str = "auto",
+                    prices: Optional[Prices] = None) -> DistAutoPlan:
     """One-call distributed handle: the plan family AND x placement, by the
-    JAX package's gates (its TPU prices included): banded → dist DIA; past
+    JAX package's gates, priced with ``prices`` (``formats/prices.py``;
+    None is ``REFERENCE``, the JAX package's table): banded → dist DIA; past
     2M columns with blocks that fit → column shards; heavy-tailed mixes →
     the row-split hybrid (dense 8W part + light 8D part); windowed pad ≤ 32
     → dist SELL-8W or SELL-8D by cost; f32 web graphs → the graph split;
@@ -1300,7 +1310,8 @@ def build_dist_auto(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
             # and one sum
             try:
                 plan = build_dist_sell8d_cols_plan(a, mesh, axis,
-                                                   max_pad_ratio=32.0)
+                                                   max_pad_ratio=32.0,
+                                                   prices=prices)
                 return DistAutoPlan(
                     kind="sell8d_cols", x_mode="col-shards", m=a.m, n=a.n,
                     nnz=a.nnz, parts={"sell8d_cols": plan},
@@ -1309,19 +1320,21 @@ def build_dist_auto(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
             except ValueError:
                 pass
         if _pairs_floor_pad(a) <= 32.0:
-            t8d, _cap, spilled, nw = estimate_sell8d_auto(a, nw=None)
+            t8d, _cap, spilled, nw = estimate_sell8d_auto(a, nw=None,
+                                                          prices=prices)
             pad8d = t8d * WINDOW / a.nnz if t8d else float("inf")
             if spilled > 0.02 * a.nnz:
                 pad8d = float("inf")
             t8w = estimate_sell8w_tiles(a)
             pad8w = t8w * WINDOW / a.nnz if t8w else float("inf")
-            ts_tab, spill_ns = cost_tables(False, df)
-            cost_8w = (t8w * dense_tile_ns(df) if t8w else float("inf"))
+            ts_tab, spill_ns = cost_tables(False, df, prices)
+            cost_8w = (t8w * dense_tile_ns(df, prices) if t8w
+                       else float("inf"))
             cost_8d = (t8d * ts_tab[nw] + spilled * spill_ns
                        if pad8d < float("inf") else float("inf"))
             prep = None
             if min(pad8w, pad8d) > 4.0:
-                prep = prepare_hybrid(a)
+                prep = prepare_hybrid(a, prices=prices)
                 if (prep is not None
                         and (prep.cost >= 0.85 * min(cost_8w, cost_8d)
                              or prep.spilled > 0.02 * a.nnz)):
@@ -1339,7 +1352,7 @@ def build_dist_auto(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
                     allow_s = min(96.0, 6.7e8 / max(prep.sparse.nnz, 1))
                     light_plan, mu2 = _with_fallback(
                         build_dist_sell8d_plan, prep.sparse, mesh, axis,
-                        nw=prep.nw, max_pad_ratio=allow_s)
+                        nw=prep.nw, max_pad_ratio=allow_s, prices=prices)
                     return DistAutoPlan(
                         kind="hybrid", x_mode=f"{mu1}/{mu2}", m=a.m, n=a.n,
                         nnz=a.nnz,
@@ -1363,7 +1376,8 @@ def build_dist_auto(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
             if pad8d <= 32.0:
                 try:
                     plan, m_used = _with_fallback(
-                        build_dist_sell8d_plan, a, mesh, axis, nw=nw)
+                        build_dist_sell8d_plan, a, mesh, axis, nw=nw,
+                        prices=prices)
                     return DistAutoPlan(
                         kind="sell8d", x_mode=m_used, m=a.m, n=a.n,
                         nnz=a.nnz, parts={"sell8d": plan},
@@ -1388,7 +1402,7 @@ def build_dist_auto(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
             # the light plan's x-extension entries
             from ..formats.graph import prepare_graph_split
             from ..handle import _append_fold_entries, _graph_gate
-            gprep = prepare_graph_split(a)
+            gprep = prepare_graph_split(a, prices=prices)
             if _graph_gate(a, gprep):
                 try:
                     parts = {}
@@ -1404,7 +1418,7 @@ def build_dist_auto(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
                             np.asarray(gprep.light.vals).dtype)
                     light_plan, mu_l = _with_fallback(
                         build_dist_sell8d_plan, light_mat, mesh, axis,
-                        nw=gprep.nw, max_pad_ratio=96.0)
+                        nw=gprep.nw, max_pad_ratio=96.0, prices=prices)
                     parts["light"] = light_plan
                     if gprep.hub_cols is not None:
                         parts["hub_cols"] = _idx(gprep.hub_cols)

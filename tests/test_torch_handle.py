@@ -529,7 +529,8 @@ def test_port_imports_no_jax(tmp_path):
     # source, and runs f32 and f64 SELL plans, a COO2 plan, packed by the
     # fused C++ pipeline, a graph plan and a Balanced scan, and the
     # execute-many layer: tune, the solvers, the CSV suite and a Matrix
-    # Market round trip through the C++ parser
+    # Market round trip through the C++ parser; the calibration probes and
+    # the price table import no JAX either
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     shutil.copytree(os.path.join(root, "spmv_tpu_torch"),
                     tmp_path / "spmv_tpu_torch",
@@ -587,6 +588,12 @@ def test_port_imports_no_jax(tmp_path):
         "t = mmio.read_mtx(sys.argv[1] + '/s.mtx')\n"
         "assert mmio.reads == {'native': 1, 'python': 0}, mmio.reads\n"
         "assert np.array_equal(t.vals, s.vals)\n"
+        "from spmv_tpu_torch.bench import probes\n"
+        "from spmv_tpu_torch.formats import prices\n"
+        "h = st.create_handle(s, device='cpu', prices=prices.H100)\n"
+        "assert h._prices is prices.H100\n"
+        "assert probes.probe_fma('cpu')['fused_exact']\n"
+        "assert probes.tiny(torch.ones(8, 128)).sum() == 2048\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'ml_dtypes', 'spmv_tpu')]\n"
         "assert not bad, bad\n")
