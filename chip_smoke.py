@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the port's f32 and f64 AUTO main paths (the graph plan among them),
-its Method.CSR5 path, its large-n path (n > 2M: column stripes and
+its bf16 matrices, its Method.CSR5 path, its large-n path (n > 2M: column stripes and
 windowed streams), the planner's calibration (the probes, the price table
 they give, the routes under it), its plain plans (the ones the JAX package
 runs through XLA), its mesh plans (``spmv_tpu_torch.parallel``) in one process and on
@@ -66,6 +66,20 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    (``torch.sparse_csr_tensor(...) @ x``, timed only: the port never
    calls it), a torch.profiler window, and each kernel against its plain
    version at the main path's shapes, with its bound;
+4b. bf16: six main-path matrices rounded to bf16
+   (``CsrMatrix.astype(torch.bfloat16)``) through AUTO, each with the
+   route the JAX planner gives bf16 asserted (the tile routes are f32/f64
+   only): banded4m (DIA, ``dia`` on bf16 diagonals), clustered200k and
+   uniform100k (the chunked SELL-C-σ), powerlaw100k (``SELL_C_SIGMA``
+   falling back to the tiled scan), webbase1m (a plain plan, logged) and
+   block512_bcsr (BCSR), and powerlaw100k through ``build_dist_auto`` on
+   4 entries of ``cuda:0`` (the scan).  One counted run (every count 0
+   before, read after) must launch ``dia``.  Per family: the route, y (f32)
+   against ``spmv_golden`` of the decoded matrix (1e-5, the scans' absolute
+   term), ms a call, device ms and idle share, beside the f32 handle's ms a
+   call and cuSPARSE's in f32; banded4m's y and plan bytes must equal its
+   f32 handle's bit for bit (the dyadic band's f32 plan already streams
+   lossless bf16 diagonals); lines ``{"phase": "bf16", ...}``;
 5. prices: the planner's calibration (``spmv_tpu_torch/bench/probes.py``,
    ``formats/prices.py``).  One counted run of the nine probes P1-P9 on
    the main path's clustered200k (``pack_sell8w(max_pad_ratio=3.0)``,
@@ -342,6 +356,23 @@ PLAIN_FAMILIES = {
 }
 #: the plan kinds whose f32 sums are prefix sums
 SCAN_KINDS = ("scan", "balanced2")
+#: the bf16 phase: family → (the main path's f32 family rounded to bf16,
+#: the method AUTO must resolve to and the plan it must build, the kernels
+#: it must launch); None: any of BF16_KINDS (the route is logged)
+BF16_FAMILIES = {
+    "banded4m_bf16": ("banded4m", "DIA", "dia", ("dia",)),
+    "clustered200k_bf16": ("clustered200k", "SELL_C_SIGMA", "chunked-sell",
+                           ()),
+    "uniform100k_bf16": ("uniform100k", "SELL_C_SIGMA", "chunked-sell", ()),
+    "powerlaw100k_bf16": ("powerlaw100k", "SELL_C_SIGMA", "scan", ()),
+    "webbase1m_bf16": ("webbase1m", None, None, ()),
+    "block512_bcsr_bf16": ("block512_bcsr", "BCSR", "bcsr", ()),
+}
+#: the bf16 phase's mesh family: (name, the matrix, shards, the kind)
+BF16_DIST = ("powerlaw100k_bf16_dist4", "powerlaw100k", 4, "scan")
+#: the plans the JAX planner gives a bf16 matrix (its SELL and COO2 tile
+#: routes take f32 and f64 only)
+BF16_KINDS = ("dia", "chunked-sell", "scan", "balanced2", "bcsr", "serial")
 #: the striped families whose windowed forms the windowed phase runs, and
 #: those it also packs as a sell8w_v2w row stream
 WINDOWED_FORMS = ("clustered2500k_s64", "clustered2500k_s64_f64",
@@ -1311,7 +1342,7 @@ def bcsr_tf32(h, x, ref, absref, bound):
                                               bound)[0]}
 
 
-def main_path(dev, kern):
+def main_path(dev, kern, gpu):
     import numpy as np
     import torch
     import spmv_tpu_torch as st
@@ -1485,7 +1516,145 @@ def main_path(dev, kern):
             windowed_ctx[name] = (h, a, x, ref, absref, bound)
         if name in PRICE_FAMILIES:
             prices_ctx[name] = (h, a, x, ref, absref, bound)
+    for k, c in bf16_phase(dev, kern, gpu, handles, mats, xs, pre).items():
+        launches[k] += c
     return launches, windowed_ctx, prices_ctx
+
+
+def bf16_phase(dev, kern, gpu, handles, mats, xs, pre):
+    """The bf16 matrices (``BF16_FAMILIES``, ``BF16_DIST``): each main-path
+    matrix rounded to bf16 and planned by AUTO, its route asserted, one
+    counted run, then per family y against the decoded matrix's reference
+    and the times beside its f32 handle's and cuSPARSE's.  Returns the
+    run's counts."""
+    import numpy as np
+    import torch
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch.handle import plan_kind
+    from spmv_tpu_torch.parallel import build_dist_auto, make_mesh_1d
+    from spmv_tpu_torch.utils.profiling import predeal_profile
+
+    t_phase = time.perf_counter()
+    hs, decoded, recs = {}, {}, {}
+    for name, (src, method, kind, _k) in BF16_FAMILIES.items():
+        t0 = time.perf_counter()
+        a = mats[src].astype(torch.bfloat16)
+        t_cast = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with predeal_profile() as laps:
+            h = st.create_handle(a, device=dev)
+        predeal = time.perf_counter() - t0
+        got = plan_kind(h.plan)
+        if (h.dtype != torch.bfloat16 or got not in BF16_KINDS
+                or (kind and (got, h.method) != (kind,
+                                                  getattr(st.Method,
+                                                          method)))):
+            raise AssertionError(f"{name}: AUTO planned {got} "
+                                 f"({h.method_name}, {h.dtype}), expected "
+                                 f"{kind} ({method})")
+        if src == "powerlaw100k" and h.plan.get("sell_fallback") != "scan":
+            raise AssertionError(f"{name}: not the chunked SELL's scan "
+                                 "fall-back")
+        hs[name], decoded[name] = h, a.astype(np.float32)
+        recs[name] = {"source": src, "method": h.method_name, "plan": got,
+                      "sell_fallback": h.plan.get("sell_fallback"),
+                      "f32_method": handles[src].method_name,
+                      "f32_plan": plan_kind(handles[src].plan),
+                      "cast_ms": t_cast * 1e3,
+                      "pack_ms": (predeal - laps["transfer_s"]) * 1e3,
+                      "transfer_ms": laps["transfer_s"] * 1e3,
+                      "plan_mb": laps["bytes"] / 1e6,
+                      "f32_plan_mb": pre[src]["plan_mb"]}
+        log(f"# {name}: {h!r} predeal {predeal * 1e3:.0f} ms")
+    dname, dsrc, nd, dkind = BF16_DIST
+    t0 = time.perf_counter()
+    dplan = build_dist_auto(mats[dsrc].astype(torch.bfloat16),
+                            make_mesh_1d(nd, device=dev))
+    d_predeal = time.perf_counter() - t0
+    if dplan.kind != dkind:
+        raise AssertionError(f"{dname}: build_dist_auto gave {dplan.kind}, "
+                             f"expected {dkind}")
+
+    # the counted run: every count to 0, each family once, read back
+    zero_counts()
+    ys = {name: st.spmv(h, xs[BF16_FAMILIES[name][0]])
+          for name, h in hs.items()}
+    ys[dname] = dplan(xs[dsrc])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(json.dumps({"phase": "main_path_launches", "path": "bf16",
+                    **counts}))
+    for name, (_s, _m, _k, kernels) in BF16_FAMILIES.items():
+        for k in kernels:
+            if counts[k] == 0:
+                raise AssertionError(f"{name}: kernel {k} was not launched")
+
+    def held(name, y, dec, x, fn, atol):
+        """The record of y = fn(x): y against the reference of ``dec`` (the
+        decoded matrix) within its bound plus ``atol``, and the times."""
+        xh = x.cpu().numpy().astype(np.float64)
+        ref, absref, bound, ref_name = reference(dec, xh, np)
+        ref, absref = torch.from_numpy(ref), torch.from_numpy(absref)
+        y = y.cpu()
+        if (y.shape != (dec.m,) or y.dtype != torch.float32
+                or not bool(torch.isfinite(y).all())):
+            raise AssertionError(f"{name}: bad output {y.dtype} "
+                                 f"{tuple(y.shape)}")
+        rel, mabs, ok = scaled_err(y, ref, absref, bound, atol)
+        if not ok:
+            raise AssertionError(f"{name}: max scaled error {rel:.3g} "
+                                 f"against {ref_name}")
+        return {"reference": ref_name, "bound": bound, "atol": atol,
+                "max_scaled_err": rel, "max_abs_err": mabs,
+                "ms": cuda_ms(fn, x), "profile": profile_calls(fn, x)}
+
+    for name, h in hs.items():
+        src = BF16_FAMILIES[name][0]
+        dec, x, h32 = decoded.pop(name), xs[src], handles[src]
+        rec = held(name, ys.pop(name), dec, x, h, scan_atol(h, dec, None))
+        y, y32 = h(x), h32(x)
+        rec["same_y_as_f32"] = bool(torch.equal(y, y32))
+        # whether the f32 handle repeats its own y bit for bit (a plan
+        # that adds with atomics, index_add_, need not)
+        rec["f32_repeats_its_y"] = bool(torch.equal(y32, h32(x)))
+        del y, y32
+        rec["f32_ms"] = cuda_ms(h32, x)
+        rec["ms_over_f32"] = rec["ms"] / rec["f32_ms"]
+        csr = matrix_csr(dec, dev)
+        rec["library_ms"] = cuda_ms(lambda v: csr @ v, x)
+        del csr
+        if src == "banded4m":
+            # the dyadic band: the f32 plan's diagonals are lossless bf16
+            # already, so both handles hold the same plan and give the
+            # same y; the bf16 stream's kernel against its plain version
+            d16, d32 = h.plan["dia"], h32.plan["dia"]
+            if (not rec["same_y_as_f32"] or d16.offsets != d32.offsets
+                    or d16.data.dtype != torch.bfloat16
+                    or not torch.equal(d16.data, d32.data)
+                    or recs[name]["plan_mb"] != recs[name]["f32_plan_mb"]):
+                raise AssertionError(f"{name}: not the f32 handle's plan "
+                                     "and y bit for bit")
+            k = check_stream(d16, x)
+            kern["dia"]["max_abs_err"] = max(kern["dia"]["max_abs_err"],
+                                             k["max_abs_err"])
+            rec["kernel_max_abs_err"] = k["max_abs_err"]
+        log(json.dumps({"phase": "bf16", "family": name, "gpu": gpu,
+                        "m": dec.m, "n": dec.n, "nnz": dec.nnz,
+                        **recs[name], **rec}))
+        del dec
+    a = mats[dsrc].astype(np.float32)
+    shard_nnz = max(int(t.numel()) for t in dplan.parts["scan"].vals_pad)
+    rec = held(dname, ys.pop(dname), a, xs[dsrc], dplan,
+               2e-4 * (shard_nnz / 150_000) ** 0.5)
+    rec["single_ms"] = cuda_ms(hs[f"{dsrc}_bf16"], xs[dsrc])
+    log(json.dumps({"phase": "bf16", "family": dname, "gpu": gpu,
+                    "source": dsrc, "kind": dplan.kind,
+                    "x_mode": dplan.x_mode, "shards": nd,
+                    "predeal_ms": d_predeal * 1e3, "m": a.m, "n": a.n,
+                    "nnz": a.nnz, **rec}))
+    log(json.dumps({"phase": "bf16_wall", "seconds":
+                    time.perf_counter() - t_phase}))
+    return counts
 
 
 def windowed_slot_plan(a):
@@ -2351,6 +2520,17 @@ def probe_kernel_records(dev, mats):
         library_call="torch.sum(tiles, 0)", bound_ms=bound, bound_by=by,
         bytes=nt * 4096 + 2 * 4096, family="clustered200k pack_sell8w "
         "tiles (P1 S_big)")
+    # P3 (512 tiles a step) and P7 (1 and 8, every tile) sum the same
+    # stream: one torch.sum over each one's tiles; P2, P4, P5, P8 and P9
+    # have no PyTorch call that computes their function
+    nt3 = vals.shape[0] // 512 * 512
+    log(json.dumps({"phase": "prices", "probe_library_call":
+                    "torch.sum(tiles, 0)", "probe_library_ms": {
+                        "P1": recs["tile_stream"]["library_ms"],
+                        "P3": cuda_ms(lambda c: torch.sum(vals[:nt3], 0),
+                                      ones),
+                        "P7": cuda_ms(lambda c: torch.sum(vals, 0), ones)},
+                    "tiles": {"P1": nt, "P3": nt3, "P7": vals.shape[0]}}))
 
     # tile_body: P2, P4's three value modes, P5's seven variants; held on
     # a random x and carry (the probes' x of ones would hide a gather at
@@ -2664,7 +2844,7 @@ def main() -> int:
                     "events_without_kernels": seen}))
     kern = {k: {"max_abs_err": 0.0} for k in KERNELS}
     kernel_phase(dev, kern)
-    launches, ctx, pctx = main_path(dev, kern)
+    launches, ctx, pctx = main_path(dev, kern, smi)
     for k, c in prices_phase(dev, kern, pctx).items():
         launches[k] += c
     del pctx

@@ -6,7 +6,10 @@ device=...)`` then ``spmv(h, x)`` on torch tensors.  The port runs the
 f32 and f64 AUTO main path and Method.CSR5: DIA, the SELL-8W/SELL-8D tile
 streams and the two-pass COO2 plan through hand-written CUDA kernels for
 ``sm_90a`` (``csrc/``), each with a plain PyTorch version that CPU
-tensors take.  f64 matrices compute in native f64.  ``parallel`` holds the
+tensors take.  f64 matrices compute in native f64; bf16 matrices
+(``CsrMatrix(..., vals=<torch.bfloat16 tensor>)`` or ``astype(
+torch.bfloat16)``) take the JAX planner's bf16 routes and give f32 y.
+``parallel`` holds the
 mesh plans; ``tune``, ``solvers``, ``io.mmio`` and ``bench`` (timing and
 the CSV suite) are the execute-many layer on top.  The package imports no
 JAX.

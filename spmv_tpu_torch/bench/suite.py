@@ -43,6 +43,7 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..formats import _bf16
 from ..types import CsrMatrix, Method, METHOD_NAMES, VECTORIZED_NAMES
 from ..oracle import rmse as _rmse, spmv_golden
 from .timing import (empty_cache_after_oom, is_cuda_error, synchronize,
@@ -72,6 +73,10 @@ BUILTIN_MATRICES = {
 
 def _gen(kind: str, dtype, m: int) -> CsrMatrix:
     from ..io import generate
+    if _bf16.is_bf16(dtype):
+        # generate in f32, then round (CsrMatrix.astype), as chip_smoke.py
+        # casts its bf16 families
+        return _gen(kind, np.float32, m).astype(dtype)
     if kind == "banded":
         return generate.banded(m, m, 4, dtype=dtype, seed=7)
     if kind == "uniform":
@@ -125,7 +130,11 @@ def bench_matrix(name: str, a: CsrMatrix,
 
     out = sys.stdout if out is None else out
     dev = _resolve_device(device)
-    x = np.random.default_rng(0).standard_normal(a.n).astype(a.dtype)
+    # x in the matrix's type, as the JAX suite draws it (bf16-rounded for a
+    # bf16 matrix, passed as f32)
+    x = np.random.default_rng(0).standard_normal(a.n)
+    x = (_bf16.round_f32(x) if a.dtype == torch.bfloat16
+         else x.astype(a.dtype))
     golden = spmv_golden(a.astype(np.float64), x.astype(np.float64))
     xt = torch.from_numpy(x).to(dev, _torch_dtype(a.dtype))
     threads = torch.get_device_module(dev.type).device_count()
@@ -191,7 +200,8 @@ def _external_baselines(name, a, x, xt, golden, iters, out) -> List[str]:
     rows = []
     try:
         import scipy.sparse as sp
-        s = sp.csr_matrix((a.vals, a.colidx, a.rowptr), shape=(a.m, a.n))
+        s = sp.csr_matrix((_bf16.as_float(a.vals), a.colidx, a.rowptr),
+                          shape=(a.m, a.n))
         t0 = time.perf_counter()
         n_it = max(3, iters)
         for _ in range(n_it):
@@ -209,7 +219,8 @@ def _external_baselines(name, a, x, xt, golden, iters, out) -> List[str]:
         csr = torch.sparse_csr_tensor(
             torch.from_numpy(a.rowptr.astype(np.int64)),
             torch.from_numpy(a.colidx.astype(np.int64)),
-            torch.from_numpy(np.ascontiguousarray(a.vals)).to(xt.dtype),
+            torch.from_numpy(np.ascontiguousarray(
+                _bf16.as_float(a.vals))).to(xt.dtype),
             size=(a.m, a.n), check_invariants=False).to(dev)
         synchronize(dev)
         predeal_ms = (time.perf_counter() - t0) * 1e3
@@ -260,10 +271,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="torch device the handles live on (default cuda)")
     args = p.parse_args(argv)
 
-    if args.dtype == "bfloat16":
-        from ..handle import _not_ported
-        raise _not_ported("bfloat16 input", 6)
-    dtype = np.dtype(args.dtype)
+    dtype = (torch.bfloat16 if args.dtype == "bfloat16"
+             else np.dtype(args.dtype))
     if args.methods == "all":
         methods = list(_DEFAULT_METHODS)
     else:

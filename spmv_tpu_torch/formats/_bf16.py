@@ -1,16 +1,22 @@
 """bfloat16 without ``ml_dtypes``: numpy bit operations, stored as uint16.
 
-The JAX package keeps lossless-bf16 value streams as ``ml_dtypes.bfloat16``
-arrays; the machine that runs the port has no ``ml_dtypes``.  A bf16 array
-here is a ``uint16`` array holding the top 16 bits of the float32 value.
-Torch sees it through :func:`as_torch` (a bit view, no copy on the host).
+The JAX package keeps bf16 matrices and lossless-bf16 value streams as
+``ml_dtypes.bfloat16`` arrays; the machine that runs the port has no
+``ml_dtypes``.  A bf16 array here is a ``uint16`` array holding the top 16
+bits of the float32 value: a bf16 ``CsrMatrix``'s values and the packs'
+bf16 planes alike.  Torch sees it through :func:`as_torch` (a bit view, no
+copy on the host); :func:`bits_of` takes a ``torch.bfloat16`` tensor, or
+an ``ml_dtypes`` array where that package is installed, back to bits.
+Code that reads values as numbers goes through :func:`as_float`, never
+``astype``, which would read the bits as integers.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["from_f32", "to_f32", "is_lossless", "as_torch"]
+__all__ = ["from_f32", "to_f32", "is_lossless", "as_torch", "bits_of",
+           "as_float", "round_f32", "is_bf16", "refuse"]
 
 
 def from_f32(v) -> np.ndarray:
@@ -44,3 +50,47 @@ def as_torch(b):
     return torch.from_numpy(
         np.ascontiguousarray(b, dtype=np.uint16).view(np.int16)
     ).view(torch.bfloat16)
+
+
+def bits_of(v) -> np.ndarray:
+    """bf16 values → their uint16 bits: a ``torch.bfloat16`` tensor (moved
+    to the host), or a numpy array whose ``dtype.name`` is "bfloat16"
+    (``ml_dtypes``, never imported here)."""
+    if hasattr(v, "dtype") and str(v.dtype) == "torch.bfloat16":
+        import torch
+        return v.detach().cpu().contiguous().view(torch.int16).numpy() \
+            .view(np.uint16)
+    a = np.ascontiguousarray(v)
+    if a.dtype.name != "bfloat16":
+        raise TypeError(f"not a bfloat16 array: {a.dtype}")
+    return a.view(np.uint16)
+
+
+def as_float(v) -> np.ndarray:
+    """Values as numbers: bf16 bits (uint16) decoded to float32, any other
+    array as it is."""
+    a = np.asarray(v)
+    return to_f32(a) if a.dtype == np.uint16 else a
+
+
+def round_f32(v) -> np.ndarray:
+    """Floats rounded to their nearest bf16 values, as float32: what
+    ``v.astype(ml_dtypes.bfloat16)`` holds (an f64 array rounds through
+    float32 first, as ``ml_dtypes`` does)."""
+    return to_f32(from_f32(np.asarray(v, dtype=np.float32)))
+
+
+def refuse(vals, what: str) -> None:
+    """Raise ``ValueError`` when ``vals`` are bf16 bits: ``what`` takes
+    f32 and f64 values only, as the JAX planner keeps bf16 matrices off
+    its SELL and COO2 tile routes."""
+    if np.asarray(vals).dtype == np.uint16:
+        raise ValueError(f"{what} takes float32 or float64 values, not "
+                         "bfloat16")
+
+
+def is_bf16(dtype) -> bool:
+    """Whether ``dtype`` is bfloat16: ``torch.bfloat16``, or a numpy or
+    ``ml_dtypes`` type of that name."""
+    name = getattr(dtype, "name", None) or getattr(dtype, "__name__", None)
+    return str(dtype) == "torch.bfloat16" or name == "bfloat16"

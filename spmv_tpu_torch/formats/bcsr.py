@@ -76,12 +76,14 @@ def pack_bcsr(a: CsrMatrix, max_blocks: int = None,
     uniq, inv = np.unique(key, return_inverse=True)
     if max_blocks is not None and len(uniq) > max_blocks:
         raise ValueError(f"bcsr: {len(uniq)} blocks exceeds {max_blocks}")
-    dtype = np.float32 if np.dtype(a.dtype).itemsize <= 4 else np.float64
+    # f64 stays f64; f32 and bf16 (its values decoded) fill f32 blocks
+    vals = _bf16.as_float(a.vals)
+    dtype = np.float64 if vals.dtype == np.float64 else np.float32
     blocks = np.zeros((len(uniq), BLOCK, BLOCK), dtype=dtype)
-    blocks[inv, rows % BLOCK, cols % BLOCK] = a.vals.astype(dtype)
+    blocks[inv, rows % BLOCK, cols % BLOCK] = vals.astype(dtype)
     if compress == "lossless" and dtype == np.float32:
         from .dia import is_lossless_bf16
-        if is_lossless_bf16(a.vals):
+        if is_lossless_bf16(vals):
             blocks = _bf16.from_f32(blocks)
     return BcsrMatrix(
         m=a.m, n=a.n, nnz_stored=a.nnz, nblocks=len(uniq),

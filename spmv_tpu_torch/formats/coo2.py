@@ -29,6 +29,7 @@ import numpy as np
 
 from .. import native
 from ..types import CsrMatrix, INT_DTYPE
+from . import _bf16
 from .sell8w import Sell8W, pack_sell8w, pairs_lower_bound, LANES, SUB, WINDOW
 
 __all__ = ["Coo2", "pack_coo2", "packs"]
@@ -120,7 +121,9 @@ def pack_coo2(a: CsrMatrix, super_slices: int = 40,
     least one tile per (row-slice, column-window) pair, so matrices whose
     rows scatter across many windows (under ~8 nnz per row per window)
     explode pass 2; raise ValueError so the handle falls back (the frontier
-    where the reference's CSR5 tiles degenerate to one row per tile)."""
+    where the reference's CSR5 tiles degenerate to one row per tile).
+    f32 values only (``_bf16.refuse``; the planner packs f32)."""
+    _bf16.refuse(a.vals, "pack_coo2")
     if a.nnz == 0:
         raise ValueError("empty matrix: use another method")
     if max_pad2 is not None:

@@ -70,7 +70,8 @@ def is_lossless_bf16(vals: np.ndarray) -> bool:
 def pack_dia(a: CsrMatrix, compress: str = "lossless") -> DiaMatrix:
     """``compress``: "lossless" stores diagonals as bf16 when every value is
     exactly representable (no accuracy change — accumulation stays f32);
-    "bf16" forces it (lossy); "none" keeps the input dtype.
+    "bf16" forces it (lossy); "none" keeps the input dtype.  A bf16
+    matrix's diagonals stay bf16 (its bits) whatever ``compress`` says.
     """
     rows, off, uniq = _offsets_of(a)
     lo = int(uniq.min())
@@ -83,9 +84,9 @@ def pack_dia(a: CsrMatrix, compress: str = "lossless") -> DiaMatrix:
     data_t[rows, inv] = a.vals
     data = np.ascontiguousarray(data_t.T)
     del data_t
-    if compress == "bf16" or (
-            compress == "lossless"
-            and np.dtype(a.dtype) == np.float32
-            and is_lossless_bf16(a.vals)):
+    if data.dtype != np.uint16 and (
+            compress == "bf16" or (compress == "lossless"
+                                   and a.dtype == np.float32
+                                   and is_lossless_bf16(a.vals))):
         data = _bf16.from_f32(data)
     return DiaMatrix(a.m, a.n, a.nnz, uniq.astype(INT_DTYPE), data)

@@ -446,8 +446,10 @@ def pack_sell8d(a: CsrMatrix, g: Union[int, str] = 16,
     a never-visited block holds garbage unless the consumer drops it).
 
     ``prices``: the table the depth cap, the pair spills and ``g="auto"``
-    are priced with (:mod:`.prices`; None is ``REFERENCE``).
+    are priced with (:mod:`.prices`; None is ``REFERENCE``).  f32 and f64
+    values only (``_bf16.refuse``).
     """
+    _bf16.refuse(a.vals, "pack_sell8d")
     if a.nnz == 0:
         raise ValueError("empty matrix has no SELL-8D packing")
     g_auto = g == "auto"
@@ -1104,7 +1106,7 @@ def prepare_hybrid(a: CsrMatrix,
         # planes (+ EFT arithmetic) so the R/nw optimum shifts — f32
         # tables mis-place the split for f64 (the JAX package measured it
         # on the TPU on powerlaw100k_f64)
-        df = np.dtype(a.dtype) == np.dtype(np.float64)
+        df = a.dtype == np.float64
         ts_tab, spill_ns = cost_tables(a.n > _V2_MAX_N, df, prices)
         dense_ns = dense_tile_ns(df, prices)
         cost = (td * dense_ns + ts * ts_tab[nw] + spilled * spill_ns)
@@ -1212,8 +1214,9 @@ def palette_entry_count(vals: np.ndarray, limit: int = 65) -> int:
     ``limit`` — the nw chooser's palette-feasibility probe.  f64 inputs
     count distinctness at full precision (palette_df stores hi+lo planes
     per entry; an f32 cast could merge distinct f64 values and declare a
-    palette feasible that _apply_values would then reject)."""
-    v = np.asarray(vals)
+    palette feasible that _apply_values would then reject).  bf16 bits
+    count as their values."""
+    v = _bf16.as_float(vals)
     if v.dtype != np.float64:
         v = v.astype(np.float32)
     v = v.reshape(-1)
@@ -1261,7 +1264,7 @@ def estimate_sell8d_auto(a: CsrMatrix, nw: Union[int, None] = 1,
             float(max_spill), p)
     if ckey in cache:
         return cache[ckey]
-    df = np.dtype(a.dtype) == np.dtype(np.float64)
+    df = a.dtype == np.float64
     _tns, _sns = cost_tables(windowed, df, p)
     pair_spill_ns = p.pair_spill_ns_df if df else p.pair_spill_ns
     vals_ns = 1.5 * p.vals_ns if df else p.vals_ns

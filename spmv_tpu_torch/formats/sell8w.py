@@ -516,7 +516,9 @@ def pack_sell8w(a: CsrMatrix, max_pad_ratio: Optional[float] = None,
 
     Uses the C++ packer (native/spmv_native.cpp) when available — same
     greedy, ~30× faster on multi-million-nnz matrices — else pure numpy.
+    f32 and f64 values only (``_bf16.refuse``).
     """
+    _bf16.refuse(a.vals, "pack_sell8w")
     nslices = max(-(-a.m // LANES), 1)
     if max_pad_ratio is not None and a.nnz:
         # sortless lower-bound gate: refuse exploding packings before

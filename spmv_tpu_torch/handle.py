@@ -48,7 +48,11 @@ the f32 last resort of the SELL ladder are the JAX planner's, TPU gate on.
 every call.
 
 An f64 matrix runs in native f64 end to end: x, the kernels' sums and y.
-A matrix of any other type raises ``NotImplementedError`` (ROADMAP item 6).
+A bf16 matrix (``torch.bfloat16``, ``types.CsrMatrix``) takes the routes
+the JAX planner gives it on a TPU: every SELL and COO2 tile route is
+f32/f64 only, so it runs the plain plans, in f32 (y is f32), and DIA, whose
+bf16 diagonals go to K3 unchanged; its plan keeps bf16 values on the
+device.  A matrix of any other type raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .types import CsrMatrix, Method, VectorizedWay, METHOD_NAMES, INT_DTYPE
+from .types import (CsrMatrix, Method, VectorizedWay, METHOD_NAMES,
+                    INT_DTYPE, dtype_name)
 from .formats import (_bf16, dia as dia_fmt, partition, sell as sell_fmt,
                       sell8w as sell8w_fmt)
 from .ops import coo2 as coo2_ops, dia as dia_ops, sell as sell_ops
@@ -79,12 +84,6 @@ __all__ = [
 ]
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to spmv_tpu_torch yet (ROADMAP.md, "
-        f"'Next slices', item {item})")
-
-
 # --------------------------------------------------------------------------
 # Handle
 # --------------------------------------------------------------------------
@@ -96,7 +95,7 @@ class SpmvHandle:
 
     method: Method               # resolved (AUTO → concrete)
     requested_method: Method
-    dtype: np.dtype
+    dtype: Any                   # the matrix's: np.dtype or torch.bfloat16
     m: int
     n: int
     nnz: int
@@ -121,7 +120,7 @@ class SpmvHandle:
 
     def __repr__(self) -> str:
         return (f"SpmvHandle({self.method_name}, {self.m}x{self.n}, "
-                f"nnz={self.nnz}, dtype={np.dtype(self.dtype).name}, "
+                f"nnz={self.nnz}, dtype={dtype_name(self.dtype)}, "
                 f"plan={plan_kind(self.plan)}, device={self.device})")
 
     def clear(self) -> None:
@@ -200,21 +199,28 @@ def _tile_for(nnz: int, nthreads: int, method: Method) -> int:
     return base
 
 
+def _tiles_ok(a: CsrMatrix) -> bool:
+    """Whether the SELL and COO2 tile routes take ``a``: f32 and f64 only,
+    as the JAX planner gates its Pallas tile routes."""
+    return a.dtype in (np.float32, np.float64)
+
+
 def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
                 vectorized: VectorizedWay = VectorizedWay.VPU,
                 hints: Optional[Dict[str, Any]] = None,
                 prices: Optional[Prices] = None) -> Dict[str, Any]:
-    """The JAX planner's f32 and f64 branches, as it routes on a TPU: the
-    SELL tile plans and COO2 first, then the plans the JAX package runs
-    through XLA, which every route falls back to.  The SELL plans are
-    priced with ``prices`` (None is the JAX package's table)."""
+    """The JAX planner, as it routes on a TPU: for f32 and f64 the SELL
+    tile plans and COO2 first, then the plans the JAX package runs through
+    XLA, which every route falls back to (and which a bf16 matrix takes
+    directly).  The SELL plans are priced with ``prices`` (None is the JAX
+    package's table)."""
     if (method in (Method.SELL_C_SIGMA, Method.PARALLEL)
-            and vectorized != VectorizedWay.NONE):
+            and vectorized != VectorizedWay.NONE and _tiles_ok(a)):
         plan = _plan_sell(a, hints or {}, prices)
         if plan is not None:
             return plan
     if (method == Method.CSR5 and vectorized != VectorizedWay.NONE
-            and a.nnz > 0):
+            and _tiles_ok(a) and a.nnz > 0):
         plan = _plan_csr5(a, nthreads, vectorized, hints, prices)
         if plan is not None:
             return plan
@@ -257,7 +263,8 @@ def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
                 "nblock_rows": -(-a.m // bcsr_fmt.BLOCK), "fill": b.fill}
     if method == Method.DIA:
         # one plan covers the JAX package's Pallas and XLA DIA plans: any
-        # ndiags the profitability gate admits, any m and n
+        # ndiags the profitability gate admits, any m and n; bf16
+        # diagonals stay bf16
         ndiags, fill = dia_fmt.dia_profile(a)
         if a.nnz and (fill < 0.02 or ndiags > 4096):
             raise ValueError(
@@ -364,7 +371,7 @@ def _graph_gate(a: CsrMatrix, prep) -> bool:
     ``spmv_tpu/handle.py:_graph_gate``: within V2_MAX_N columns after the
     hub extension, pad bounded, spill bounded, f32."""
     return (prep is not None
-            and np.dtype(a.dtype) == np.float32
+            and a.dtype == np.float32
             and prep.n_ext <= V2_MAX_N
             and prep.pad_ratio(a.nnz) <= min(48.0, 6.7e8 / max(a.nnz, 1))
             and prep.spilled <= 0.02 * a.nnz)
@@ -720,9 +727,13 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any],
 # Placement and binding (device work)
 # --------------------------------------------------------------------------
 
-def _host_values(vals) -> np.ndarray:
-    """Values as the plan streams them: f64 stays f64, the rest is f32."""
+def _host_values(vals):
+    """Values as the plan streams them: f64 stays f64, bf16 bits become a
+    ``torch.bfloat16`` tensor (the plain plans upcast it a call), the rest
+    is f32."""
     v = np.asarray(vals)
+    if v.dtype == np.uint16:
+        return _bf16.as_torch(v)
     return v if v.dtype == np.float64 else v.astype(np.float32)
 
 
@@ -1009,10 +1020,14 @@ def create_handle(a: CsrMatrix,
     (``formats/prices.py``): None is ``REFERENCE``, the JAX package's
     values, which give the JAX planner's routes; ``prices.H100`` is the
     table derived on an H100.
+
+    ``a`` holds float32, float64 or bfloat16 values; y is f64 for f64 and
+    f32 otherwise.
     """
-    if np.dtype(a.dtype) not in (np.dtype(np.float32), np.dtype(np.float64)):
-        raise _not_ported(f"{np.dtype(a.dtype).name} input (neither f32 "
-                          "nor f64; the JAX package also takes bf16)", 6)
+    if not (_tiles_ok(a) or a.dtype == torch.bfloat16):
+        raise NotImplementedError(
+            f"{dtype_name(a.dtype)} values: spmv_tpu_torch takes float32, "
+            "float64 or bfloat16 matrices, as the JAX package does")
     dev = _resolve_device(device)
     requested = Method(method)
     a_orig = a
@@ -1063,9 +1078,10 @@ def create_handle(a: CsrMatrix,
                 if est <= min(32.0, 6.7e8 / a.nnz):
                     a, row_perm, resolved = (a_try, perm_try,
                                              Method.SELL_C_SIGMA)
-            if resolved == Method.BALANCED:
+            if resolved == Method.BALANCED and a.dtype == np.float32:
                 # web-graph regime: hub columns + heavy rows
-                # (formats/graph.py), else the tiled scan
+                # (formats/graph.py), else the tiled scan; the gate takes
+                # f32 only, so no other type prepares the split
                 from .formats.graph import prepare_graph_split
                 gprep = prepare_graph_split(a, prices=prices)
                 if _graph_gate(a, gprep):
@@ -1103,7 +1119,7 @@ def create_handle(a: CsrMatrix,
         bound = lambda x: inner(x)[inv_dev]     # noqa: E731
     h = SpmvHandle(
         method=resolved, requested_method=requested,
-        dtype=np.dtype(a.dtype), m=a.m, n=a.n, nnz=a.nnz,
+        dtype=a.dtype, m=a.m, n=a.n, nnz=a.nnz,
         nthreads=nthreads, vectorized=VectorizedWay(vectorized),
         mtx_token=mtx_token, device=dev, plan=placed, _bound=bound,
         perm=perm, _matrix=a_orig, _reorder=reorder, _prices=prices)
@@ -1113,15 +1129,16 @@ def create_handle(a: CsrMatrix,
 
 
 def _torch_dtype(dtype) -> torch.dtype:
-    """The type x and y take for a matrix of ``dtype``."""
-    return (torch.float64 if np.dtype(dtype) == np.dtype(np.float64)
-            else torch.float32)
+    """The type x and y take for a matrix of ``dtype``: f64 for f64, f32
+    for f32 and bf16."""
+    return torch.float64 if dtype == np.float64 else torch.float32
 
 
 def spmv(handle: SpmvHandle, x) -> torch.Tensor:
     """Execute y = A @ x.  ``x`` is a tensor on ``handle.device`` (a numpy
-    array is copied there), cast to the matrix's type; the result is a
-    tensor of that type (float32 or float64) there."""
+    array is copied there), cast to f64 for an f64 matrix and to f32
+    otherwise (a bf16 x upcasts exactly); the result is a tensor of that
+    type there."""
     if handle._bound is None:
         raise RuntimeError("handle was cleared/destroyed; create a new one")
     if not isinstance(x, torch.Tensor):
@@ -1144,11 +1161,11 @@ def spmv_create_handle_all_in_one(m: int, n: int, rowptr, colidx, vals,
                                   vectorized: VectorizedWay = VectorizedWay.VPU,
                                   mtx_token: Optional[str] = None,
                                   device="cuda") -> SpmvHandle:
-    """Raw-array parity constructor (include/spmv.h:41-52)."""
-    vals = np.asarray(vals)
-    if dtype is not None:
-        vals = vals.astype(dtype)
+    """Raw-array parity constructor (include/spmv.h:41-52); ``dtype`` may
+    be ``torch.bfloat16``."""
     a = CsrMatrix(m, n, rowptr, colidx, vals)
+    if dtype is not None:
+        a = a.astype(dtype)
     return create_handle(a, method=method, nthreads=nthreads,
                          vectorized=vectorized, mtx_token=mtx_token,
                          device=device)

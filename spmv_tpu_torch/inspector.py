@@ -313,13 +313,14 @@ def tune(a: CsrMatrix, methods=None, iters: int = 5, repeats: int = 2,
     import torch
 
     from .bench import timing
+    from .formats import _bf16
     from .handle import _resolve_device, _torch_dtype, create_handle, \
         plan_kind
-    from .types import METHOD_NAMES
+    from .types import METHOD_NAMES, dtype_name
 
     dev = _resolve_device(device)
     record = {"m": int(a.m), "nnz": int(a.nnz),
-              "dtype": str(np.dtype(a.dtype)), "device": _device_name(dev)}
+              "dtype": dtype_name(a.dtype), "device": _device_name(dev)}
     if mtx_token:
         path = _tune_cache_path(mtx_token)
         if os.path.exists(path):
@@ -345,7 +346,11 @@ def tune(a: CsrMatrix, methods=None, iters: int = 5, repeats: int = 2,
                    Method.CSR5, Method.BALANCED2, Method.BALANCED,
                    Method.SERIAL]
     if x is None:
-        x = np.random.default_rng(0).standard_normal(a.n).astype(a.dtype)
+        # x in the matrix's type, as the JAX tuner draws it: a bf16
+        # matrix's x is rounded to bf16 (and passed as f32)
+        x = np.random.default_rng(0).standard_normal(a.n)
+        x = (_bf16.round_f32(x) if a.dtype == torch.bfloat16
+             else x.astype(a.dtype))
     xt = torch.as_tensor(x).to(dev, _torch_dtype(a.dtype)).contiguous()
 
     sweep_t0 = time.perf_counter()

@@ -19,7 +19,8 @@ from typing import Optional
 
 import numpy as np
 
-from ..types import CsrMatrix, INT_DTYPE
+from ..formats import _bf16
+from ..types import CsrMatrix, INT_DTYPE, dtype_name
 
 __all__ = ["read_mtx", "write_mtx", "load_matrix", "cache_path", "reads"]
 
@@ -30,6 +31,14 @@ reads = {"native": 0, "python": 0}
 
 #: rows a formatting pass of ``write_mtx``
 _WRITE_ROWS = 1 << 16
+
+
+def _cast(vals: np.ndarray, dtype) -> np.ndarray:
+    """f64 values in ``dtype``; ``torch.bfloat16`` gives their bf16 bits,
+    rounded as ``astype(ml_dtypes.bfloat16)`` rounds."""
+    if _bf16.is_bf16(dtype):
+        return _bf16.from_f32(vals)
+    return vals.astype(dtype)
 
 
 def read_mtx(path: str, dtype=np.float64, use_native: bool = True) -> CsrMatrix:
@@ -45,7 +54,7 @@ def read_mtx(path: str, dtype=np.float64, use_native: bool = True) -> CsrMatrix:
         if parsed is not None:
             reads["native"] += 1
             m, n, rows, cols, vals = parsed
-            return CsrMatrix.from_coo(m, n, rows, cols, vals.astype(dtype),
+            return CsrMatrix.from_coo(m, n, rows, cols, _cast(vals, dtype),
                                       sum_duplicates=True)
     reads["python"] += 1
     with open(path, "r") as f:
@@ -122,7 +131,7 @@ def _finalize(m, n, rows, cols, vals, symmetry, dtype) -> CsrMatrix:
             np.concatenate([vals, sign * vals[off]]),
         )
     return CsrMatrix.from_coo(m, n, rows.astype(INT_DTYPE),
-                              cols.astype(INT_DTYPE), vals.astype(dtype),
+                              cols.astype(INT_DTYPE), _cast(vals, dtype),
                               sum_duplicates=True)
 
 
@@ -132,7 +141,7 @@ def write_mtx(path: str, a: CsrMatrix) -> None:
     rows at a time (one ``%`` over the block, not one a row)."""
     rows = np.repeat(np.arange(a.m, dtype=np.int64), a.row_lengths) + 1
     cols = a.colidx.astype(np.int64) + 1
-    vals = a.vals.astype(np.float64)
+    vals = _bf16.as_float(a.vals).astype(np.float64)
     with open(path, "w") as f:
         f.write("%%MatrixMarket matrix coordinate real general\n")
         f.write(f"{a.m} {a.n} {a.nnz}\n")
@@ -157,16 +166,17 @@ def load_matrix(path: str, dtype=np.float64, use_cache: bool = True,
     """Load a MatrixMarket file, via the binary cache when available.
 
     Mirrors the reference's load flow (test_spmv.c:167-186): probe cache,
-    else parse and save.
+    else parse and save.  ``dtype`` may be ``torch.bfloat16``: the f64
+    values are rounded as ``CsrMatrix.astype`` rounds them.
     """
     cpath = cache_path(path, cache_dir)
     if use_cache and os.path.exists(cpath):
         z = np.load(cpath)
         return CsrMatrix(int(z["m"]), int(z["n"]), z["rowptr"], z["colidx"],
-                         z["vals"].astype(dtype))
+                         _cast(z["vals"], dtype))
     a = read_mtx(path, dtype=np.float64)
     if use_cache:
         os.makedirs(os.path.dirname(cpath) or ".", exist_ok=True)
         np.savez(cpath, m=a.m, n=a.n, rowptr=a.rowptr, colidx=a.colidx,
                  vals=a.vals)
-    return a.astype(dtype) if a.dtype != np.dtype(dtype) else a
+    return a if dtype_name(a.dtype) == dtype_name(dtype) else a.astype(dtype)

@@ -8,6 +8,10 @@ BalancedYid, Balanced2 and CSR5's fall-through, the chunked SELL-C-σ plan
 products, and the mesh's shard bodies (the tiled scan of the dist scan
 plan and the shifted FMAs of the dist DIA plan, ``parallel/mesh.py``).
 The JAX plans' sorted ``segment_sum`` becomes ``index_add_``.
+
+bf16 values upcast to x's type (f32 for a bf16 plan) before the product,
+and every sum runs in that type, as ``_acc_dtype`` does in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -22,6 +26,12 @@ __all__ = ["gather_x", "segment_sum_spmv", "scan_spmv_global",
 def gather_x(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The hot gather; indices are in bounds by construction."""
     return x[idx]
+
+
+def _as_x(vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``vals`` in x's type (bf16 values upcast exactly; no copy when the
+    types agree)."""
+    return vals.to(x.dtype)
 
 
 def segment_sum_spmv(rows, colidx, vals, x, *, m: int) -> torch.Tensor:
@@ -39,7 +49,8 @@ def scan_spmv_global(colidx_pad, vals_pad, row_start, row_end,
     stream; row i is ``csum[end_i] - csum[start_i]`` (the stream carries
     one prepended zero).  Its f32 sums carry about eps·sqrt(nnz) absolute
     error, as the JAX plan's do."""
-    csum = torch.cumsum(vals_pad * gather_x(x, colidx_pad), dim=0)
+    csum = torch.cumsum(_as_x(vals_pad, x) * gather_x(x, colidx_pad),
+                        dim=0)
     return gather_x(csum, row_end) - gather_x(csum, row_start)
 
 
@@ -47,14 +58,31 @@ def scan_spmv_tiled(colidx_pad, vals_pad, row_start, row_end, x, *,
                     tile: int) -> torch.Tensor:
     """Method_Balanced plan: a prefix sum per tile of the product stream
     plus a carry scan across tiles; row i is ``csum[end_i] -
-    csum[start_i]`` (the stream carries one prepended zero).  Its f32 sums
-    carry about eps·sqrt(nnz) absolute error, as the JAX plan's do."""
-    prod = (vals_pad * gather_x(x, colidx_pad)).reshape(-1, tile)
+    csum[start_i]`` (the stream carries one prepended zero), where csum is
+    a position's prefix in its tile plus its tile's carry.
+
+    The difference is taken by parts: a row inside one tile is ``local[e]
+    - local[s]``; a row from tile ts to tile te adds its first tile's rest
+    (``total[ts] - local[s]``) and the carry difference of the tiles in
+    between (``carry[te] - carry[ts + 1]``, zero when te = ts + 1).  So a
+    short row never meets the carry, whose f32 rounding (eps·|carry|, large
+    where a stream's products drift one way, as a web graph's hub columns
+    make them) would otherwise land on it; only a row holding whole tiles
+    does, and its own sum is that large.  The JAX plan subtracts the two
+    prefixes whole; the two agree within f32 rounding."""
+    prod = (_as_x(vals_pad, x) * gather_x(x, colidx_pad)).reshape(-1, tile)
     local = torch.cumsum(prod, dim=1)
-    carry = torch.cumsum(local[:, -1], dim=0)
+    total = local[:, -1]
+    carry = torch.cumsum(total, dim=0)
     carry = torch.cat([carry.new_zeros(1), carry[:-1]])
-    csum = (local + carry[:, None]).reshape(-1)
-    return gather_x(csum, row_end) - gather_x(csum, row_start)
+    local = local.reshape(-1)
+    ts = torch.div(row_start, tile, rounding_mode="floor")
+    te = torch.div(row_end, tile, rounding_mode="floor")
+    first = torch.where(te > ts, gather_x(total, ts), total.new_zeros(()))
+    mid = (gather_x(carry, te)
+           - gather_x(carry, torch.minimum(ts + 1, te)))
+    return ((first - gather_x(local, row_start))
+            + gather_x(local, row_end)) + mid
 
 
 def balanced2_spmv(colidx_pad, vals_pad, vrow_start, vrow_end, sub_start,
@@ -74,7 +102,7 @@ def sell_spmv(cols, vals, chunk_ids, inv_pos, x, *, nslices: int,
     stream (``formats/sell.py``): each (8, 128) chunk's lane partials,
     added into their 128-row slice by ``index_add_``, then one
     inverse-permutation gather back to row order."""
-    part = (vals * gather_x(x, cols)).sum(dim=1)          # (nchunks, 128)
+    part = (_as_x(vals, x) * gather_x(x, cols)).sum(dim=1)  # (nchunks, 128)
     y_all = torch.zeros(nslices, part.shape[1], dtype=part.dtype,
                         device=x.device).index_add_(0, chunk_ids,
                                                     part).reshape(-1)
@@ -110,5 +138,5 @@ def dia_spmv(data, x, offsets, m: int, row0: int = 0,
     acc = torch.zeros(m, dtype=x.dtype, device=x.device)
     for k, o in enumerate(offsets):
         s = pad_l + o + row0
-        acc = acc + data[k].to(x.dtype) * x[s:s + m]
+        acc = acc + _as_x(data[k], x) * x[s:s + m]
     return acc

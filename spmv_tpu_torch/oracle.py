@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .formats import _bf16
 from .types import CsrMatrix
 
 __all__ = ["spmv_golden", "rmse", "max_abs_err"]
@@ -22,10 +23,12 @@ def spmv_golden(a: CsrMatrix, x: np.ndarray) -> np.ndarray:
 
     Vectorized equivalent of the reference's golden loop
     (test_spmv.c:204-207); accumulation in float64 regardless of storage
-    dtype so the oracle is strictly more accurate than any device path.
+    dtype so the oracle is strictly more accurate than any device path (a
+    bf16 matrix's values are decoded first).
     """
     x = np.asarray(x)
-    prod = a.vals.astype(np.float64) * x.astype(np.float64)[a.colidx]
+    prod = (_bf16.as_float(a.vals).astype(np.float64)
+            * x.astype(np.float64)[a.colidx])
     # Segment sum by row via cumsum differences — exact row-major order.
     csum = np.concatenate([[0.0], np.cumsum(prod)])
     y = csum[a.rowptr[1:].astype(np.int64)] - csum[a.rowptr[:-1].astype(np.int64)]

@@ -59,7 +59,7 @@ from ..formats.partition import balanced_row_splitter
 from ..formats.prices import Prices
 from ..ops import sell as sell_ops
 from ..ops import torch_csr
-from ..types import CsrMatrix, INT_DTYPE
+from ..types import CsrMatrix, INT_DTYPE, dtype_name
 from ..utils.profiling import dev_put
 
 __all__ = ["DistSpmvPlan", "build_dist_plan", "dist_spmv",
@@ -157,6 +157,20 @@ def _shards(mesh: Mesh, arr: np.ndarray, index: bool = False):
     return tuple(dev_put(arr[d].astype(np.int64) if index else arr[d], dev)
                  if mesh.owns(d) else None
                  for d, dev in enumerate(mesh.devices))
+
+
+def _value_shards(mesh: Mesh, arr: np.ndarray):
+    """A stacked (ndev, ...) value array → its shards (:func:`_shards`);
+    bf16 bits (uint16, ``formats/_bf16.py``) become ``torch.bfloat16``."""
+    arr = np.asarray(arr)
+    return _shards(mesh, _bf16.as_torch(arr) if arr.dtype == np.uint16
+                   else arr)
+
+
+def _value_dtype(vals: torch.Tensor) -> torch.dtype:
+    """The type x and y take beside values of ``vals``' type: f64 for
+    f64, f32 for f32 and bf16 (summed in f32)."""
+    return torch.float64 if vals.dtype == torch.float64 else torch.float32
 
 
 def _x_in(mesh: Mesh, x, n: int, dtype: torch.dtype) -> torch.Tensor:
@@ -304,6 +318,8 @@ def _place_rest(mesh: Mesh, rest):
         return None
     dev = mesh.home
     rows, cols, vals = (np.asarray(r) for r in rest)
+    if vals.dtype == np.uint16:                 # bf16 bits
+        vals = _bf16.as_torch(vals)
     return (dev_put(rows.astype(np.int64), dev),
             dev_put(cols.astype(np.int64), dev), dev_put(vals, dev))
 
@@ -353,6 +369,11 @@ class DistSpmvPlan:
 
     def __call__(self, x) -> torch.Tensor:
         return dist_spmv(self, x)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The type of x and y: f64 for f64 values, else f32."""
+        return _value_dtype(_first(self.vals_pad))
 
 
 def build_dist_plan(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
@@ -499,13 +520,14 @@ def _place_scan(mesh: Mesh, axis: str, s: Dict[str, Any],
         mesh=mesh, axis=axis, ndev=mesh.shape[axis], m=s["m"], n=s["n"],
         nnz=s["nnz"], tile=s["tile"], mr=s["mr"],
         row_splitter=np.asarray(s["row_splitter"]), x_mode=s["x_mode"],
-        colidx_pad=idx("colidx_pad"), vals_pad=_shards(mesh, arr["vals_pad"]),
+        colidx_pad=idx("colidx_pad"),
+        vals_pad=_value_shards(mesh, arr["vals_pad"]),
         row_start=idx("row_start"), row_end=idx("row_end"),
         out_index=(None if s["identity_out"] else dev_put(
             np.asarray(arr["out_index"]).astype(np.int64), dev0)),
         identity_out=s["identity_out"],
         loc_colidx=idx("loc_colidx"),
-        loc_vals=_shards(mesh, arr["loc_vals"]) if halo else None,
+        loc_vals=_value_shards(mesh, arr["loc_vals"]) if halo else None,
         loc_row_start=idx("loc_row_start"), loc_row_end=idx("loc_row_end"),
         loc_tile=s["loc_tile"], halo=s["halo"] if halo else 0,
         in_index=(None if arr.get("in_index") is None else dev_put(
@@ -515,7 +537,7 @@ def _place_scan(mesh: Mesh, axis: str, s: Dict[str, Any],
 def dist_spmv(plan: DistSpmvPlan, x) -> torch.Tensor:
     """Execute y = A @ x across the mesh."""
     mesh = plan.mesh
-    x = _x_in(mesh, x, plan.n, _first(plan.vals_pad).dtype)
+    x = _x_in(mesh, x, plan.n, plan.dtype)
     scan = torch_csr.scan_spmv_tiled
     if plan.x_mode == "halo":
         if plan.in_index is None:           # uniform split: pure zero-pad
@@ -571,8 +593,7 @@ class DistDiaPlan:
 
     @property
     def dtype(self) -> torch.dtype:
-        return (torch.float64 if _first(self.data).dtype == torch.float64
-                else torch.float32)
+        return _value_dtype(_first(self.data))
 
 
 def build_dist_dia_plan(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
@@ -608,16 +629,11 @@ def _pack_dia(a: CsrMatrix, ndev: int, x_mode: str):
 
 def _place_dia(mesh: Mesh, axis: str, s: Dict[str, Any],
                arr: Dict[str, np.ndarray]) -> DistDiaPlan:
-    data = np.asarray(arr["data"])
-    # bf16 diagonals are uint16 bits (``formats/_bf16.py``)
-    data = [_bf16.as_torch(data[d]) if data.dtype == np.uint16 else data[d]
-            for d in range(len(mesh.devices))]
     return DistDiaPlan(
         mesh=mesh, axis=axis, ndev=mesh.shape[axis], m=s["m"], n=s["n"],
         nnz=s["nnz"], offsets=tuple(int(o) for o in s["offsets"]),
         mr=s["mr"], x_mode=s["x_mode"],
-        data=tuple(dev_put(v, dev) if mesh.owns(d) else None
-                   for d, (v, dev) in enumerate(zip(data, mesh.devices))))
+        data=_value_shards(mesh, arr["data"]))
 
 
 def dist_dia_spmv(plan: DistDiaPlan, x) -> torch.Tensor:
@@ -742,11 +758,11 @@ def build_dist_sell8w_plan(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
 def _pack_sell8w(a: CsrMatrix, ndev: int, x_mode: str,
                  max_pad_ratio: Optional[float]):
     from ..formats.sell8w import LANES, SUB, pack_sell8w
-    df = np.dtype(a.dtype) == np.float64
-    if not df and np.dtype(a.dtype) != np.float32:
+    df = a.dtype == np.float64
+    if not df and a.dtype != np.float32:
         raise ValueError(
             "dist SELL-8W computes in float32 or double-float f64; "
-            f"got {np.dtype(a.dtype)} — cast explicitly or use "
+            f"got {dtype_name(a.dtype)} — cast explicitly or use "
             "build_dist_plan")
     mr = max(-(-a.m // (ndev * LANES)) * LANES, LANES)
     halo = _halo_depth(a, ndev, mr) if x_mode == "halo" else 0
@@ -961,8 +977,8 @@ def _pack_sell8d(a: CsrMatrix, ndev: int, x_mode: str, nw: Optional[int],
                  max_pad_ratio: float, prices: Optional[Prices] = None):
     from ..formats.sell8d import SLICE_ROWS, estimate_sell8d_auto, \
         pack_sell8d
-    df = np.dtype(a.dtype) == np.float64
-    if not df and np.dtype(a.dtype) != np.float32:
+    df = a.dtype == np.float64
+    if not df and a.dtype != np.float32:
         raise ValueError("dist SELL-8D computes in float32 or double-"
                          "float f64; cast explicitly or use "
                          "build_dist_plan")
@@ -1107,8 +1123,8 @@ def _pack_sell8d_cols(a: CsrMatrix, ndev: int, nw: Optional[int],
     from ..formats.sell8d import (SLICE_ROWS, STRIPE_ALIGN, _V2_MAX_N,
                                   estimate_sell8d_auto, pack_sell8d)
     from ..formats.sell8w import LANES, SUB
-    df = np.dtype(a.dtype) == np.float64
-    if not df and np.dtype(a.dtype) != np.float32:
+    df = a.dtype == np.float64
+    if not df and a.dtype != np.float32:
         raise ValueError("dist SELL-8D computes in float32 or double-"
                          "float f64")
     if a.nnz == 0:
@@ -1282,8 +1298,9 @@ def build_dist_auto(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
     def _idx(v):
         return dev_put(np.asarray(v).astype(np.int64), dev0)
 
-    kernel_ok = np.dtype(a.dtype) in (np.dtype(np.float32),
-                                      np.dtype(np.float64))
+    # the kernel plans take f32 and f64; a bf16 matrix takes the scan, as
+    # the JAX package's Pallas gate sends it
+    kernel_ok = a.dtype in (np.float32, np.float64)
     if a.nnz and kernel_ok:
         from ..formats.dia import dia_profile
         from ..formats.sell8d import (STRIPE_ALIGN, _V2_MAX_N, cost_tables,
@@ -1291,7 +1308,7 @@ def build_dist_auto(a: CsrMatrix, mesh: Mesh, axis: str = "rows",
                                       prepare_hybrid)
         from ..formats.sell8w import WINDOW, estimate_sell8w_tiles
         from ..inspector import _pairs_floor_pad
-        df = np.dtype(a.dtype) == np.dtype(np.float64)
+        df = a.dtype == np.float64
         ndiags, fill = dia_profile(a)
         if ndiags and ndiags <= 256 and fill >= 0.3:
             try:

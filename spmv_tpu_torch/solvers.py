@@ -58,11 +58,12 @@ def _device_of(a) -> torch.device:
 
 def _vector(a, b) -> torch.Tensor:
     """b as a tensor: a tensor stays where it is, a numpy array goes to the
-    operator's device; a handle's type is the solve's type."""
+    operator's device; a handle's type is the solve's type (f32 for a bf16
+    matrix)."""
     b = torch.as_tensor(b, device=None if isinstance(b, torch.Tensor)
                         else _device_of(a))
     if getattr(a, "_bound", None) is not None:
-        b = b.to(torch.float64 if np.dtype(a.dtype) == np.float64
+        b = b.to(torch.float64 if a.dtype == np.float64
                  else torch.float32)
     return b.contiguous()
 

@@ -4,7 +4,9 @@
 Mirrors the capability surface of the reference library's public types
 (``include/spmv_Defines.h:26-68`` in DevilInChina/spmv): the ``SPMV_METHODS``
 enum, the ``VECTORIZED_WAY`` enum, and the CSR handle inputs — re-designed as
-Python dataclasses over numpy host arrays.  Device placement happens at handle
+Python dataclasses over numpy host arrays.  A bf16 matrix keeps its values
+as uint16 bits (``formats/_bf16.py``) and reports ``torch.bfloat16`` as its
+dtype.  Device placement happens at handle
 creation (:mod:`spmv_tpu_torch.handle`), never here: preprocessing and format
 inspection are host-side, exactly like the reference's handle-creation stage.
 """
@@ -16,6 +18,7 @@ import enum
 from typing import Optional
 
 import numpy as np
+import torch
 
 __all__ = [
     "Method",
@@ -24,6 +27,7 @@ __all__ = [
     "METHOD_NAMES",
     "VECTORIZED_NAMES",
     "INT_DTYPE",
+    "dtype_name",
 ]
 
 # The reference fixes BASIC_INT_TYPE to int (spmv_Defines.h:10-12); we fix
@@ -91,6 +95,26 @@ VECTORIZED_NAMES = {
 }
 
 
+def dtype_name(dtype) -> str:
+    """"float32", "float64", "bfloat16", ...: the name of a matrix's dtype
+    (a numpy type, or ``torch.bfloat16``)."""
+    from .formats import _bf16
+    return "bfloat16" if _bf16.is_bf16(dtype) else np.dtype(dtype).name
+
+
+def _as_vals(v) -> np.ndarray:
+    """Values as a 1-D-able numpy array: a ``torch.bfloat16`` tensor or an
+    ``ml_dtypes.bfloat16`` array becomes its uint16 bits, any other tensor
+    its numpy array."""
+    from .formats import _bf16
+    if isinstance(v, torch.Tensor):
+        if v.dtype == torch.bfloat16:
+            return _bf16.bits_of(v)
+        return v.detach().cpu().numpy()
+    a = np.asarray(v)
+    return _bf16.bits_of(a) if a.dtype.name == "bfloat16" else a
+
+
 def _as_int_array(a, name: str) -> np.ndarray:
     out = np.ascontiguousarray(a, dtype=INT_DTYPE)
     if out.ndim != 1:
@@ -105,19 +129,24 @@ class CsrMatrix:
     Equivalent of the raw ``(m, n, RowPtr, ColIdx, Matrix_Val)`` quintuple the
     reference passes into ``spmv_create_handle_all_in_one`` (include/spmv.h:41-52).
     Values may be float32 or float64 (reference parity; ``size`` parameter in
-    spmv.h:49) or bfloat16 (TPU-native extension).
+    spmv.h:49) or bfloat16: a CPU ``torch.bfloat16`` tensor, or an array
+    whose ``dtype.name`` is "bfloat16" (``ml_dtypes``, where installed).  A
+    bf16 matrix stores its values as their uint16 bits, so ``vals`` of
+    dtype uint16 always means bf16 bits, and ``dtype`` is then
+    ``torch.bfloat16``; read values as numbers through
+    ``formats._bf16.as_float``.
     """
 
     m: int
     n: int
     rowptr: np.ndarray  # (m+1,) int32
     colidx: np.ndarray  # (nnz,) int32
-    vals: np.ndarray    # (nnz,) float32/float64
+    vals: np.ndarray    # (nnz,) float32/float64, or uint16 bf16 bits
 
     def __post_init__(self):
         object.__setattr__(self, "rowptr", _as_int_array(self.rowptr, "rowptr"))
         object.__setattr__(self, "colidx", _as_int_array(self.colidx, "colidx"))
-        vals = np.ascontiguousarray(self.vals)
+        vals = np.ascontiguousarray(_as_vals(self.vals))
         if vals.ndim != 1:
             raise ValueError(f"vals must be 1-D, got shape {vals.shape}")
         object.__setattr__(self, "vals", vals)
@@ -144,8 +173,10 @@ class CsrMatrix:
         return int(self.rowptr[-1])
 
     @property
-    def dtype(self) -> np.dtype:
-        return self.vals.dtype
+    def dtype(self):
+        """The values' numpy dtype, or ``torch.bfloat16`` for bf16."""
+        return torch.bfloat16 if self.vals.dtype == np.uint16 \
+            else self.vals.dtype
 
     @property
     def shape(self) -> tuple:
@@ -165,9 +196,10 @@ class CsrMatrix:
         (src/samples/mmio_highlevel.h:439-463) without the symmetric-expansion
         special cases, which live in :mod:`spmv_tpu.io.mmio`.
         """
+        from .formats import _bf16
         rows = _as_int_array(rows, "rows")
         cols = _as_int_array(cols, "cols")
-        vals = np.ascontiguousarray(vals)
+        vals = np.ascontiguousarray(_as_vals(vals))
         if rows.size and m * n <= (1 << 62):
             # single fused int64 key sorts ~3x faster than a 2-key lexsort
             # on this host (pre-deal hotspot at multi-M nnz)
@@ -188,9 +220,13 @@ class CsrMatrix:
             group = np.cumsum(key_new) - 1
             rows_u = rows[key_new]
             cols_u = cols[key_new]
-            vals_u = np.zeros(rows_u.size, dtype=vals.dtype)
-            np.add.at(vals_u, group, vals)
-            rows, cols, vals = rows_u, cols_u, vals_u
+            bf16 = vals.dtype == np.uint16
+            # bf16 duplicates sum in float32, rounded once
+            vals_u = np.zeros(rows_u.size, dtype=np.float32 if bf16
+                              else vals.dtype)
+            np.add.at(vals_u, group, _bf16.as_float(vals))
+            rows, cols = rows_u, cols_u
+            vals = _bf16.from_f32(vals_u) if bf16 else vals_u
         rowptr = np.zeros(m + 1, dtype=INT_DTYPE)
         np.add.at(rowptr, rows + 1, 1)
         rowptr = np.cumsum(rowptr, dtype=np.int64).astype(INT_DTYPE)
@@ -203,14 +239,24 @@ class CsrMatrix:
         return CsrMatrix.from_coo(a.shape[0], a.shape[1], rows, cols, a[rows, cols])
 
     def to_dense(self) -> np.ndarray:
-        out = np.zeros((self.m, self.n), dtype=self.vals.dtype)
+        """The dense matrix; a bf16 matrix's as float32 (exact)."""
+        from .formats import _bf16
+        vals = _bf16.as_float(self.vals)
+        out = np.zeros((self.m, self.n), dtype=vals.dtype)
         rows = np.repeat(np.arange(self.m), self.row_lengths)
-        out[rows, self.colidx] = self.vals
+        out[rows, self.colidx] = vals
         return out
 
     def astype(self, dtype) -> "CsrMatrix":
-        return CsrMatrix(self.m, self.n, self.rowptr, self.colidx,
-                         self.vals.astype(dtype))
+        """The matrix with values of ``dtype``; ``torch.bfloat16`` rounds
+        to nearest even, bit for bit as ``astype(ml_dtypes.bfloat16)``."""
+        from .formats import _bf16
+        if _bf16.is_bf16(dtype):
+            vals = (self.vals.copy() if self.vals.dtype == np.uint16
+                    else _bf16.from_f32(self.vals))
+        else:
+            vals = _bf16.as_float(self.vals).astype(dtype)
+        return CsrMatrix(self.m, self.n, self.rowptr, self.colidx, vals)
 
     def transpose(self) -> "CsrMatrix":
         """CSR→CSC-as-CSR transpose (reference: common.c:207-276)."""

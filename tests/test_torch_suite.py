@@ -7,8 +7,8 @@ columns (twelve with ``split_predeal``) with rmse below 1e-4 against the
 golden product, on uniform10k and on rectangular matrices; the builtin
 matrices' arrays equal the JAX generators'; a planning refusal, or a plan
 out of card memory at any stage, reported as a comment while the sweep
-goes on, and an error of the card propagating; the CLI, and its bf16
-refusal.
+goes on, and an error of the card propagating; the CLI, in f32 and in
+bf16.
 """
 
 import io as _io
@@ -151,9 +151,17 @@ def test_cli(tmp_path, capsys):
     lines = out.read_text().splitlines()
     assert lines[0] == suite.CSV_HEADER and len(lines) == 3
     assert capsys.readouterr().out.splitlines() == lines
-    with pytest.raises(NotImplementedError, match="item 6"):
-        suite.main(["builtin:blocky", "--dtype", "bfloat16",
-                    "--device", "cpu"])
+    # bf16: the same rows' fields, the matrix rounded to bf16
+    out16 = tmp_path / "rows16.csv"
+    assert suite.main(["builtin:blocky", "--methods", "AUTO,SERIAL",
+                       "--dtype", "bfloat16", "--iters", "1", "--repeats",
+                       "1", "--device", "cpu", "--out", str(out16)]) == 0
+    lines16 = out16.read_text().splitlines()
+    assert lines16[0] == suite.CSV_HEADER and len(lines16) == 3
+    assert [r.split(",")[1] for r in lines16[1:]] == [
+        r.split(",")[1] for r in lines[1:]]
+    _check_rows(lines16[1:], suite.load_any("builtin:blocky")[1],
+                "blocky")
 
 
 SHAPES = [(1000, 1000, 5000), (256, 400, 1791), (4_000_000, 4_000_000,
