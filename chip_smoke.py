@@ -4,9 +4,9 @@ its bf16 matrices, its Method.CSR5 path, its large-n path (n > 2M: column stripe
 windowed streams), the planner's calibration (the probes, the price table
 they give, the routes under it), its plain plans (the ones the JAX package
 runs through XLA), its mesh plans (``spmv_tpu_torch.parallel``) in one process and on
-two ranks (``parallel.multihost``) and its execute-many layer (``tune``,
-the solvers, the CSV suite, Matrix Market I/O) on one NVIDIA card and
-check them.
+two ranks (``parallel.multihost``), its execute-many layer (``tune``,
+the solvers, the CSV suite, Matrix Market I/O) and its headline bench
+(``bench_torch.py``) on one NVIDIA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -15,7 +15,11 @@ Run from the repository root with no arguments:
 (The multihost phase starts this script twice more, as
 ``chip_smoke.py --multihost-rank RANK PORT DIR``, one rank process each.)
 
-Phases (any failure exits non-zero and prints no ``"ok"`` line):
+Phases (any failure exits non-zero and prints no ``"ok"`` line).  Every
+handle and mesh plan the script builds is called three times on one x,
+and the three ys must agree bit for bit: the port's sums have a fixed
+order on the card.
+
 
 1. toolchain: the card's name and power limit, CUDA, nvcc, triton;
 2. build: the host packers (g++) and the CUDA kernels (nvcc, sm_90a, one
@@ -66,6 +70,12 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    (``torch.sparse_csr_tensor(...) @ x``, timed only: the port never
    calls it), a torch.profiler window, and each kernel against its plain
    version at the main path's shapes, with its bound;
+4a. folds: the two folds of repeated rows (``torch_csr.fold_add``) at
+   powerlaw100k's size, which no family's plan takes: its mega-row
+   sub-rows folded into their rows and a mesh plan's straggler rows over
+   every nonzero of those rows, f32 and f64, three calls bit for bit, each
+   against ``index_add_`` in f64 on the CPU, timed beside the
+   ``index_add_`` it replaced (``{"phase": "folds", ...}`` lines);
 4b. bf16: six main-path matrices rounded to bf16
    (``CsrMatrix.astype(torch.bfloat16)``) through AUTO, each with the
    route the JAX planner gives bf16 asserted (the tile routes are f32/f64
@@ -160,7 +170,13 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    trip of clustered200k (``write_mtx``, ``read_mtx`` through the C++
    parser, which must run, and the numpy path, ``load_matrix`` twice, the
    second a cache hit), every array equal to the matrix's.  Each line
-   names the card.
+   names the card;
+10. bench: ``python3 bench_torch.py`` as a process of its own (the nine
+   families planned with AUTO, its own pre-deal, the chained protocol in
+   two windows 15 s apart); its last line must parse and hold all nine
+   families, each with GF/s above 0 and none failed; lines ``{"phase":
+   "bench", ...}`` with the line, each family's fields, its two windows
+   and their spread, and the phase's wall seconds.
 
 Bounds, per row i against (|A||x|)_i:
 - f32: 1e-5 against ``spmv_golden``; f32 sums in another order.
@@ -223,6 +239,8 @@ BOUND = 1e-5
 BOUND_F64 = 1e-10
 BOUND_F64_KERNEL = 1e-12
 ITERS = 30
+#: calls on one x whose ys must agree bit for bit (every handle and plan)
+REPEAT_CALLS = 3
 #: profile windows per measurement: device times are their median
 WINDOWS = 5
 #: the scratch written between calls for a cold-L2 time, well past the
@@ -1015,6 +1033,22 @@ def bit_diff(y, ref):
             | (~nan & (y.view(torch.int32) != ref.view(torch.int32)))).sum()
 
 
+def repeats_its_y(name, fn, x, calls=REPEAT_CALLS):
+    """Fail unless ``calls`` calls of fn(x) give the same y bit for bit:
+    every sum of the port has a fixed order on the card (the plain plans'
+    segment sums and prefix sums, the SELL kernels' chunk order)."""
+    import torch
+    y = fn(x)
+    for i in range(1, calls):
+        again = fn(x)
+        if not torch.equal(y, again):
+            diff = int((y.view(-1) != again.view(-1)).sum())
+            raise AssertionError(f"{name}: call {i + 1} of {calls} gave "
+                                 f"another y than the first ({diff} of "
+                                 f"{y.numel()} positions differ)")
+    return True
+
+
 def coo2_nonfinite(c, x):
     """COO2 pass 1 with x inf at a column below n that a padding slot reads
     and at one past the staged 16-B words of the last window that a
@@ -1455,6 +1489,7 @@ def main_path(dev, kern, gpu):
         if not ok:
             raise AssertionError(f"{name}: max scaled error {rel:.3g} "
                                  f"against {ref_name}")
+        repeats_its_y(name, h, x)
         gold = torch.from_numpy(st.spmv_golden(a.astype(np.float64), xh))
         rel_gold = scaled_err(y, gold, absref, bound, atol)[0]
         gold_self = scaled_err(gold, ref, absref, bound)[0]
@@ -1612,11 +1647,11 @@ def bf16_phase(dev, kern, gpu, handles, mats, xs, pre):
         src = BF16_FAMILIES[name][0]
         dec, x, h32 = decoded.pop(name), xs[src], handles[src]
         rec = held(name, ys.pop(name), dec, x, h, scan_atol(h, dec, None))
+        repeats_its_y(name, h, x)
         y, y32 = h(x), h32(x)
         rec["same_y_as_f32"] = bool(torch.equal(y, y32))
-        # whether the f32 handle repeats its own y bit for bit (a plan
-        # that adds with atomics, index_add_, need not)
-        rec["f32_repeats_its_y"] = bool(torch.equal(y32, h32(x)))
+        # the f32 handle repeats its own y bit for bit, or the run fails
+        rec["f32_repeats_its_y"] = repeats_its_y(f"{src} (f32)", h32, x)
         del y, y32
         rec["f32_ms"] = cuda_ms(h32, x)
         rec["ms_over_f32"] = rec["ms"] / rec["f32_ms"]
@@ -1646,6 +1681,7 @@ def bf16_phase(dev, kern, gpu, handles, mats, xs, pre):
     shard_nnz = max(int(t.numel()) for t in dplan.parts["scan"].vals_pad)
     rec = held(dname, ys.pop(dname), a, xs[dsrc], dplan,
                2e-4 * (shard_nnz / 150_000) ** 0.5)
+    repeats_its_y(dname, dplan, xs[dsrc])
     rec["single_ms"] = cuda_ms(hs[f"{dsrc}_bf16"], xs[dsrc])
     log(json.dumps({"phase": "bf16", "family": dname, "gpu": gpu,
                     "source": dsrc, "kind": dplan.kind,
@@ -1728,6 +1764,7 @@ def windowed_phase(dev, kern, ctx):
             if not ok:
                 raise AssertionError(f"{name} {form}: max scaled error "
                                      f"{rel:.3g} against the reference")
+            repeats_its_y(f"{name} {form}", fn, x)
             striped_ms = [cuda_ms(h, x)]
             ms = [cuda_ms(fn, x), cuda_ms(fn, x)]
             striped_ms.append(cuda_ms(h, x))
@@ -1880,6 +1917,7 @@ def dist_phase(dev, kern, keep):
         if not bool((d <= bound * absref + atol + 1e-300).all()):
             raise AssertionError(f"{name}: max scaled error {rel:.3g} "
                                  f"against {ref_name}")
+        repeats_its_y(name, plan, x)
         streams = []
         timed = set()
         for stream, xin, part in dist_streams(plan, x):
@@ -1893,6 +1931,7 @@ def dist_phase(dev, kern, keep):
         if base not in singles:
             # the single-device AUTO plan of the same matrix
             singles[base] = st.create_handle(a, device=dev)
+            repeats_its_y(f"{base} (single)", singles[base], x)
         h = singles[base]
         # in turns: mesh, single, single, mesh
         ms = [cuda_ms(plan, x)]
@@ -2242,6 +2281,7 @@ def tools_phase(dev, gpu):
                                 scan_atol(h, uniform, ref))
         if not ok:
             raise AssertionError(f"tune's winner: scaled error {rel:.3g}")
+        repeats_its_y("tune's winner", h, x)
         real_chain = timing.time_spmv_chain
 
         def no_sweep(*_a, **_k):
@@ -2276,6 +2316,7 @@ def tools_phase(dev, gpu):
         s = host(hpcg)
         b = s @ np.ones(hpcg.n)              # HPCG's b: A times ones
         bd = torch.from_numpy(b).to(dev)
+        repeats_its_y("cg's handle", h, bd)
 
         def run_cg():
             return solvers.cg(h, bd, tol=0.0, maxiter=CG_ITERS)
@@ -2307,6 +2348,7 @@ def tools_phase(dev, gpu):
         b = np.random.default_rng(4).standard_normal(nonsym.n) \
             .astype(np.float32)
         bd = torch.from_numpy(b).to(dev)
+        repeats_its_y("bicgstab's handle", h, bd)
         tol = 1e-5 * float(np.linalg.norm(b))
 
         def run_bicgstab():
@@ -2335,6 +2377,7 @@ def tools_phase(dev, gpu):
             lam, v = solvers.power_iteration(h, iters=100)
             return lam, v, 100
         lam, v, _ = run_power()
+        repeats_its_y("power_iteration's handle", h, v)
         vh = v.cpu().numpy().astype(np.float64)
         rq = float(vh @ (host(clustered) @ vh) / (vh @ vh))
         if abs(lam - rq) > 1e-5 * abs(rq):
@@ -2373,6 +2416,7 @@ def tools_phase(dev, gpu):
             # replaced by identity (only the renormalisation left)
             h = st.create_handle(a, device=dev)
             xt = torch.from_numpy(xh).to(dev)
+            repeats_its_y(f"suite {name}'s AUTO handle", h, xt)
             chain = timing.time_spmv_chain(h._bound, xt)
             ident = timing.time_spmv_chain(lambda v: v, xt)
             tool({"tool": "suite", "matrix": name, "csv": rows,
@@ -2561,6 +2605,17 @@ def probe_kernel_records(dev, mats):
         plain_ms=cuda_ms(lambda c: pr.tile_body_plain(main, c), ones),
         library_ms=None, library_call=None, bound_ms=bound, bound_by=by,
         bytes=nbytes, family="clustered200k pack_sell8w, G 16, f32 (P4)")
+    # the plain versions of the probes the kernels line does not time:
+    # P2 (G 8), P3 (512 tiles a step), P5 (the full body, G 16), P7 (1
+    # and 8 tiles a step, carried)
+    log(json.dumps({"phase": "prices", "probe_plain_ms": {
+        "P2": cuda_ms(lambda c: pr.tile_body_plain(bodies[0], c), ones),
+        "P3": cuda_ms(lambda c: pr.tile_stream_plain(vals, 512, True, c),
+                      ones),
+        "P5": cuda_ms(lambda c: pr.tile_body_plain(bodies[4], c), ones),
+        "P7": [cuda_ms(lambda c, b=b: pr.tile_stream_plain(vals, b, True,
+                                                           c), ones)
+               for b in (1, 8)]}}))
 
     # window_gather: P9's loop and wide forms
     loop, wide, x, oracle = pr.p9_arrays()
@@ -2697,6 +2752,7 @@ def prices_routes(dev, ctx, table, names=PRICE_FAMILIES, label="h100"):
         h = st.create_handle(a, method=st.Method.AUTO, device=dev,
                              prices=table)
         plan_s = time.perf_counter() - t0
+        repeats_its_y(f"prices {name} ({label})", h, x)
         r_ref, r_new = route_of(h_ref), route_of(h)
         row = {"phase": "prices", "family": name, "route_reference": r_ref,
                f"route_{label}": r_new, "differs": r_ref != r_new,
@@ -2755,6 +2811,143 @@ def prices_phase(dev, kern, ctx):
     log(json.dumps({"phase": "prices", "seconds":
                     time.perf_counter() - t0}))
     return counts
+
+
+def folds_phase(dev, gpu, a):
+    """The two folds of repeated rows (``torch_csr.fold_add``) on the card
+    at powerlaw100k's size ``a``: the mega-row fold (``split_megarows``'s
+    sub-rows of ``a``, each sub-row's sum folded into its origin row) and a
+    mesh plan's straggler rows (``mesh._add_rest`` over every nonzero of
+    the rows ``split_megarows`` cuts, shuffled), f32 and f64.  Each is
+    called REPEAT_CALLS times from one y on one input, the ys bit for bit,
+    and held to the CPU's ``index_add_`` in f64 within BOUND (f32) or
+    BOUND_F64 (f64) of |y_i| plus its terms' magnitudes; its time beside
+    the ``index_add_`` it replaced on the same input, and whether that
+    repeated.  Logs ``{"phase": "folds", ...}`` lines."""
+    import numpy as np
+    import torch
+    from spmv_tpu_torch.formats.sell8w import split_megarows
+    from spmv_tpu_torch.ops import torch_csr
+    from spmv_tpu_torch.parallel import mesh as pm
+    a_ext, sub = split_megarows(a)
+    if sub is None:
+        raise AssertionError("folds: powerlaw100k has no mega-rows")
+    m, rng = a.m, np.random.default_rng(11)
+    xh, y0 = rng.standard_normal(a.n), rng.standard_normal(m)
+    lo = int(a_ext.rowptr[m])
+    prod = a_ext.vals[lo:].astype(np.float64) * xh[a_ext.colidx[lo:]]
+    sub_sums = np.add.reduceat(prod, a_ext.rowptr[m:-1] - lo)
+    row_of = np.repeat(np.arange(m), np.diff(a.rowptr))
+    pick = rng.permutation(np.flatnonzero(np.isin(row_of, sub)))
+    rows, cols = row_of[pick], a.colidx[pick].astype(np.int64)
+    mesh = pm.make_mesh_1d(1, device=dev)
+    for dt, bound in ((np.float32, BOUND), (np.float64, BOUND_F64)):
+        tdt = torch.from_numpy(np.zeros(0, dt)).dtype
+        yd = torch.from_numpy(y0.astype(dt)).to(dev)
+        terms = sub_sums.astype(dt)
+        vals = a.vals[pick].astype(dt)
+        x = torch.from_numpy(xh.astype(dt)).to(dev)
+        sub_t, rows_t = (torch.from_numpy(v).to(dev) for v in (sub, rows))
+        cols_t, vals_t = (torch.from_numpy(v).to(dev) for v in (cols, vals))
+        fold, rest = torch_csr.fold_plan(sub, dev), pm._place_rest(
+            mesh, (rows, cols, vals))
+        cases = {
+            "mega_fold": (sub, terms, torch.from_numpy(terms).to(dev),
+                          lambda t: torch_csr.fold_add(yd.clone(), fold, t),
+                          lambda t: yd.clone().index_add_(0, sub_t, t)),
+            "mesh_rest": (rows, vals.astype(np.float64)
+                          * xh.astype(dt).astype(np.float64)[cols], x,
+                          lambda v: pm._add_rest(yd.clone(), rest, v),
+                          lambda v: yd.clone().index_add_(
+                              0, rows_t, (vals_t * v[cols_t]).to(tdt)))}
+        for fold_name, (ids, t64, inp, fn, old) in cases.items():
+            name = f"folds {fold_name} {tdt}"
+            y = fn(inp)
+            repeats_its_y(name, fn, inp)
+            ids_h = torch.from_numpy(ids)
+            y0h = torch.from_numpy(y0.astype(dt).astype(np.float64))
+            ref = y0h.clone().index_add_(0, ids_h, torch.from_numpy(
+                np.asarray(t64, np.float64)))
+            absref = y0h.abs().index_add_(0, ids_h, torch.from_numpy(
+                np.abs(np.asarray(t64, np.float64))))
+            rel, mabs, ok = scaled_err(y.cpu(), ref, absref, bound)
+            if not ok:
+                raise AssertionError(f"{name}: max scaled error {rel:.3g} "
+                                     "against index_add_ in f64")
+            y_old = old(inp)
+            old_repeats = all(torch.equal(y_old, old(inp))
+                              for _ in range(REPEAT_CALLS - 1))
+            counts = np.bincount(ids)
+            log(json.dumps({
+                "phase": "folds", "fold": fold_name, "dtype": str(tdt),
+                "gpu": gpu, "terms": len(ids),
+                "rows": int((counts > 0).sum()),
+                "most_terms_a_row": int(counts.max()),
+                "max_scaled_err": rel, "max_abs_err": mabs,
+                "ms": cuda_ms(fn, inp),
+                "device_ms": profile_calls(fn, inp)["device_ms"],
+                "index_add_ms": cuda_ms(old, inp),
+                "index_add_device_ms": profile_calls(old, inp)["device_ms"],
+                "index_add_repeats": old_repeats}))
+
+
+#: the bench phase's time limit, seconds (the bench takes about a minute)
+BENCH_TIMEOUT = 420
+
+
+def bench_phase(gpu):
+    """``python3 bench_torch.py``, the port's headline bench, as a process
+    of its own on the card from this checkout, its pre-deal included.  Its
+    last stdout line must parse and hold every family of the bench's
+    ``REFS``, none with ``e`` and every ``g`` > 0.  Logs the line, each
+    family's windows and their spread from the full record, and the
+    phase's wall seconds; a bench that fails or passes BENCH_TIMEOUT fails
+    the phase with its log's tail."""
+    import torch
+    from spmv_tpu_torch.bench import headline
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="bench_torch_") as out_dir:
+        t0 = time.perf_counter()
+        try:
+            res = subprocess.run([sys.executable,
+                                  os.path.join(ROOT, "bench_torch.py"),
+                                  "--out-dir", out_dir], cwd=ROOT,
+                                 capture_output=True, text=True,
+                                 timeout=BENCH_TIMEOUT)
+        except subprocess.TimeoutExpired as e:
+            raise AssertionError(f"bench_torch.py passed {BENCH_TIMEOUT} "
+                                 f"s: {(e.stderr or b'')[-2000:]!r}"
+                                 ) from None
+        wall = time.perf_counter() - t0
+        lines = res.stdout.strip().splitlines()
+        try:
+            rec = json.loads(lines[-1])
+        except (IndexError, json.JSONDecodeError):
+            raise AssertionError(f"bench_torch.py exited {res.returncode} "
+                                 "without a JSON last line: "
+                                 f"{res.stderr[-2000:]}") from None
+        fams = rec.get("families", {})
+        bad = sorted(set(headline.REFS) - set(fams)) + sorted(
+            n for n, f in fams.items() if "e" in f or not f.get("g", 0) > 0)
+        log(json.dumps({"phase": "bench", "gpu": gpu, "line": rec,
+                        "line_chars": len(lines[-1]), "rc": res.returncode,
+                        "wall_s": wall}))
+        if (res.returncode != 0 or bad
+                or len(lines[-1]) >= headline.LINE_MAX):
+            raise AssertionError(f"bench_torch.py: exit {res.returncode}, "
+                                 "families missing, failed or not above 0 "
+                                 f"GF/s: {bad}; {res.stderr[-2000:]}")
+        with open(os.path.join(out_dir, headline.RECORD)) as f:
+            full = json.load(f)
+    for name, c in full["configs"].items():
+        w = c["windows_ms"]
+        log(json.dumps({"phase": "bench", "family": name, **{
+            k: c[k] for k in ("gflops", "gflops_marginal", "ms",
+                              "sync_bubble_ms", "method", "value_mode",
+                              "predeal_ms", "pack_ms", "transfer_ms",
+                              "vs_ref")},
+            "windows_ms": w, "window_spread": max(w) / min(w) - 1}))
 
 
 def kernels_line(launches, kern):
@@ -2845,6 +3038,7 @@ def main() -> int:
     kern = {k: {"max_abs_err": 0.0} for k in KERNELS}
     kernel_phase(dev, kern)
     launches, ctx, pctx = main_path(dev, kern, smi)
+    folds_phase(dev, smi, pctx["powerlaw100k"][1])
     for k, c in prices_phase(dev, kern, pctx).items():
         launches[k] += c
     del pctx
@@ -2861,6 +3055,7 @@ def main() -> int:
             launches[k] += c
     for k, c in tools_phase(dev, smi).items():
         launches[k] += c
+    bench_phase(smi)
     kernels = kernels_line(launches, kern)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"phase": "wall", "seconds":

@@ -57,8 +57,7 @@ OTHER = "other_spmv_tpu_torch"
 
 def load_other(root, name=OTHER):
     """``root``'s spmv_tpu_torch package, imported as ``name`` (its imports
-    are relative, so it stays apart from this checkout's); returns its
-    ``ops.sell``."""
+    are relative, so it stays apart from this checkout's)."""
     pkg = os.path.join(os.path.abspath(root), "spmv_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(pkg, "__init__.py"),
@@ -66,7 +65,7 @@ def load_other(root, name=OTHER):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module(name + ".ops.sell")
+    return mod
 
 
 def host_fields(st):
@@ -248,7 +247,8 @@ def main() -> int:
     import numpy as np
     import chip_smoke as cs
     from spmv_tpu_torch.ops import coo2 as this_coo2, sell as this
-    other = load_other(args.other)
+    load_other(args.other)
+    other = importlib.import_module(OTHER + ".ops.sell")
     other_coo2 = importlib.import_module(OTHER + ".ops.coo2")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)

@@ -739,30 +739,34 @@ def _host_values(vals):
 
 def _prepare_rest(rows, cols, vals, device) -> Dict[str, Any]:
     """Straggler stream sorted by row: per-row sums on the compact
-    straggler domain, then one scatter-add into y."""
+    straggler domain (the run length of each row counted here, once),
+    then one add into y."""
     rr = np.asarray(rows)
     order = np.argsort(rr, kind="stable")
     rs = rr[order]
     first = np.ones(len(rs), dtype=bool)
     first[1:] = rs[1:] != rs[:-1]
-    seg = np.cumsum(first) - 1
+    starts = np.flatnonzero(first)
     return {"uniq": dev_put(rs[first].astype(np.int64), device),
-            "seg": dev_put(seg.astype(np.int64), device),
+            "lengths": dev_put(np.diff(np.append(starts, len(rs)))
+                               .astype(np.int64), device),
             "cols": dev_put(np.asarray(cols)[order].astype(np.int64),
                             device),
             "vals": dev_put(_host_values(vals)[order], device),
-            "nseg": int(seg[-1]) + 1 if len(seg) else 0}
+            "nseg": len(starts)}
 
 
 def add_rest(r: Dict[str, Any], x: torch.Tensor,
              y: torch.Tensor) -> torch.Tensor:
     """y += the straggler stream ``r`` (:func:`_prepare_rest`) times x, in
-    place: the products, their per-row sums on the compact domain, one
-    scatter-add into y."""
+    place: the products, their per-row sums on the compact domain (a
+    fixed-order :func:`torch_csr.segment_sum`), one ``index_add_`` into y
+    over distinct rows, one add a row."""
+    if not r["nseg"]:
+        return y
     prod = r["vals"] * x[r["cols"]]
-    sums = torch.zeros(max(r["nseg"], 1), dtype=prod.dtype,
-                       device=x.device).index_add_(0, r["seg"], prod)
-    return y.index_add_(0, r["uniq"], sums[:r["nseg"]])
+    return y.index_add_(0, r["uniq"],
+                        torch_csr.segment_sum(prod, r["lengths"]))
 
 
 def _stripe_slices(vis, device) -> Optional[torch.Tensor]:
@@ -776,7 +780,7 @@ def _stripe_slices(vis, device) -> Optional[torch.Tensor]:
 
 
 #: plan keys of index arrays (placed as int64) and of value arrays
-_INDEX_KEYS = ("mega_sub_rows", "fold_rows", "rows", "colidx", "hub_cols",
+_INDEX_KEYS = ("fold_rows", "rows", "colidx", "hub_cols",
                "colidx_pad", "row_start", "row_end", "vrow_start",
                "vrow_end", "sub_start", "sub_end", "cols", "chunk_ids",
                "inv_pos", "block_rows", "block_cols")
@@ -816,6 +820,8 @@ def _place(plan: Dict[str, Any], device) -> Dict[str, Any]:
         elif k == "rest_rows":
             out["rest"] = _prepare_rest(v, plan["rest_cols"],
                                         plan["rest_vals"], device)
+        elif k == "mega_sub_rows":
+            out["mega_fold"] = torch_csr.fold_plan(v, device)
         elif k in ("sell8w", "rest_cols", "rest_vals"):
             continue
         else:
@@ -902,6 +908,7 @@ def _sell_fn(p: Dict[str, Any], m_rows: int):
             if vis is None:
                 out[:o.shape[0]] += o
             else:
+                # distinct slices: one add a row, in stripe order
                 out.index_add_(0, vis, o)
         return out.view(-1)[:m_rows]
 
@@ -923,6 +930,7 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
             # appended to x (the light stream's n is n + the heavy rows)
             return lambda x: f2(_extend_x(f1, x))
         if "fold_rows" in pd:
+            # distinct rows (one a compact heavy row): one add a row
             fr = pd["fold_rows"]
             return lambda x: f2(x).index_add_(0, fr, f1(x))
         return lambda x: f1(x) + f2(x)
@@ -933,13 +941,14 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
     if any(k in p for k in _SELL_KEYS):
         inner = _sell_fn(p, m_rows)
         fn = inner
-        if "mega_sub_rows" in p:
-            # fold virtual sub-row outputs back into their origin rows
-            sub = p["mega_sub_rows"]
+        if "mega_fold" in p:
+            # fold virtual sub-row outputs back into their origin rows,
+            # which repeat: a fixed-order fold
+            fold = p["mega_fold"]
 
             def fn(x):
                 y = inner(x)
-                return y[:m_rows].index_add_(0, sub, y[m_rows:])
+                return torch_csr.fold_add(y[:m_rows], fold, y[m_rows:])
 
         if "rest" in p:
             r = p["rest"]
@@ -969,17 +978,20 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
         return lambda x: torch_csr.scan_spmv_tiled(
             p["colidx_pad"], p["vals_pad"], p["row_start"], p["row_end"],
             x, tile=p["tile"])
+    # the plain segment sums count their run lengths once, here
     if "cols" in p:
+        lens = torch_csr.segment_lengths(p["chunk_ids"], p["nslices"])
         return lambda x: torch_csr.sell_spmv(
-            p["cols"], p["vals"], p["chunk_ids"], p["inv_pos"], x,
-            nslices=p["nslices"], identity_order=p["identity_order"])
+            p["cols"], p["vals"], lens, p["inv_pos"], x,
+            identity_order=p["identity_order"])
     if "blocks" in p:
+        lens = torch_csr.segment_lengths(p["block_rows"], p["nblock_rows"])
         return lambda x: torch_csr.bcsr_spmv(
-            p["blocks"], p["block_rows"], p["block_cols"], x, m=m_rows,
-            nblock_rows=p["nblock_rows"])
+            p["blocks"], lens, p["block_cols"], x, m=m_rows)
     if method == Method.SERIAL:
+        lens = torch_csr.segment_lengths(p["rows"], m_rows)
         return lambda x: torch_csr.segment_sum_spmv(
-            p["rows"], p["colidx"], p["vals"], x, m=m_rows)
+            lens, p["colidx"], p["vals"], x)
     raise ValueError(f"no executor for method {method} and plan "
                      f"{sorted(p)}")
 

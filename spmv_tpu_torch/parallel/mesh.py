@@ -312,8 +312,9 @@ def _psum(mesh: Mesh, parts) -> torch.Tensor:
 
 
 def _place_rest(mesh: Mesh, rest):
-    """A host (rows, cols, vals) straggler stream → tensors on the home
-    device (every rank's, across processes)."""
+    """A host (rows, cols, vals) straggler stream → (rows, cols, vals,
+    the rows' fixed-order fold) on the home device (every rank's, across
+    processes)."""
     if rest is None:
         return None
     dev = mesh.home
@@ -321,15 +322,17 @@ def _place_rest(mesh: Mesh, rest):
     if vals.dtype == np.uint16:                 # bf16 bits
         vals = _bf16.as_torch(vals)
     return (dev_put(rows.astype(np.int64), dev),
-            dev_put(cols.astype(np.int64), dev), dev_put(vals, dev))
+            dev_put(cols.astype(np.int64), dev), dev_put(vals, dev),
+            torch_csr.fold_plan(rows, dev))
 
 
 def _add_rest(y: torch.Tensor, rest, x: torch.Tensor) -> torch.Tensor:
-    """y[rows] += vals · x[cols], in y's type."""
+    """y[rows] += vals · x[cols], in y's type; rows repeat, so the terms
+    fold in a fixed order (:func:`torch_csr.fold_add`)."""
     if rest is None:
         return y
-    rows, cols, vals = rest
-    return y.index_add_(0, rows, (vals * x[cols]).to(y.dtype))
+    _rows, cols, vals, fold = rest
+    return torch_csr.fold_add(y, fold, vals * x[cols])
 
 
 # --------------------------------------------------------------------------
@@ -869,7 +872,7 @@ class DistSell8DPlan:
     x_mode: str
     streams: tuple              # one slot SellStream a shard
     max_pad: float = 0.0
-    rest: Optional[tuple] = None   # (rows, cols, vals) on mesh.home
+    rest: Optional[tuple] = None   # _place_rest's, on mesh.home
     halo: int = 0
 
     def __call__(self, x) -> torch.Tensor:
@@ -1225,7 +1228,7 @@ class DistAutoPlan:
     parts: dict
     value_mode: Optional[str] = None
     max_pad: float = 0.0
-    #: halo-mode straggler stream (rows, cols, vals) on mesh.home: the
+    #: halo-mode straggler stream (_place_rest's) on mesh.home: the
     #: ≤0.1% long-range nonzeros split out so the quantile halo gate holds
     rest: Optional[tuple] = None
 
@@ -1479,6 +1482,7 @@ def dist_auto_spmv(plan: DistAutoPlan, x) -> torch.Tensor:
         y = dist_sell8d_spmv(p["light"], x)
         yd = dist_sell8w_spmv(p["dense"], x)
         k = p["dense"].m
+        # distinct rows (one a compact heavy row): one add a row
         y = y.index_add_(0, p["fold_rows"], yd[:k].to(y.dtype))
     else:
         y = dist_spmv(p["scan"], x)
