@@ -99,16 +99,20 @@ order on the card.
    each probe kernel against its plain version on every input its probes
    give it (f32 sums within 1e-5 of the sum of magnitudes; ``tiny`` and
    ``fma_err`` bit for bit, ``fma_err`` also equal to the exact product
-   error); the real kernels' co-timings (the slot kernel on uniform100k
-   and its f64 form at nw 1-8, the windowed slot kernel on the first
-   625,000 rows of clustered2500k_s64 at nw 1-8, the row kernel on
-   clustered200k in f32, df16 and df, webbase1m's light part at g 8 and 16,
-   its straggler stream in f32 and f64, its hub gather and fold); the table
-   ``derive_prices`` makes of them beside the committed ``H100`` and
-   ``REFERENCE``, with the drift (not a failure); then the North star's
-   nine families and the three striped large-n families planned under
-   ``H100`` beside their main-path plan, each route printed; where the
-   routes differ, both y against the family's reference and bound, and
+   error; ``tile_stream`` and ``tile_body`` three calls bit for bit, and
+   ``tile_stream`` bit for bit the numpy statement of its order), with
+   ``tile_stream`` at B = 1, 8, 64, 512 beside ``torch.sum`` and each
+   ``tile_body`` input (P5's full body also at G 8) timed warm and
+   with the L2 cold (``sweep`` lines); the real kernels' co-timings (the
+   slot kernel on uniform100k and its f64 form at nw 1-8, the windowed
+   slot kernel on the first 625,000 rows of clustered2500k_s64 at nw 1-8,
+   the row kernel on clustered200k in f32, df16 and df, webbase1m's light
+   part at g 8 and 16, its straggler stream in f32 and f64, its hub gather
+   and fold); the table ``derive_prices`` makes of them beside the
+   committed ``H100`` and ``REFERENCE``, with the drift (not a failure);
+   then the North star's nine families and the three striped large-n
+   families planned under ``H100`` beside their main-path plan, each
+   route printed; where the routes differ, both y against the family's reference and bound, and
    both timed in turns (CUDA events, median of 30, and a profile each);
 6. windowed forms: each striped family packed as one windowed slot stream
    (as the JAX planner packs it when its gate vetoes the stripes), and
@@ -243,9 +247,6 @@ ITERS = 30
 REPEAT_CALLS = 3
 #: profile windows per measurement: device times are their median
 WINDOWS = 5
-#: the scratch written between calls for a cold-L2 time, well past the
-#: H100's 50 MB L2
-FLUSH_BYTES = 256 << 20
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
@@ -616,20 +617,22 @@ _flush = {}
 
 
 def flush_l2():
-    """Rewrite FLUSH_BYTES of scratch on the card (``bitwise_not`` in
-    place), so the next call finds nothing of its inputs in the 50 MB L2.
-    The first call also records the flush's kernel names, which the
-    profile windows leave out of device times."""
+    """The cold-L2 flush before a timed call: ``probes.flush_l2``, which
+    rewrites 256 MB of scratch in place so the next call finds nothing of
+    its inputs in the 50 MB L2.  The first call also records the flush's
+    kernel names, which the profile windows leave out of device times
+    (its scratch is allocated before, outside the profile)."""
     import torch
-    if "buf" not in _flush:
+    from spmv_tpu_torch.bench.probes import flush_l2 as rewrite_scratch
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if "keys" not in _flush:
         from torch.profiler import ProfilerActivity, profile
-        _flush["buf"] = torch.zeros(FLUSH_BYTES // 4, dtype=torch.int32,
-                                    device="cuda")
+        rewrite_scratch(dev)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.bitwise_not(_flush["buf"], out=_flush["buf"])
+            rewrite_scratch(dev)
             torch.cuda.synchronize()
         _flush["keys"] = {ev.key for ev in prof.key_averages()}
-    torch.bitwise_not(_flush["buf"], out=_flush["buf"])
+    rewrite_scratch(dev)
 
 
 def scaled_err(y, ref, absref, bound, atol=0.0):
@@ -2528,36 +2531,74 @@ def _held(name, y, ref, absref, bound, exact=False):
     return float(d.max())
 
 
+def body_bytes(b):
+    """The bytes a tile_body stream moves, each once: meta (where a gather
+    stage or the value mode reads it) and values a slot, tinfo, ginfo, x,
+    init and the output blocks."""
+    slots = b.ntiles * 1024
+    meta = 0 if b.gather == "none" and b.value_mode in ("f32", "bf16") \
+        else 2
+    val = {"f32": 4, "bf16": 2}.get(b.value_mode, 0)
+    return (slots * (meta + val) + (b.tinfo.numel() + b.ginfo.numel()) * 4
+            + b.x.numel() * 4 + 4096 + b.ngroups * 4096)
+
+
+def _per(ms, n):
+    """ns an item of ``ms`` over ``n``, or "not measured"."""
+    return ms * 1e6 / n if isinstance(ms, float) else "not measured"
+
+
 def probe_kernel_records(dev, mats):
     """Each probe kernel against its plain version on the card, on every
     input its probes give it (f32 sums: 1e-5 of the sum of magnitudes, the
     plain version over |values| and |x|; ``tiny`` and ``fma_err`` bit for
-    bit), timed on its main input: ``tile_stream`` on P1's S_big,
-    ``tile_body`` on P4's f32 stream, ``window_gather`` on P9's loop,
-    ``tiny`` on P6's tile, ``fma_err`` on P8's.  Returns the kernels
-    line's records by name."""
+    bit; ``tile_stream`` and ``tile_body`` three calls bit for bit, and
+    ``tile_stream`` bit for bit ``tile_stream_order``), timed on its main
+    input: ``tile_stream`` on P1's S_big, ``tile_body`` on P4's f32 stream,
+    ``window_gather`` on P9's loop, ``tiny`` on P6's tile, ``fma_err`` on
+    P8's.  Logs ``tile_stream`` at B = 1, 8, 64, 512 beside ``torch.sum``
+    and every ``tile_body`` input (and P5's full body at G 8, 16, 64),
+    warm and cold, ns a tile and the bound's share of the cold time.
+    Returns the kernels line's records by name."""
     import dataclasses as dc
     import numpy as np
     import torch
     from spmv_tpu_torch.bench import probes as pr
+    from spmv_tpu_torch.ops.sell import sm_count
     a, packed, v2 = pr.probe_inputs(mats["clustered"])
     vals = torch.from_numpy(packed.vals).to(dev)
     recs = {}
     ones = torch.ones(8, 128, dtype=torch.float32, device=dev)
 
-    # tile_stream: S_big (64, carried), S_nodep (8, a sum a step), P3 (512)
+    # tile_stream: every input its probes give it (P1's S_big, S_tile,
+    # S_tile8 and S_nodep, P3's 512, P7's 1 and 8), each against its plain
+    # version, three calls bit for bit, and bit for bit the numpy
+    # statement of its summation order
     err = 0.0
-    for block, acc in ((64, True), (8, False), (1, True), (512, True)):
+    nsm = sm_count(dev)
+    ones_h = np.ones((8, 128), np.float32)
+    for _name, block, acc in pr.STREAM_INPUTS:
         ref = pr.tile_stream_plain(vals, block, acc, ones)
         absref = pr.tile_stream_plain(vals.abs(), block, acc, ones)
-        err = max(err, _held("tile_stream", pr.tile_stream(vals, block, acc,
-                                                           ones),
-                             ref, absref, BOUND))
+        y = pr.tile_stream(vals, block, acc, ones)
+        err = max(err, _held("tile_stream", y, ref, absref, BOUND))
+        repeats_its_y(f"tile_stream B {block}",
+                      lambda c, b=block, a=acc: pr.tile_stream(vals, b, a, c),
+                      ones)
+        split = pr.stream_split(vals.shape[0] // block, block, acc, nsm)
+        if not np.array_equal(y.cpu().numpy(), pr.tile_stream_order(
+                packed.vals, block, acc, ones_h, split)):
+            raise AssertionError(f"tile_stream B {block}: not its order's "
+                                 "numpy statement bit for bit")
     nt = vals.shape[0] // 64 * 64
     bound, by = _bound_ms(nt * 4096 + 2 * 4096, nt * 1024)
+    s_big = lambda c: pr.tile_stream(vals, 64, True, c)  # noqa: E731
+    warm = profile_calls(s_big, ones)
     recs["tile_stream"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda c: pr.tile_stream(vals, 64, True,
-                                                             c), ones),
+        max_abs_err=err, ms=cuda_ms(s_big, ones),
+        device_ms=warm["device_ms"],
+        device_ms_spread=warm.get("device_ms_spread"),
+        cold_ms=cuda_ms(s_big, ones, cold=True),
         plain_ms=cuda_ms(lambda c: pr.tile_stream_plain(vals, 64, True, c),
                          ones),
         library_ms=cuda_ms(lambda c: torch.sum(vals[:nt], 0), ones),
@@ -2575,19 +2616,39 @@ def probe_kernel_records(dev, mats):
                                       ones),
                         "P7": cuda_ms(lambda c: torch.sum(vals, 0), ones)},
                     "tiles": {"P1": nt, "P3": nt3, "P7": vals.shape[0]}}))
+    # the carried stream at B = 1, 8, 64, 512 beside torch.sum over the
+    # same tiles: device ms warm (the 48 MB stream sits partly in the 50 MB
+    # L2) and one call's ms with the L2 cold, ns a tile, the bound's share
+    # of the cold time
+    for block in (1, 8, 64, 512):
+        ntb = vals.shape[0] // block * block
+        fn = lambda c, b=block: pr.tile_stream(vals, b, True, c)  # noqa
+        lib = lambda c, n=ntb: torch.sum(vals[:n], 0)  # noqa: E731
+        bnd = _bound_ms(ntb * 4096 + 2 * 4096)[0]
+        kw, lw = profile_calls(fn, ones), profile_calls(lib, ones)
+        cold, lcold = cuda_ms(fn, ones, cold=True), cuda_ms(lib, ones,
+                                                            cold=True)
+        log(json.dumps({"phase": "prices", "sweep": "tile_stream",
+                        "B": block, "tiles": ntb,
+                        "device_ms": kw["device_ms"], "cold_ms": cold,
+                        "ns_tile_warm": _per(kw["device_ms"], ntb),
+                        "ns_tile_cold": cold * 1e6 / ntb, "bound_ms": bnd,
+                        "bound_share_cold": bnd / cold,
+                        "torch_sum_device_ms": lw["device_ms"],
+                        "torch_sum_cold_ms": lcold,
+                        "split_chunks": len(pr.stream_split(
+                            ntb // block, block, True, nsm).chunks)}))
 
     # tile_body: P2, P4's three value modes, P5's seven variants; held on
     # a random x and carry (the probes' x of ones would hide a gather at
-    # the wrong column, sub-row or window), timed on the probes' own
-    bodies = [pr.g8_stream(packed, dev)]
-    bodies += [pr.v2proto_stream(packed, m, dev)
-               for m in ("f32", "palette", "bf16")]
-    bodies += [pr.body_stream(v2, v, g, dev) for v, g in pr.BODY_VARIANTS]
+    # the wrong column, sub-row or window), three calls bit for bit; timed
+    # on the probes' own
+    bodies = pr.body_inputs(packed, v2, dev)
     rng = np.random.default_rng(3)
     c0 = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32)
                           ).to(dev)
     err = 0.0
-    for b in bodies:
+    for name, b in bodies:
         b = dc.replace(b, x=torch.from_numpy(rng.standard_normal(
             b.x.numel()).astype(np.float32)).to(dev))
         babs = dc.replace(b, palette=b.palette.abs(), x=b.x.abs(),
@@ -2595,24 +2656,47 @@ def probe_kernel_records(dev, mats):
         err = max(err, _held("tile_body", pr.tile_body(b, c0),
                              pr.tile_body_plain(b, c0),
                              pr.tile_body_plain(babs, c0.abs()), BOUND))
-    main = bodies[1]                   # P4, f32 values
-    slots = main.ntiles * 1024
-    nbytes = (slots * 6 + main.tinfo.numel() * 4 + main.ginfo.numel() * 4
-              + main.x.numel() * 4 + main.ngroups * 4096)
-    bound, by = _bound_ms(nbytes, 2 * slots)
+        repeats_its_y(f"tile_body {name}",
+                      lambda c, b=b: pr.tile_body(b, c), c0)
+    by_name = dict(bodies)
+    main = by_name["P4 f32"]
+    nbytes = body_bytes(main)
+    bound, by = _bound_ms(nbytes, 2 * main.ntiles * 1024)
+    body = lambda c: pr.tile_body(main, c)  # noqa: E731
+    warm = profile_calls(body, ones)
     recs["tile_body"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda c: pr.tile_body(main, c), ones),
+        max_abs_err=err, ms=cuda_ms(body, ones),
+        device_ms=warm["device_ms"],
+        device_ms_spread=warm.get("device_ms_spread"),
+        cold_ms=cuda_ms(body, ones, cold=True),
         plain_ms=cuda_ms(lambda c: pr.tile_body_plain(main, c), ones),
         library_ms=None, library_call=None, bound_ms=bound, bound_by=by,
         bytes=nbytes, family="clustered200k pack_sell8w, G 16, f32 (P4)")
+    # every body input timed on the card, warm and cold (the chained P2,
+    # P4 and P5 figures of the probes can be the host's enqueue time)
+    for name, b in bodies:
+        fn = lambda c, b=b: pr.tile_body(b, c)  # noqa: E731
+        kw = profile_calls(fn, ones)
+        cold = cuda_ms(fn, ones, cold=True)
+        bnd = _bound_ms(body_bytes(b))[0]
+        log(json.dumps({"phase": "prices", "sweep": "tile_body",
+                        "input": name, "G": b.g, "tiles": b.ntiles,
+                        "value_mode": b.value_mode, "gather": b.gather,
+                        "mask": b.mask, "fixed_window": b.fixed_window,
+                        "device_ms": kw["device_ms"], "cold_ms": cold,
+                        "ns_tile_warm": _per(kw["device_ms"], b.ntiles),
+                        "ns_tile_cold": cold * 1e6 / b.ntiles,
+                        "bound_ms": bnd, "bound_share_cold": bnd / cold}))
     # the plain versions of the probes the kernels line does not time:
     # P2 (G 8), P3 (512 tiles a step), P5 (the full body, G 16), P7 (1
     # and 8 tiles a step, carried)
     log(json.dumps({"phase": "prices", "probe_plain_ms": {
-        "P2": cuda_ms(lambda c: pr.tile_body_plain(bodies[0], c), ones),
+        "P2": cuda_ms(lambda c: pr.tile_body_plain(by_name["P2 G8"], c),
+                      ones),
         "P3": cuda_ms(lambda c: pr.tile_stream_plain(vals, 512, True, c),
                       ones),
-        "P5": cuda_ms(lambda c: pr.tile_body_plain(bodies[4], c), ones),
+        "P5": cuda_ms(lambda c: pr.tile_body_plain(by_name["P5 full G16"],
+                                                   c), ones),
         "P7": [cuda_ms(lambda c, b=b: pr.tile_stream_plain(vals, b, True,
                                                            c), ones)
                for b in (1, 8)]}}))

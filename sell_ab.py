@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the SELL and COO2 pass-1 kernels of another checkout of the port
-beside this one's, in one process on one NVIDIA card, on each kernel's
-largest stream.
+"""Time the SELL and COO2 pass-1 kernels and the calibration's probe kernels
+of another checkout of the port beside this one's, in one process on one
+NVIDIA card, on each kernel's largest stream.
 
-    python3 sell_ab.py OTHER_ROOT [--rounds R]
+    python3 sell_ab.py OTHER_ROOT [--rounds R] [--kernels K,...]
+    python3 sell_ab.py OTHER_ROOT --routes
 
 OTHER_ROOT is the root of another checkout (for example the parent
 commit, unpacked with ``git archive`` into a directory that ``.gitignore``
@@ -30,15 +31,28 @@ of clustered200k_csr5 and clustered200k_w4096 (bf16 values) and of
 ``pack_coo2`` as the CSR5 plan packs it and placed by each tree's
 ``prepare_coo2``.
 
+The calibration's probe kernels (``csrc/probes.cu``), on the inputs the
+probes give them from clustered200k (``probes.probe_inputs``):
+``tile_stream`` on P1's four streams (S_big, S_tile, S_tile8, S_nodep; P7
+runs S_tile's and S_tile8's) and P3's, each beside ``torch.sum`` over the
+same tiles; ``tile_body`` on P2's stream, P4's three, P5's seven and P5's
+full body at G 8, on a random x and carry.  Each tree's own wrapper
+(``bench.probes``) runs them; this tree's must give the same y bit for
+bit on three calls.
+
 Per stream: both trees' y against the plain version (f32 1e-5, f64 1e-12
-of (|A||x|)_i; COO2 pass 1 bit for bit), then R rounds in turns (other,
-this, this, other), each
+of (|A||x|)_i; COO2 pass 1 bit for bit; the probe kernels 1e-5 of the sum
+of magnitudes), then R rounds in turns (other, this, this, other), each
 side timed by ``chip_smoke.profile_calls`` (5 profile windows, warm and
 after an L2 flush) and CUDA events, and its host time per call over 1,000
 enqueues.  Prints one JSON line a stream: each side's medians over its
 turns, the ratio this / other, ns a tile and the share of the padded
 stream's bound; then the card's ``nvidia-smi`` line.  Exits non-zero
 without a card or when a kernel disagrees with its plain version.
+
+``--routes`` times no kernel: it plans ``chip_smoke.PRICE_FAMILIES`` at
+full size under the other checkout's ``H100`` price table and this one's
+(``route_ab``), to list the routes a re-derived table moves.
 """
 
 import argparse
@@ -218,9 +232,175 @@ def nchunks(st):
     return st.nchunks
 
 
-def measure(run, st, x):
+def probe_jobs(dev, other_pr, kernels=None):
+    """(kernel, label, {side: fn of the carry}, tiles, bytes, check) of the
+    probe kernels' streams; ``check(y)`` is (scaled error, within 1e-5)
+    against the plain version."""
+    import dataclasses
+    import numpy as np
+    import torch
     import chip_smoke as cs
-    fn = lambda v: run(st, v)  # noqa: E731
+    from spmv_tpu_torch.bench import probes as pr
+    from spmv_tpu_torch.io import generate
+    if kernels is not None and not {"tile_stream", "tile_body"} & set(
+            kernels):
+        return
+    _a, packed, v2 = pr.probe_inputs(cs.FAMILIES["clustered200k"][0](
+        generate, np))
+    vals = torch.from_numpy(packed.vals).to(dev)
+
+    def checker(plain, plain_abs):
+        ref, absref = plain(), plain_abs()
+
+        def check(y):
+            rel, _abs, ok = cs.scaled_err(y.reshape(-1), ref.reshape(-1),
+                                          absref.reshape(-1), cs.BOUND)
+            return rel, ok
+        return check
+
+    if kernels is None or "tile_stream" in kernels:
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        ones = torch.ones(8, 128, dtype=torch.float32, device=dev)
+        for label, block, acc in pr.STREAM_INPUTS:
+            nt = vals.shape[0] // block * block
+            if nt == 0:
+                continue
+            sides = {"other": lambda c, b=block, a=acc: other_pr.tile_stream(
+                vals, b, a, c, ticket),
+                "this": lambda c, b=block, a=acc: pr.tile_stream(
+                    vals, b, a, c),
+                "torch_sum": lambda c, n=nt: torch.sum(vals[:n], 0)}
+            if not acc:
+                del sides["torch_sum"]
+            yield ("tile_stream", label, sides, nt,
+                   nt * 4096 + (1 if acc else nt // block + 1) * 4096,
+                   checker(lambda b=block, a=acc: pr.tile_stream_plain(
+                       vals, b, a, ones),
+                       lambda b=block, a=acc: pr.tile_stream_plain(
+                           vals.abs(), b, a, ones)), ones)
+    if kernels is None or "tile_body" in kernels:
+        rng = np.random.default_rng(3)
+        c0 = torch.from_numpy(rng.standard_normal((8, 128)).astype(
+            np.float32)).to(dev)
+        for label, b in pr.body_inputs(packed, v2, dev):
+            b = dataclasses.replace(b, x=torch.from_numpy(
+                rng.standard_normal(b.x.numel()).astype(np.float32)).to(dev))
+            babs = dataclasses.replace(
+                b, palette=b.palette.abs(), x=b.x.abs(),
+                vals=None if b.vals is None else b.vals.abs())
+            yield ("tile_body", label,
+                   {"other": lambda c, b=b: other_pr.tile_body(b, c),
+                    "this": lambda c, b=b: pr.tile_body(b, c)}, b.ntiles,
+                   cs.body_bytes(b),
+                   checker(lambda b=b: pr.tile_body_plain(b, c0),
+                           lambda b=babs: pr.tile_body_plain(b, c0.abs())),
+                   c0)
+
+
+def probe_ab(dev, other_pr, rounds, kernels=None):
+    """Each probe stream: both trees against the plain version, this
+    tree's three calls bit for bit, then ``rounds`` turns (other, this,
+    this, other), ``torch.sum`` measured once after them; one JSON line a
+    stream with ns a tile and the bound's share of the device times."""
+    import chip_smoke as cs
+    for kernel, label, fns, nt, nbytes, check, c in probe_jobs(
+            dev, other_pr, kernels):
+        errs = {}
+        for side in ("other", "this"):
+            rel, ok = check(fns[side](c))
+            errs[side] = rel
+            if not ok:
+                raise AssertionError(f"{kernel} {label} ({side}): scaled "
+                                     f"error {rel:.3g}")
+        cs.repeats_its_y(f"{kernel} {label}", fns["this"], c)
+        runs = {"other": [], "this": []}
+        for _ in range(rounds):
+            for side in ("other", "this", "this", "other"):
+                runs[side].append(measure(fns[side], c))
+        if "torch_sum" in fns:
+            runs["torch_sum"] = [measure(fns["torch_sum"], c)]
+        bound = nbytes / cs.HBM_BYTES_PER_S * 1e3
+        rec = {"kernel": kernel, "stream": label, "tiles": nt,
+               "bytes": nbytes, "bound_ms": bound, "scaled_err": errs}
+        for side, rs in runs.items():
+            med = {k: statistics.median(r[k] for r in rs)
+                   for k in ("device_ms", "cold_device_ms", "ms", "host_us")
+                   if all(isinstance(r[k], float) for r in rs)}
+            med["device_ms_turns"] = [r["device_ms"] for r in rs]
+            med["cold_device_ms_turns"] = [r["cold_device_ms"] for r in rs]
+            for k in ("device_ms", "cold_device_ms"):
+                if k in med:
+                    med[f"ns_tile_{k}"] = med[k] * 1e6 / nt
+                    med[f"bound_share_{k}"] = bound / med[k]
+            rec[side] = med
+        if "device_ms" in rec["this"] and "device_ms" in rec["other"]:
+            rec["this_over_other"] = (rec["this"]["device_ms"]
+                                      / rec["other"]["device_ms"])
+            rec["this_over_other_cold"] = (
+                rec["this"].get("cold_device_ms", float("nan"))
+                / rec["other"].get("cold_device_ms", float("nan")))
+        cs.log(json.dumps(rec))
+
+
+def route_ab(dev, other_prices):
+    """Each of ``chip_smoke.PRICE_FAMILIES`` planned by this checkout's
+    ``create_handle`` (AUTO) under three tables: the other checkout's
+    ``H100`` (``old``), this one's (``new``), and ``old`` with only this
+    one's two x prices, ``stripe_x_ns_per_byte`` and ``x_window_ns``
+    (``old_x``), which tells a route the x prices moved from one the other
+    figures moved.  One JSON line a family with the three routes; where
+    ``old`` and ``new`` differ, both plans' y against the family's
+    reference and bound, and both timed in turns (old, new, new, old: CUDA
+    events, median of 30) with a profile each."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch.formats import prices as pm
+    from spmv_tpu_torch.io import generate
+    old = pm.Prices(**dataclasses.asdict(other_prices.H100))
+    tables = {"old": old, "new": pm.H100,
+              "old_x": dataclasses.replace(
+                  old, stripe_x_ns_per_byte=pm.H100.stripe_x_ns_per_byte,
+                  x_window_ns=pm.H100.x_window_ns)}
+    for name in cs.PRICE_FAMILIES:
+        a = cs.FAMILIES[name][0](generate, np)
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal(a.n)
+                             .astype(a.vals.dtype)).to(dev)
+        hs = {k: st.create_handle(a, method=st.Method.AUTO, device=dev,
+                                  prices=t) for k, t in tables.items()}
+        row = {"routes": name, **{f"route_{k}": cs.route_of(h)
+                                  for k, h in hs.items()}}
+        row["differs"] = row["route_old"] != row["route_new"]
+        if row["differs"]:
+            ref, absref, bound, _ref_name = cs.reference(
+                a, x.cpu().numpy().astype(np.float64), np)
+            ref, absref = torch.from_numpy(ref), torch.from_numpy(absref)
+            ms = {"old": [], "new": []}
+            for k in ms:
+                rel, _abs, ok = cs.scaled_err(hs[k](x).cpu(), ref, absref,
+                                              bound,
+                                              cs.scan_atol(hs[k], a, ref))
+                if not ok:
+                    raise AssertionError(f"routes {name}: the {k} plan's "
+                                         f"max scaled error {rel:.3g}")
+                row[f"scaled_err_{k}"] = rel
+            for k in ("old", "new", "new", "old"):
+                ms[k].append(cs.cuda_ms(hs[k], x))
+            for k in ms:
+                row[f"ms_{k}"] = ms[k]
+                row[f"device_ms_{k}"] = cs.profile_calls(hs[k],
+                                                         x)["device_ms"]
+        cs.log(json.dumps(row))
+        del hs, a, x
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def measure(fn, x):
+    import chip_smoke as cs
     warm = cs.profile_calls(fn, x)
     cold = cs.profile_calls(fn, x, cold=True)
     return {"device_ms": warm["device_ms"],
@@ -237,6 +417,9 @@ def main() -> int:
                     help="turns (other, this, this, other) per stream")
     ap.add_argument("--kernels", default=None,
                     help="comma-separated kernel names (default: all)")
+    ap.add_argument("--routes", action="store_true",
+                    help="plan the price families under both trees' H100 "
+                    "tables instead of timing kernels")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -248,9 +431,14 @@ def main() -> int:
     import chip_smoke as cs
     from spmv_tpu_torch.ops import coo2 as this_coo2, sell as this
     load_other(args.other)
+    dev = torch.device("cuda", 0)
+    if args.routes:
+        route_ab(dev, importlib.import_module(OTHER + ".formats.prices"))
+        cs.log(cs._cmd_line(["nvidia-smi", "--query-gpu=name,power.limit",
+                             "--format=csv,noheader"]))
+        return 0
     other = importlib.import_module(OTHER + ".ops.sell")
     other_coo2 = importlib.import_module(OTHER + ".ops.coo2")
-    dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     kernels = args.kernels and args.kernels.split(",")
 
@@ -298,7 +486,8 @@ def main() -> int:
         runs = {"other": [], "this": []}
         for _ in range(args.rounds):
             for side in ("other", "this", "this", "other"):
-                runs[side].append(measure(runs_of[side], sides[side], x))
+                runs[side].append(measure(
+                    lambda v, f=runs_of[side], s=sides[side]: f(s, v), x))
         nt = st.meta.shape[0]
         stream_ms = cs.stream_bound(st, 0)[3]
         rec = {"kernel": cs.kernel_of(st), "stream": label, "tiles": nt,
@@ -325,6 +514,8 @@ def main() -> int:
         del sides, st, x, ref, absref
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+    probe_ab(dev, importlib.import_module(OTHER + ".bench.probes"),
+             args.rounds, kernels)
     cs.log(cs._cmd_line(["nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"]))
     return 0

@@ -6,6 +6,7 @@ sound.  Run from the repository root:
     python3 sell_probe.py chunks      # the chunk rule's settings
     python3 sell_probe.py variants    # copies of the kernel, one part changed
     python3 sell_probe.py stress      # partial-sum scratch poisoned with NaN
+    python3 sell_probe.py probes      # the calibration's probe kernels
 
 Streams are those of ``sell_ab.py`` (each SELL kernel's largest stream in
 ``chip_smoke.py``), packed once on the host.  Each prints one JSON line a
@@ -27,14 +28,29 @@ profile windows.
   match the plain version and the first launch's bits, and leave the
   tickets at 0.
 
+* ``probes``: the same for the calibration's ``tile_stream`` and
+  ``tile_body`` (``csrc/probes.cu``) on the probes' clustered200k inputs
+  (P1 S_big; P4 f32, P5's full body, no_gather and no_mask): copies with
+  the fixed-order reduce left out (``notail``), the zero-fill of groups no
+  tile visits left out (``nozero``), the runs' stores left out
+  (``noflush``), the cell's meta read from the slot's own word
+  (``nocell``) — each giving wrong results, timed only — and ``ku4``
+  (tiles decoded at once); then ``tile_stream`` and PyTorch's flat
+  ``sum`` over P1's tiles repeated 1, 2 and 4 times, each call timed by
+  CUDA events after ``probes.flush_l2`` (the cold times' flush: 256 MB
+  rewritten in place) and after a read of 1 GiB, which leaves the L2
+  clean.
+
 Exits non-zero without a card, or when ``stress`` finds a launch wrong.
 """
 
 import argparse
 import concurrent.futures
 import ctypes
+import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 from types import SimpleNamespace
@@ -54,12 +70,28 @@ VARIANTS = {
                 "constexpr int kRingBytes = 32 * 1024;")],
 }
 
+PROBE_VARIANTS = {
+    "notail": [("  take_tickets(tr, &slot, 1, &last);", "  last = 0;"),
+               ("    take_tickets(p.tr, slots, n, last);",
+                "    if (tid < n) last[tid] = 0;\n    __syncthreads();")],
+    "nozero": [("for (int64_t z = z0; z < z1; ++z) {",
+                "for (int64_t z = z0; z < z0; ++z) {")],
+    "noflush": [("            dst[r * kLanes + j] = acc[r];",
+                 "            if (acc[r] == 12345.f) "
+                 "dst[r * kLanes + j] = acc[r];")],
+    "nocell": [("(uint32_t(mt[i * kLanes + r]) >> 7)", "(ms >> 7)")],
+    "ku4": [("constexpr int kBodyU = 2;", "constexpr int kBodyU = 4;")],
+}
+PROBE_ENTRIES = ("spmv_probe_tile_stream", "spmv_probe_tile_body")
 
-def build_variants():
-    """{name: spmv_sell_launch} of each variant, compiled at once."""
+
+def build_variants(source="sell.cu", variants=VARIANTS,
+                   entries=("spmv_sell_launch",)):
+    """(the shipped kernels, {name: {entry: function}}) of each variant of
+    ``source``, compiled at once."""
     from spmv_tpu_torch import _build
     base = _build.load_kernels()
-    src = open(os.path.join(_build.CSRC_DIR, "sell.cu")).read()
+    src = open(os.path.join(_build.CSRC_DIR, source)).read()
     vdir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(vdir, exist_ok=True)
     cmd = [_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
@@ -68,9 +100,9 @@ def build_variants():
 
     def build(name):
         text = src
-        for old, new in VARIANTS[name]:
+        for old, new in variants[name]:
             if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} not in sell.cu")
+                raise RuntimeError(f"variant {name}: {old!r} not in {source}")
             text = text.replace(old, new)
         path = os.path.join(vdir, name + ".cu")
         with open(path, "w") as f:
@@ -79,20 +111,99 @@ def build_variants():
                              capture_output=True, text=True)
         if res.returncode:
             raise RuntimeError(f"variant {name}: {res.stderr[-2000:]}")
-        fn = ctypes.CDLL(path[:-3] + ".so").spmv_sell_launch
-        fn.restype = base.spmv_sell_launch.restype
-        fn.argtypes = base.spmv_sell_launch.argtypes
-        return name, fn
+        lib = ctypes.CDLL(path[:-3] + ".so")
+        fns = {}
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.restype = getattr(base, entry).restype
+            fn.argtypes = getattr(base, entry).argtypes
+            fns[entry] = fn
+        return name, fns
 
-    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
-        fns = dict(pool.map(build, VARIANTS))
-    fns["base"] = base.spmv_sell_launch
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        fns = dict(pool.map(build, variants))
+    fns["base"] = {entry: getattr(base, entry) for entry in entries}
     return base, fns
+
+
+def probe_kernels(dev):
+    """The ``probes`` subcommand: one JSON line a variant, then one a
+    stream size."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from spmv_tpu_torch import _build
+    from spmv_tpu_torch.bench import probes as pr
+    from spmv_tpu_torch.io import generate
+    _a, packed, v2 = pr.probe_inputs(cs.FAMILIES["clustered200k"][0](
+        generate, np))
+    vals = torch.from_numpy(packed.vals).to(dev)
+    ones = torch.ones(8, 128, dtype=torch.float32, device=dev)
+    bodies = dict(pr.body_inputs(packed, v2, dev))
+    runs = {"P1 S_big": (lambda c: pr.tile_stream(vals, 64, True, c),
+                         lambda c: pr.tile_stream_plain(vals, 64, True, c),
+                         lambda c: pr.tile_stream_plain(vals.abs(), 64,
+                                                        True, c))}
+    for name in ("P4 f32", "P5 full G16", "P5 no_gather G16",
+                 "P5 no_mask G16"):
+        b = bodies[name]
+        babs = dataclasses.replace(b, palette=b.palette.abs(),
+                                   vals=None if b.vals is None
+                                   else b.vals.abs())
+        runs[name] = (lambda c, b=b: pr.tile_body(b, c),
+                      lambda c, b=b: pr.tile_body_plain(b, c),
+                      lambda c, b=babs: pr.tile_body_plain(b, c))
+    base, fns = build_variants("probes.cu", PROBE_VARIANTS, PROBE_ENTRIES)
+    for name in ("base", *PROBE_VARIANTS, "base"):
+        _build._kernels = SimpleNamespace(**{**vars(base), **fns[name]})
+        rec = {"probe": "probes", "variant": name}
+        for label, (fn, plain, plain_abs) in runs.items():
+            ok = cs.scaled_err(fn(ones).reshape(-1), plain(ones).reshape(-1),
+                               plain_abs(ones).reshape(-1), cs.BOUND)[2]
+            rec[label] = {"ok": ok,
+                          "device_ms": cs.profile_calls(fn, ones)["device_ms"]}
+        cs.log(json.dumps(rec))
+    _build._kernels = base
+
+    # the cold times' flush, and a read of 1 GiB, which leaves no dirty
+    # line in the L2 and lasts past the host's enqueue of the timed call
+    scratch = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+    flushes = {"dirty": lambda: pr.flush_l2(dev),
+               "clean": lambda: torch.amax(scratch)}
+
+    def one_call_ms(fn, flush, iters=20):
+        fn(ones)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(iters):
+            flush()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn(ones)
+            e.record()
+            e.synchronize()
+            ms.append(s.elapsed_time(e))
+        return statistics.median(ms)
+
+    for reps in (1, 2, 4):
+        v = vals.repeat(reps, 1, 1)
+        flat = v.view(-1)
+        rec = {"probe": "probes", "tiles": v.shape[0],
+               "bound_ms": v.numel() * 4 / cs.HBM_BYTES_PER_S * 1e3}
+        for kind, flush in flushes.items():
+            rec[f"tile_stream_{kind}_ms"] = one_call_ms(
+                lambda c, v=v: pr.tile_stream(v, 64, True, c), flush)
+            rec[f"flat_sum_{kind}_ms"] = one_call_ms(
+                lambda c, f=flat: f.sum(), flush)
+        cs.log(json.dumps(rec))
+        del v, flat
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("probe", choices=("chunks", "variants", "stress"))
+    ap.add_argument("probe", choices=("chunks", "variants", "stress",
+                                      "probes"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -106,6 +217,11 @@ def main() -> int:
     from spmv_tpu_torch import _build
     from spmv_tpu_torch.ops import sell
     dev = torch.device("cuda", 0)
+    if args.probe == "probes":
+        probe_kernels(dev)
+        cs.log(cs._cmd_line(["nvidia-smi", "--query-gpu=name,power.limit",
+                             "--format=csv,noheader"]))
+        return 0
     rng = np.random.default_rng(0)
     kernels = {"variants": ["sell_slot_w", "sell_slot", "sell_v1"],
                "stress": ["sell_row", "sell_row_df", "sell_v1",
@@ -148,7 +264,7 @@ def main() -> int:
             elif args.probe == "variants":
                 for name in ("base", *VARIANTS, "base"):
                     _build._kernels = SimpleNamespace(
-                        **{**vars(base), "spmv_sell_launch": fns[name]})
+                        **{**vars(base), **fns[name]})
                     ok = cs.scaled_err(fn(x), ref, absref, bound)[2]
                     rec.setdefault(name, []).append(
                         {"ok": ok,

@@ -113,9 +113,9 @@ def load_kernels() -> SimpleNamespace:
                 "spmv_coo2_launch": ("coo2", ctypes.c_int,
                                      [p] * 6 + [i64] * 3 + [p]),
                 "spmv_probe_tile_stream": ("probes", ctypes.c_int,
-                                           [p] * 5 + [i64] * 4 + [p]),
+                                           [p] * 9 + [i64] * 5 + [p]),
                 "spmv_probe_tile_body": ("probes", ctypes.c_int,
-                                         [p] * 8 + [i64] * 7 + [p]),
+                                         [p] * 16 + [i64] * 9 + [p]),
                 "spmv_probe_window_gather": ("probes", ctypes.c_int,
                                              [p] * 5 + [i64] * 3 + [p]),
                 "spmv_probe_tiny": ("probes", ctypes.c_int, [p] * 3),

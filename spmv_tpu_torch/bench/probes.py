@@ -42,6 +42,10 @@ CPU at a small size: ``tests/test_torch_probes.py``.
 from __future__ import annotations
 
 import dataclasses
+import statistics
+import time
+import weakref
+from types import SimpleNamespace
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -50,11 +54,14 @@ import torch
 from .. import _build
 from ..formats import _bf16
 from ..formats.sell8w import LANES, SUB, WINDOW
+from ..ops.sell import sm_count
 from . import timing
 
 __all__ = ["tile_stream", "tile_stream_plain", "tile_body", "tile_body_plain",
            "window_gather", "window_gather_plain", "tiny", "tiny_plain",
-           "fma_err", "fma_err_plain", "probe_inputs", "probe_stream",
+           "fma_err", "fma_err_plain", "Split", "stream_split",
+           "body_split", "tile_stream_order", "STREAM_INPUTS",
+           "body_inputs", "flush_l2", "probe_inputs", "probe_stream",
            "probe_g8", "probe_huge", "probe_v2proto", "probe_body",
            "probe_tiny", "probe_step", "probe_fma", "probe_wide_gather",
            "p9_arrays", "run_probes", "calibrate", "KERNEL_COUNTS"]
@@ -102,10 +109,218 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _steps_a_block(nsteps: int, device) -> int:
-    """Steps a CUDA block walks: about 8 blocks an SM."""
-    from ..ops.sell import sm_count
-    return max(-(-nsteps // (sm_count(device) * 8)), 1)
+#: chunks a tile stream is cut into an SM (256 threads a block, the whole
+#: grid resident at once; four ran slower on the H100: more slots)
+STREAM_CHUNKS_PER_SM = 2
+#: chunks a body stream is cut into an SM (160 threads a block)
+BODY_CHUNKS_PER_SM = 4
+#: slots a node of the fixed-order reduce sums (``csrc/probes.cu`` kFan)
+REDUCE_FAN = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How a kernel of ``csrc/probes.cu`` cuts its tiles into chunks (one
+    CUDA block a chunk) and reduces each output cut over several chunks:
+    one partial a piece (a slot), the slots of split output k summed in
+    order by nodes of :data:`REDUCE_FAN`, then the nodes in order.  int32
+    host tables."""
+
+    #: (nchunks, 4): tile_lo, tile_hi, then (tile_stream) the chunk's slot
+    #: or -1 and its output, (tile_body) its runs' bounds in ``runs``
+    chunks: np.ndarray
+    slot_out: np.ndarray          # (nslots,): each slot's split output
+    slot_ptr: np.ndarray          # (nsplit + 1,): slots of each
+    node_ptr: np.ndarray          # (nsplit + 1,): nodes of each
+    #: tile_body: (nruns, 4): a run's end tile, its group, its slot or -1
+    runs: Optional[np.ndarray] = None
+    #: tile_body: the groups no tile visits (zero-filled)
+    zero_groups: Optional[np.ndarray] = None
+
+    @property
+    def nslots(self) -> int:
+        return int(self.slot_ptr[-1])
+
+    @property
+    def nnodes(self) -> int:
+        return int(self.node_ptr[-1])
+
+    @property
+    def ntickets(self) -> int:
+        """Tickets a launch uses: one a node, then one a split output."""
+        return self.nnodes + len(self.slot_ptr) - 1
+
+
+def _i32(*cols) -> np.ndarray:
+    return np.ascontiguousarray(np.stack(cols, axis=1).astype(np.int32))
+
+
+def _tree(counts) -> tuple:
+    """(slot_out, slot_ptr, node_ptr) of split outputs of ``counts``
+    slots each."""
+    counts = np.asarray(counts, np.int64)
+    slot_ptr = np.concatenate([[0], np.cumsum(counts)])
+    node_ptr = np.concatenate([[0], np.cumsum(-(-counts // REDUCE_FAN))])
+    return (np.repeat(np.arange(len(counts)), counts).astype(np.int32),
+            slot_ptr.astype(np.int32), node_ptr.astype(np.int32))
+
+
+def _even(total: int, n: int) -> np.ndarray:
+    """n + 1 bounds cutting [0, total) into n near-equal runs."""
+    return total * np.arange(n + 1, dtype=np.int64) // n
+
+
+def stream_split(nsteps: int, block: int, accumulate: bool,
+                 nsm: int) -> Split:
+    """:func:`tile_stream`'s chunks over the ``nsteps · block`` tiles, about
+    :data:`STREAM_CHUNKS_PER_SM` an SM whatever ``block`` is.  With
+    ``accumulate`` the one output is cut evenly (a slot a chunk, or one
+    chunk writing it); without, chunks of whole steps write each step as
+    it ends, or a step longer than a chunk is cut into parts (a slot each).
+    ``chunks[c]`` = (tile_lo, tile_hi, slot or -1, output)."""
+    T = nsteps * block
+    if T >= 2 ** 31:
+        raise ValueError("tile_stream: at most 2^31 - 1 tiles")
+    target = max(-(-T // (nsm * STREAM_CHUNKS_PER_SM)), 1)
+    if accumulate:
+        b = _even(T, max(-(-T // target), 1))
+        n = len(b) - 1
+        slot = np.arange(n) if n > 1 else np.full(1, -1)
+        tree = _tree([n] if n > 1 else [])
+        return Split(_i32(b[:-1], b[1:], slot, np.zeros(n)), *tree)
+    if block <= target:
+        s = _even(nsteps, min(nsteps, nsm * STREAM_CHUNKS_PER_SM))
+        n = len(s) - 1
+        return Split(_i32(s[:-1] * block, s[1:] * block, np.full(n, -1),
+                          np.full(n, -1)), *_tree([]))
+    parts = -(-block // target)
+    step = np.repeat(np.arange(nsteps), parts)
+    i = np.tile(np.arange(parts), nsteps)
+    return Split(_i32(step * block + block * i // parts,
+                      step * block + block * (i + 1) // parts,
+                      np.arange(nsteps * parts), step),
+                 *_tree(np.full(nsteps, parts)))
+
+
+def body_split(ginfo: np.ndarray, g: int, ngroups: int, nsm: int) -> Split:
+    """:func:`tile_body`'s chunks: the ``len(ginfo) · g`` tiles cut evenly
+    into about :data:`BODY_CHUNKS_PER_SM` chunks an SM, across steps and
+    groups; each chunk's runs (its tiles of one group, in order) end in a
+    direct write of the group, or, for a group with more than one run in
+    the stream (cut by a chunk boundary, or visited twice), in a slot of
+    the reduce.  A run's init comes from the steps it opens (ginfo & 1 at
+    a step's first tile), so a group gets it once however it is cut.
+    ``chunks[c]`` = (tile_lo, tile_hi, run_lo, run_hi)."""
+    gi = np.asarray(ginfo, np.int64)
+    T = len(gi) * g
+    if T >= 2 ** 31:
+        raise ValueError("tile_body: at most 2^31 - 1 tiles")
+    grp = np.repeat(gi >> 1, g)
+    if T and (grp.min() < 0 or grp.max() >= ngroups):
+        raise ValueError("tile_body: ginfo names a group outside ngroups")
+    target = max(-(-T // (nsm * BODY_CHUNKS_PER_SM)), 1)
+    cb = _even(T, max(-(-T // target), 1))
+    starts = np.union1d(cb[:-1], np.flatnonzero(grp[1:] != grp[:-1]) + 1)
+    ends = np.append(starts[1:], T)
+    pg = grp[starts]
+    cnt = np.bincount(pg, minlength=ngroups)
+    split = np.flatnonzero(cnt[pg] > 1)
+    order = split[np.lexsort((starts[split], pg[split]))]
+    slot = np.full(len(starts), -1, np.int64)
+    slot[order] = np.arange(len(order))
+    pc = np.searchsorted(cb, starts, side="right") - 1
+    nc = np.arange(len(cb) - 1)
+    return Split(_i32(cb[:-1], cb[1:], np.searchsorted(pc, nc, "left"),
+                      np.searchsorted(pc, nc, "right")),
+                 *_tree(cnt[np.unique(pg[split])]),
+                 runs=_i32(ends, pg, slot, np.zeros(len(starts))),
+                 zero_groups=np.flatnonzero(cnt == 0).astype(np.int32))
+
+
+def tile_stream_order(vals: np.ndarray, block: int, accumulate: bool,
+                      c: np.ndarray, split: Split) -> np.ndarray:
+    """:func:`tile_stream`'s kernel stated in numpy f32, in its order: each
+    chunk adds its tiles to 0 in tile order; an output in one chunk is that
+    sum + c; a split output's node adds its slots to 0 in order, and the
+    output is the node's sum + c, or the nodes added to 0 in order + c.
+    Every operation is one f32 add, so this is the kernel's result bit for
+    bit."""
+    v = np.asarray(vals, np.float32).reshape(-1, WINDOW)
+    cv = np.asarray(c, np.float32).reshape(WINDOW)
+    nsteps = v.shape[0] // block
+    out = np.zeros((1 if accumulate else nsteps, WINDOW), np.float32)
+    part = np.zeros((split.nslots, WINDOW), np.float32)
+    dest = {}
+    for lo, hi, slot, o in split.chunks.tolist():
+        acc = np.zeros(WINDOW, np.float32)
+        for t in range(lo, hi):
+            acc = acc + v[t]
+            if not accumulate and slot < 0 and (t + 1) % block == 0:
+                out[t // block] = acc + cv
+                acc = np.zeros(WINDOW, np.float32)
+        if slot >= 0:
+            part[slot] = acc
+            dest[int(split.slot_out[slot])] = o
+        elif accumulate:
+            out[o] = acc + cv
+    for k, o in dest.items():
+        s0, s1 = int(split.slot_ptr[k]), int(split.slot_ptr[k + 1])
+        nodes = []
+        for a in range(s0, s1, REDUCE_FAN):
+            acc = np.zeros(WINDOW, np.float32)
+            for i in range(a, min(a + REDUCE_FAN, s1)):
+                acc = acc + part[i]
+            nodes.append(acc)
+        acc = nodes[0]
+        if len(nodes) > 1:
+            acc = np.zeros(WINDOW, np.float32)
+            for nd in nodes:
+                acc = acc + nd
+        out[o] = acc + cv
+    return out.reshape((SUB, LANES) if accumulate else (nsteps, SUB, LANES))
+
+
+#: device copies of split tables with their scratch, by key
+_TABLES: Dict[tuple, tuple] = {}
+
+
+def _on_device(key: tuple, anchor, make, stamp=None) -> SimpleNamespace:
+    """The tables ``make()`` gives (a :class:`Split` and its device),
+    placed once and kept under ``key``: their int32 tables, the partial
+    sums' scratch (slots, then nodes, 1024 f32 each) and the tickets
+    (zeros; each launch leaves them 0).  The key holds the CUDA stream the
+    launch goes to, so launches on two streams never share a set.  With
+    an ``anchor`` tensor the entry lives while it does (the key holds its
+    id); an entry made under another ``stamp`` is made anew."""
+    hit = _TABLES.get(key)
+    if (hit is not None and (hit[0] is None or hit[0]() is anchor)
+            and hit[1] == stamp):
+        return hit[2]
+    sp, dev = make()
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    tabs = SimpleNamespace(
+        split=sp, chunks=put(sp.chunks), slot_out=put(sp.slot_out),
+        slot_ptr=put(sp.slot_ptr), node_ptr=put(sp.node_ptr),
+        runs=None if sp.runs is None else put(sp.runs),
+        zero_groups=None if sp.zero_groups is None else put(sp.zero_groups),
+        partial=torch.empty((sp.nslots + sp.nnodes) * WINDOW,
+                            dtype=torch.float32, device=dev),
+        tickets=torch.zeros(max(sp.ntickets, 1), dtype=torch.int32,
+                            device=dev))
+    for k in [k for k, (ref, _s, _t) in _TABLES.items()
+              if ref is not None and ref() is None]:
+        del _TABLES[k]
+    _TABLES[key] = (None if anchor is None else weakref.ref(anchor), stamp,
+                    tabs)
+    return tabs
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its data is not 16-B aligned (16-B loads and
+    bulk copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 # -- tile_stream (P1, P3, P7) -------------------------------------------------
@@ -126,10 +341,13 @@ def tile_stream(vals: torch.Tensor, block: int, accumulate: bool,
                 c: torch.Tensor,
                 ticket: Optional[torch.Tensor] = None) -> torch.Tensor:
     """P1/P3/P7's stream: :func:`tile_stream_plain` as a kernel.  ``vals``
-    (ntiles, 8, 128) f32, ``c`` (8, 128) f32.  With ``accumulate`` the
-    blocks' partials are added by the last block to finish, in block order;
-    ``ticket`` (one int32 0, which each launch leaves 0) may be kept by the
-    caller across launches, else one is made."""
+    (ntiles, 8, 128) f32, ``c`` (8, 128) f32.  The tiles are cut into
+    chunks by :func:`stream_split` and summed in the fixed order that
+    :func:`tile_stream_order` states, so every launch gives the same bits;
+    ``ticket`` (int32 zeros, at least the split's ``ntickets``, which each
+    launch leaves 0) may be kept by the caller across launches, else the
+    one kept with the split's tables for the current CUDA stream is
+    used."""
     if not _on_card("tile_stream", vals, c):
         return tile_stream_plain(vals, block, accumulate, c)
     if (vals.dtype != torch.float32 or c.dtype != torch.float32
@@ -139,23 +357,28 @@ def tile_stream(vals: torch.Tensor, block: int, accumulate: bool,
                          "(8, 128) carry and block >= 1")
     dev = vals.device
     nsteps = vals.shape[0] // block
-    spb = _steps_a_block(nsteps, dev)
-    nblk = max(-(-nsteps // spb), 1)
-    if accumulate:
-        out = torch.empty(SUB, LANES, dtype=torch.float32, device=dev)
-        partial = torch.empty(nblk * WINDOW, dtype=torch.float32, device=dev)
-        if ticket is None:
-            ticket = torch.zeros(1, dtype=torch.int32, device=dev)
-    else:
-        out = torch.empty(nsteps, SUB, LANES, dtype=torch.float32,
-                          device=dev)
-        partial = None
+    if nsteps == 0:
+        return (c.clone() if accumulate else
+                torch.empty(0, SUB, LANES, dtype=torch.float32, device=dev))
+    nsm = sm_count(dev)
+    tabs = _on_device(
+        ("stream", nsteps, block, bool(accumulate), nsm, dev, _stream(dev)),
+        None, lambda: (stream_split(nsteps, block, accumulate, nsm), dev))
+    sp = tabs.split
+    if ticket is None:
+        ticket = tabs.tickets
+    elif ticket.dtype != torch.int32 or ticket.numel() < sp.ntickets:
+        raise ValueError(f"tile_stream: ticket must hold {sp.ntickets} "
+                         "int32 zeros")
+    out = torch.empty((SUB, LANES) if accumulate else (nsteps, SUB, LANES),
+                      dtype=torch.float32, device=dev)
     lib = _build.load_kernels()
     err = lib.spmv_probe_tile_stream(
-        vals.data_ptr(), c.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        ticket.data_ptr() if accumulate else None, nsteps, block, spb,
-        int(accumulate), _stream(dev))
+        _aligned(vals).data_ptr(), _aligned(c).data_ptr(), out.data_ptr(),
+        tabs.chunks.data_ptr(), tabs.slot_out.data_ptr(),
+        tabs.slot_ptr.data_ptr(), tabs.node_ptr.data_ptr(),
+        tabs.partial.data_ptr(), ticket.data_ptr(), len(sp.chunks),
+        sp.nslots, sp.nnodes, block, int(accumulate), _stream(dev))
     _build.check(lib, err, "tile_stream")
     _count("tile_stream")
     return out
@@ -185,15 +408,9 @@ class BodyStream:
         return self.meta.shape[0]
 
 
-def tile_body_plain(b: BodyStream, init: torch.Tensor) -> torch.Tensor:
-    """The body's sums, (ngroups, 8, 128): for each tile t (window
-    ``tinfo >> 3``, or 0 with ``fixed_window``; row ``tinfo & 7``) and lane
-    j, contrib = Σ_i value(i, j) · xg(i, j), with xg = x[1024 w + 128 s +
-    r], r = meta & 127 at the slot and s = (meta >> 7) & 7 read at the cell
-    (i, r) (``no_dim1``: s at the slot and the lane's own column;
-    ``none``: x[1024 w + 128 i + j]); contrib goes into row ``row`` of the
-    step's output block (every row without ``mask``), and the first step of
-    a block adds ``init``."""
+def _body_rows(b: BodyStream) -> torch.Tensor:
+    """Each tile's addition to its output block, (ntiles, 8, 128), without
+    init (:func:`tile_body_plain`)."""
     nt, dev = b.ntiles, b.meta.device
     m = b.meta.view(nt, SUB, LANES).to(torch.int64) & 0xFFFF
     lane = torch.arange(LANES, device=dev)
@@ -215,24 +432,37 @@ def tile_body_plain(b: BodyStream, init: torch.Tensor) -> torch.Tensor:
     else:
         v = b.vals.to(torch.float32)
     contrib = (v * xg).sum(1)                         # (nt, 128)
-    if b.mask:
-        rows = torch.zeros(nt, SUB, LANES, dtype=torch.float32, device=dev)
-        rows[torch.arange(nt, device=dev), ti & 7] = contrib
-    else:
-        rows = contrib[:, None, :].expand(nt, SUB, LANES)
+    if not b.mask:
+        return contrib[:, None, :].expand(nt, SUB, LANES)
+    rows = torch.zeros(nt, SUB, LANES, dtype=torch.float32, device=dev)
+    rows[torch.arange(nt, device=dev), ti & 7] = contrib
+    return rows
+
+
+def tile_body_plain(b: BodyStream, init: torch.Tensor) -> torch.Tensor:
+    """The body's sums, (ngroups, 8, 128): for each tile t (window
+    ``tinfo >> 3``, or 0 with ``fixed_window``; row ``tinfo & 7``) and lane
+    j, contrib = Σ_i value(i, j) · xg(i, j), with xg = x[1024 w + 128 s +
+    r], r = meta & 127 at the slot and s = (meta >> 7) & 7 read at the cell
+    (i, r) (``no_dim1``: s at the slot and the lane's own column;
+    ``none``: x[1024 w + 128 i + j]); contrib goes into row ``row`` of the
+    step's output block (every row without ``mask``), and the first step of
+    a block adds ``init``."""
+    dev = b.meta.device
     gi = b.ginfo.to(torch.int64)
     out = torch.zeros(b.ngroups, SUB, LANES, dtype=torch.float32,
                       device=dev)
-    out.index_add_(0, (gi >> 1).repeat_interleave(b.g), rows)
+    out.index_add_(0, (gi >> 1).repeat_interleave(b.g), _body_rows(b))
     first = (gi >> 1)[(gi & 1) == 1]
     return out.index_add_(0, first, init.view(1, SUB, LANES)
                           .expand(len(first), SUB, LANES))
 
 
 def tile_body(b: BodyStream, init: torch.Tensor) -> torch.Tensor:
-    """P2/P4/P5's body: :func:`tile_body_plain` as a kernel, one CUDA block
-    a run of steps, each run's sums added into its output blocks by atomic
-    adds (their order varies: f32 sums in another order)."""
+    """P2/P4/P5's body: :func:`tile_body_plain` as a kernel over the chunks
+    and runs of :func:`body_split` (tables kept while ``b.ginfo`` lives
+    and made anew once it is written in place), each group's pieces summed
+    in a fixed order, so every launch gives the same bits."""
     ts = [t for t in (b.meta, b.vals, b.palette, b.tinfo, b.ginfo, b.x,
                       init) if t is not None]
     if not _on_card("tile_body", *ts):
@@ -245,17 +475,33 @@ def tile_body(b: BodyStream, init: torch.Tensor) -> torch.Tensor:
                          "known value mode and gather, and values for "
                          "f32/bf16")
     dev = b.meta.device
-    nsteps = b.ginfo.numel()
-    out = torch.zeros(b.ngroups, SUB, LANES, dtype=torch.float32,
+    out = torch.empty(b.ngroups, SUB, LANES, dtype=torch.float32,
                       device=dev)
+    if b.ntiles == 0:
+        return out.zero_()
+    nsm = sm_count(dev)
+    # ginfo's pointer and version counter: a ginfo written in place since
+    # the tables were made gets new ones
+    tabs = _on_device(
+        ("body", id(b.ginfo), b.g, b.ngroups, nsm, dev, _stream(dev)),
+        b.ginfo,
+        lambda: (body_split(b.ginfo.cpu().numpy(), b.g, b.ngroups, nsm),
+                 dev), stamp=(b.ginfo.data_ptr(), b.ginfo._version))
+    sp = tabs.split
+    vals = None if b.value_mode in ("palette", "dyadic") else b.vals
     lib = _build.load_kernels()
     err = lib.spmv_probe_tile_body(
-        b.meta.data_ptr(), None if b.vals is None else b.vals.data_ptr(),
+        _aligned(b.meta).data_ptr(),
+        None if vals is None else _aligned(vals).data_ptr(),
         b.palette.data_ptr(), b.tinfo.data_ptr(), b.ginfo.data_ptr(),
-        b.x.data_ptr(), init.data_ptr(), out.data_ptr(), nsteps, b.g,
-        _steps_a_block(nsteps, dev), BODY_VALUES[b.value_mode],
-        BODY_GATHERS[b.gather], int(b.mask), int(b.fixed_window),
-        _stream(dev))
+        b.x.data_ptr(), init.data_ptr(), out.data_ptr(),
+        tabs.chunks.data_ptr(), tabs.runs.data_ptr(),
+        tabs.zero_groups.data_ptr(), tabs.slot_out.data_ptr(),
+        tabs.slot_ptr.data_ptr(), tabs.node_ptr.data_ptr(),
+        tabs.partial.data_ptr(), tabs.tickets.data_ptr(), len(sp.chunks),
+        len(sp.zero_groups), sp.nslots, sp.nnodes, b.g,
+        BODY_VALUES[b.value_mode], BODY_GATHERS[b.gather], int(b.mask),
+        int(b.fixed_window), _stream(dev))
     _build.check(lib, err, "tile_body")
     _count("tile_body")
     return out
@@ -356,6 +602,49 @@ def _times(step, x0, iters: int = 10, repeats: int = 3):
     return min(ms), ms
 
 
+#: bytes :func:`flush_l2` rewrites: well past the H100's 50 MB L2
+FLUSH_BYTES = 256 << 20
+_flush_bufs: Dict[torch.device, torch.Tensor] = {}
+
+
+def flush_l2(device) -> None:
+    """Rewrite :data:`FLUSH_BYTES` of scratch on the card ``device``
+    (``bitwise_not`` in place), so that the next call finds nothing of its
+    inputs in the L2: the flush behind every cold time here and in
+    ``chip_smoke.py``.  The L2 is left holding dirty lines of the scratch,
+    whose write-back shares device memory with the next call."""
+    buf = _flush_bufs.get(device)
+    if buf is None:
+        buf = _flush_bufs[device] = torch.zeros(
+            FLUSH_BYTES // 4, dtype=torch.int32, device=device)
+    torch.bitwise_not(buf, out=buf)
+
+
+def _cold_ms(step, x0, iters: int = 10) -> float:
+    """The median ms of one call of ``step(x0)`` with the L2 cold: on the
+    card, :func:`flush_l2` before each call, outside the CUDA events
+    around it; on the CPU the host clock, nothing flushed."""
+    dev = x0.device
+    step(x0)
+    timing.synchronize(dev)
+    ms = []
+    for _ in range(iters):
+        if dev.type == "cuda":
+            flush_l2(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(x0)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            step(x0)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
 def probe_inputs(a):
     """The probes' packs of ``a`` (theirs: clustered(200_000, 200_000, 32,
     spread=512, seed=9)), as the JAX probes make them:
@@ -374,47 +663,60 @@ def _dev(arr, device, dtype=None) -> torch.Tensor:
     return t.to(device) if dtype is None else t.to(device, dtype)
 
 
+#: (name, block, accumulate) of every stream the probes give
+#: :func:`tile_stream`
+STREAM_INPUTS = (("P1 S_big", 64, True), ("P1 S_tile, P7 1", 1, True),
+                 ("P1 S_tile8, P7 8", 8, True), ("P1 S_nodep", 8, False),
+                 ("P3 B_huge512", 512, True))
+
+
 def probe_stream(vals: torch.Tensor) -> List[dict]:
     """P1 (``make_stream_fn``): S_big (64 tiles a step), S_tile (1),
     S_tile8 (8), accumulated into a carry, and S_nodep (8, one sum a
-    step)."""
+    step); beside each chained time (``ms``, ``gbs``) one call's with the
+    L2 cold (``cold_ms``, ``cold_gbs``)."""
     recs = []
-    ticket = torch.zeros(1, dtype=torch.int32, device=vals.device)
     c0 = torch.ones(SUB, LANES, dtype=torch.float32, device=vals.device)
     for name, block, acc in (("S_big", 64, True), ("S_tile", 1, True),
                              ("S_tile8", 8, True), ("S_nodep", 8, False)):
         nt = vals.shape[0] // block * block
         if acc:
             def step(c, block=block):
-                return tile_stream(vals, block, True, c, ticket)
+                return tile_stream(vals, block, True, c)
         else:
             def step(c, block=block):
                 return tile_stream(vals, block, False, c)[0]
         ms, all_ms = _times(step, c0)
+        cold = _cold_ms(step, c0)
         recs.append({"variant": name, "ms": ms,
-                     "gbs": nt * WINDOW * 4 / ms / 1e6, "all_ms": all_ms})
+                     "gbs": nt * WINDOW * 4 / ms / 1e6, "all_ms": all_ms,
+                     "cold_ms": cold, "cold_gbs": nt * WINDOW * 4 / cold
+                     / 1e6})
     return recs
 
 
 def probe_huge(vals: torch.Tensor) -> dict:
-    """P3 (``pallas_huge``): the carried stream sum at 512 tiles a step."""
-    ticket = torch.zeros(1, dtype=torch.int32, device=vals.device)
+    """P3 (``pallas_huge``): the carried stream sum at 512 tiles a step,
+    chained and (``cold_*``) one call with the L2 cold."""
     nt = vals.shape[0] // 512 * 512
-    ms, all_ms = _times(lambda c: tile_stream(vals, 512, True, c, ticket),
-                        torch.ones(SUB, LANES, dtype=torch.float32,
-                                   device=vals.device))
+
+    def step(c):
+        return tile_stream(vals, 512, True, c)
+    c0 = torch.ones(SUB, LANES, dtype=torch.float32, device=vals.device)
+    ms, all_ms = _times(step, c0)
+    cold = _cold_ms(step, c0)
     return {"variant": "B_huge512", "ms": ms,
-            "gbs": nt * WINDOW * 4 / ms / 1e6, "all_ms": all_ms}
+            "gbs": nt * WINDOW * 4 / ms / 1e6, "all_ms": all_ms,
+            "cold_ms": cold, "cold_gbs": nt * WINDOW * 4 / cold / 1e6}
 
 
 def probe_step(vals: torch.Tensor) -> List[dict]:
     """P7 (``tile_stream_time``): the carried stream sum at 1 and 8 tiles a
     step, from a zero carry."""
-    ticket = torch.zeros(1, dtype=torch.int32, device=vals.device)
     recs = []
     for block in (1, 8):
         ms, _all = _times(
-            lambda c, block=block: tile_stream(vals, block, True, c, ticket),
+            lambda c, block=block: tile_stream(vals, block, True, c),
             torch.zeros(SUB, LANES, dtype=torch.float32, device=vals.device))
         recs.append({"acc_block": block, "ms": ms,
                      "gbs": vals.numel() * 4 / ms / 1e6})
@@ -528,6 +830,19 @@ def body_stream(v2, variant: str, G: int, device) -> BodyStream:
         gather={"no_dim1": "no_dim1",
                 "no_gather": "none"}.get(variant, "full"),
         mask=variant != "no_mask", fixed_window=variant == "no_ds")
+
+
+def body_inputs(packed, v2, device) -> List[tuple]:
+    """(name, stream) of every input the probes give :func:`tile_body`:
+    P2's (G 8), P4's three value modes (G 16), P5's variants
+    (:data:`BODY_VARIANTS`) and P5's full body at G 8 beside its G 16
+    and 64."""
+    out = [("P2 G8", g8_stream(packed, device))]
+    out += [(f"P4 {m}", v2proto_stream(packed, m, device))
+            for m in ("f32", "palette", "bf16")]
+    out += [(f"P5 {v} G{g}", body_stream(v2, v, g, device))
+            for v, g in BODY_VARIANTS + (("full", 8),)]
+    return out
 
 
 def probe_body(v2, device) -> List[dict]:
@@ -765,8 +1080,16 @@ def calibrate(mats: dict, device, probes: Optional[dict] = None) -> dict:
     """The named figures :func:`derive_prices` reads, on ``device``:
 
     * from the probes (``probes``, :func:`run_probes`' records): the launch
-      (P6), the stream ceiling (best of P1/P3), and beside the table P4's
-      bf16 tile over its palette tile (``vals_ns_p4``, a cross-check);
+      (P6); the stream ceiling, the best of P1/P3 with the L2 cold
+      (``stream_gbs``), and beside it the best chained, warm figure
+      (``stream_gbs_warm``, not read by the table); and beside the table
+      P4's bf16 tile over its palette tile (``vals_ns_p4``, a
+      cross-check).  The ceiling prices x bytes that a stripe or window
+      reads from device memory, as the TPU's HBM figure did; a chained
+      48 MB stream on the card is served partly from its 50 MB L2, so the
+      warm figure is not that rate.  The cold figure is taken after
+      :func:`flush_l2`, whose dirty lines are written back during the
+      call: it holds that write-back too;
     * from the real kernels on ``mats``: ``uniform`` (f32) and
       ``uniform_f64`` at nw 1-8 (K1 slot, K2 slot df16; df at nw 8;
       ``vals_ns``: the nw = 4 pack forced to bf16 values over the same
@@ -782,7 +1105,7 @@ def calibrate(mats: dict, device, probes: Optional[dict] = None) -> dict:
     from ..formats import prices as prices_mod
     probes = probes if probes is not None else run_probes(mats, device)
     p4 = {r["variant"]: r for r in probes["P4"]}
-    gbs = max([r["gbs"] for r in probes["P1"]] + [probes["P3"]["gbs"]])
+    stream = probes["P1"] + [probes["P3"]]
     detail = {"slot": slot_tiles(mats["uniform"], device),
               "slot_df16": slot_tiles(mats["uniform_f64"], device),
               "slot_df": slot_tiles(mats["uniform_f64"], device, nws=(8,),
@@ -801,7 +1124,8 @@ def calibrate(mats: dict, device, probes: Optional[dict] = None) -> dict:
     m = mats["webbase"].m
     figures = {
         "launch_ns": probes["P6"]["tiny_pallas_ms"] * 1e6,
-        "stream_gbs": gbs,
+        "stream_gbs": max(r["cold_gbs"] for r in stream),
+        "stream_gbs_warm": max(r["gbs"] for r in stream),
         "vals_ns": detail["slot_bf16"][4]["ns"] - detail["slot"][4]["ns"],
         "vals_ns_p4": (p4["C_v2_bf16"]["ms"] - p4["C_v2_palette"]["ms"])
         * 1e6 / p4["C_v2_bf16"]["ntiles"],

@@ -102,30 +102,32 @@ REFERENCE = Prices(
 
 #: Derived by :func:`derive_prices` from one run of ``chip_smoke.py``'s
 #: ``prices`` phase (through ``bench/probes.py``; the table its
-#: ``prices_calibration`` prints) on an NVIDIA H100 80GB HBM3 at 700.00 W
-#: (PERF.md §6 lists each figure and its source).
+#: ``prices_calibration`` prints), on 2026-10-17 on an NVIDIA H100 80GB
+#: HBM3 at 700.00 W, with the stream ceiling read from P1/P3 one call at a
+#: time after the cold times' 256 MB flush (1,707 GB/s; PERF.md §6 lists
+#: each figure, its source and the routes this table moves).
 H100 = Prices(
-    tile_ns=(2.412837804169268, 2.0298186072957223, 2.4598736262999443,
-             2.48969380496716),
-    row_tile_ns=3.004987316820628,
-    step_ns=1.4904166841370459,
-    tile_ns_w=(2.502550532383214, 2.4629083586693814, 2.9776642371228186,
-               2.964005869081993),
-    stripe_call_ns=20543.36071014404,
-    stripe_x_ns_per_byte=0.0009607622565487607,
-    spill_ns=61.66109861772797,
+    tile_ns=(2.4277822000517943, 2.0126983219263503,
+             2.4678515149707096, 2.2942857930854874),
+    row_tile_ns=3.172890009248958,
+    step_ns=2.5895083123438214,
+    tile_ns_w=(2.572843099302219, 2.4643835579256113,
+               3.0330567125613785, 3.0158201154153823),
+    stripe_call_ns=23887.67957687378,
+    stripe_x_ns_per_byte=0.0005858711102178335,
+    spill_ns=97.96659406979198,
     vals_ns=0.0,
-    df_dense_mult=1.522575347199929,
-    df_slot_mult=1.777751966682791,
-    df16_dense_mult=1.2987786076809238,
-    tile_ns_df16=(3.331982590006056, 4.365702757354226, 3.5679306228767262,
-                  4.08518943263587),
-    x_window_ns=3.935282202823724,
-    spill_ns_df=54.05167866229671,
-    pair_spill_ns=61.66109861772797,
-    pair_spill_ns_df=54.05167866229671,
-    fold_ns=0.16615443960835716,
-    hub_ns=10.07457586235342,
+    df_dense_mult=1.4630823984761925,
+    df_slot_mult=1.941688537528436,
+    df16_dense_mult=1.2173948326535842,
+    tile_ns_df16=(3.357867935245943, 4.2854873738051,
+                  3.6155607839707886, 4.048663749461184),
+    x_window_ns=2.399728067452246,
+    spill_ns_df=94.35317415922219,
+    pair_spill_ns=97.96659406979198,
+    pair_spill_ns_df=94.35317415922219,
+    fold_ns=0.17941050427977556,
+    hub_ns=11.024212793922887,
     cap_within_gate=True)
 
 

@@ -305,3 +305,177 @@ def test_probes_module_counts_only_kernel_launches():
     pr.tiny(torch.ones(8, 128))
     pr.fma_err(torch.ones(4), torch.ones(4), torch.ones(4))
     assert before == {k: getattr(pr, a) for k, a in pr.KERNEL_COUNTS.items()}
+
+
+# -- the kernels' split tables and reduce order (csrc/probes.cu) -------------
+
+@pytest.mark.parametrize("accumulate", [True, False])
+@pytest.mark.parametrize("block", [1, 8, 64, 512])
+@pytest.mark.parametrize("nsm", [3, 132])
+def test_stream_split_covers_every_tile_once_in_order(block, accumulate,
+                                                      nsm):
+    # 1100 tiles leave a ragged tail at every B but 1: the chunks cover
+    # [0, nsteps·B) in order, whole steps where a step is not cut, and
+    # every cut output's slots reach one node tree
+    nsteps = 1100 // block
+    sp = pr.stream_split(nsteps, block, accumulate, nsm)
+    lo, hi, slot, out = sp.chunks.T.astype(np.int64)
+    assert lo[0] == 0 and hi[-1] == nsteps * block
+    assert np.array_equal(lo[1:], hi[:-1]) and np.all(hi > lo)
+    assert len(lo) <= max(nsm * pr.STREAM_CHUNKS_PER_SM, 1) * 2
+    cut = slot >= 0
+    assert np.array_equal(np.sort(slot[cut]), np.arange(sp.nslots))
+    if accumulate:
+        assert np.all(out == 0) and (sp.nslots in (0, len(lo)))
+    else:
+        whole = ~cut
+        assert np.all(lo[whole] % block == 0) and np.all(hi[whole] % block
+                                                         == 0)
+        assert np.array_equal(out[cut], lo[cut] // block)
+        assert np.all((hi[cut] - 1) // block == lo[cut] // block)
+    k = sp.slot_out[slot[cut]]
+    assert np.all(np.diff(k) >= 0)
+    counts = np.diff(sp.slot_ptr)
+    assert np.all(counts >= 2) and np.array_equal(
+        np.diff(sp.node_ptr), -(-counts // pr.REDUCE_FAN))
+
+
+@pytest.mark.parametrize("accumulate", [True, False])
+@pytest.mark.parametrize("block", [1, 8, 64, 512])
+def test_stream_order_statement_matches_the_plain_sum(block, accumulate):
+    # the kernel's order (chunks, slots, nodes of 16), stated in numpy f32,
+    # against tile_stream_plain within f32 rounding: 1e-6 of the sum of
+    # magnitudes for a few thousand adds
+    rng = np.random.default_rng(10 + block)
+    vals = rng.standard_normal((1100, 8, 128)).astype(np.float32)
+    c = rng.standard_normal((8, 128)).astype(np.float32)
+    for nsm in (3, 132):
+        sp = pr.stream_split(1100 // block, block, accumulate, nsm)
+        got = pr.tile_stream_order(vals, block, accumulate, c, sp)
+        want = pr.tile_stream_plain(torch.from_numpy(vals), block,
+                                    accumulate, torch.from_numpy(c))
+        scale = pr.tile_stream_plain(torch.from_numpy(np.abs(vals)), block,
+                                     accumulate, torch.from_numpy(np.abs(c)))
+        assert got.shape == tuple(want.shape)
+        assert np.all(np.abs(got - want.numpy()) <= 1e-6 * scale.numpy())
+
+
+def _body_walk(b, init, sp):
+    """tile_body's kernel stated in numpy f64 over ``sp``: each chunk walks
+    its tiles, adds init where a tile opens a step marked first, and ends
+    each run in its group or its slot; the slots of a cut group summed
+    node by node.  Returns (out, inits a group)."""
+    rows = pr._body_rows(b).double().numpy().reshape(b.ntiles, -1)
+    gi = b.ginfo.numpy().astype(np.int64)
+    iv = init.double().numpy().reshape(-1)
+    out = np.full((b.ngroups, rows.shape[1]), np.nan)
+    part = np.zeros((sp.nslots, rows.shape[1]))
+    inits = np.zeros(b.ngroups, np.int64)
+    dest = {}
+    for lo, hi, r0, r1 in sp.chunks.tolist():
+        run, acc = r0, np.zeros(rows.shape[1])
+        for t in range(lo, hi):
+            if t % b.g == 0 and gi[t // b.g] & 1:
+                acc += iv
+                inits[gi[t // b.g] >> 1] += 1
+            acc += rows[t]
+            end, grp, slot, _ = sp.runs[run]
+            assert grp == gi[t // b.g] >> 1
+            if t + 1 == end:
+                if slot < 0:
+                    assert np.isnan(out[grp]).all()
+                    out[grp] = acc
+                else:
+                    part[slot] = acc
+                    dest[int(sp.slot_out[slot])] = grp
+                run, acc = run + 1, np.zeros(rows.shape[1])
+        assert run == r1
+    for k, grp in dest.items():
+        s0, s1 = sp.slot_ptr[k], sp.slot_ptr[k + 1]
+        out[grp] = sum(part[a:min(a + pr.REDUCE_FAN, s1)].sum(0)
+                       for a in range(s0, s1, pr.REDUCE_FAN))
+    out[sp.zero_groups] = 0.0
+    return out.reshape(b.ngroups, 8, 128), inits
+
+
+@pytest.mark.parametrize("G", [8, 16, 64])
+@pytest.mark.parametrize("nsm", [1, 3, 132])
+def test_body_split_gives_each_group_its_init_once(packs, G, nsm):
+    # fake monotone groups cut across chunk boundaries (and, at nsm 132,
+    # short chunks that cut one group into many slots): each group gets
+    # init once, every group is written once or zero-filled, and the walk
+    # matches tile_body_plain
+    _a, _packed, v2, _jp, _jv2 = packs
+    b, _x = _random_x(pr.body_stream(v2, "full", G, "cpu"))
+    init = torch.from_numpy(np.random.default_rng(G).standard_normal(
+        (8, 128)).astype(np.float32))
+    sp = pr.body_split(b.ginfo.numpy(), G, b.ngroups, nsm)
+    lo, hi = sp.chunks[:, 0], sp.chunks[:, 1]
+    assert lo[0] == 0 and hi[-1] == b.ntiles and np.array_equal(lo[1:],
+                                                               hi[:-1])
+    assert np.array_equal(sp.chunks[1:, 2], sp.chunks[:-1, 3])
+    cut = sp.runs[:, 2] >= 0
+    assert cut.sum() == sp.nslots and (nsm == 1 or sp.nslots > 0)
+    got, inits = _body_walk(b, init, sp)
+    first = pr._fake_ginfo(b.ginfo.numel(), b.ngroups)
+    want_inits = np.bincount(first[first & 1 == 1] >> 1,
+                             minlength=b.ngroups)
+    assert np.array_equal(inits, want_inits) and inits.max() == 1
+    babs = dataclasses.replace(b, palette=b.palette.abs(), x=b.x.abs())
+    _close(got, pr.tile_body_plain(b, init).numpy(),
+           pr.tile_body_plain(babs, init.abs()).numpy())
+
+
+def test_body_split_one_group_over_many_chunks(packs):
+    # P2's stream is one output block: at 132 SMs its pieces outnumber a
+    # node, so the reduce takes two levels; init once
+    _a, packed, _v2, _jp, _jv2 = packs
+    b, _x = _random_x(pr.g8_stream(packed, "cpu"))
+    init = torch.ones(8, 128)
+    sp = pr.body_split(b.ginfo.numpy(), b.g, b.ngroups, 132)
+    assert sp.nslots == len(sp.chunks) > pr.REDUCE_FAN
+    assert sp.nnodes == -(-sp.nslots // pr.REDUCE_FAN)
+    got, inits = _body_walk(b, init, sp)
+    assert inits.tolist() == [1]
+    babs = dataclasses.replace(b, vals=b.vals.abs(), x=b.x.abs())
+    _close(got, pr.tile_body_plain(b, init).numpy(),
+           pr.tile_body_plain(babs, init).numpy())
+
+
+def test_body_split_group_visited_twice_goes_through_slots():
+    # a group whose steps are not consecutive: both its runs become slots
+    # (a direct write would drop the first), init from each first step
+    ginfo = np.array([0 << 1 | 1, 1 << 1 | 1, 0 << 1 | 1, 3 << 1 | 1],
+                     np.int32)
+    sp = pr.body_split(ginfo, 2, 5, 1)       # a chunk a step
+    slots = sp.runs[sp.runs[:, 2] >= 0]
+    assert sorted(slots[:, 1].tolist()) == [0, 0]
+    assert sp.zero_groups.tolist() == [2, 4]
+    with pytest.raises(ValueError, match="outside ngroups"):
+        pr.body_split(ginfo, 2, 3, 1)
+
+
+def test_split_tables_are_made_anew_for_a_ginfo_written_in_place():
+    # tile_body keys its tables by ginfo's id and stamps them with its
+    # pointer and version counter: a write in place must not leave the
+    # old split in use
+    ginfo = torch.from_numpy(pr._fake_ginfo(6, 3))
+    made = []
+
+    def make():
+        made.append(ginfo.clone())
+        return pr.body_split(ginfo.numpy(), 2, 4, 1), torch.device("cpu")
+
+    def tables():
+        return pr._on_device(("body test", id(ginfo)), ginfo, make,
+                             stamp=(ginfo.data_ptr(), ginfo._version))
+
+    first = tables()
+    assert tables() is first and len(made) == 1
+    ginfo[2] = 3 << 1 | 1
+    again = tables()
+    assert again is not first and len(made) == 2
+    assert again.split.zero_groups.tolist() == []
+    assert first.split.zero_groups.tolist() == [3]
+    assert tables() is again
+    assert not again.tickets.any()
