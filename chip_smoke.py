@@ -18,12 +18,20 @@ Run from the repository root with no arguments:
 Phases (any failure exits non-zero and prints no ``"ok"`` line).  Every
 handle and mesh plan the script builds is called three times on one x,
 and the three ys must agree bit for bit: the port's sums have a fixed
-order on the card.
+order on the card.  The streams check calls the handles of clustered200k,
+powerlaw100k, clustered200k_f64 and tridiag2500k_sell (main path) and the
+mesh plan of webbase1m_dist4 (dist path) on two CUDA streams at once, 50
+rounds of two calls a stream held behind one gate, x and x reversed in
+turns, every y bit for bit its x's one-stream y (each SELL stream keeps
+its ticket counters a CUDA stream); lines ``{"phase": "streams", ...}``.
 
 
 1. toolchain: the card's name and power limit, CUDA, nvcc, triton;
 2. build: the host packers (g++) and the CUDA kernels (nvcc, sm_90a, one
-   process per source), with ptxas' registers and spill bytes;
+   process per source), with ptxas' registers and spill bytes, and
+   ``window_gather``'s step loop in ``cuobjdump -sass``: it must issue
+   every slot's shared-memory loads each step (64 ``LDS`` an iteration in
+   the loop form, 48 in the wide form);
 3. kernels: each kernel against its plain PyTorch version on the card —
    ``sell_row`` over f32/bf16/palette values, ``sell_slot`` over
    nw ∈ {1,2,4,8} × cell_w × the three value modes, ``dia`` over f32/bf16,
@@ -99,13 +107,17 @@ order on the card.
    each probe kernel against its plain version on every input its probes
    give it (f32 sums within 1e-5 of the sum of magnitudes; ``tiny`` and
    ``fma_err`` bit for bit, ``fma_err`` also equal to the exact product
-   error; ``tile_stream`` and ``tile_body`` three calls bit for bit, and
-   ``tile_stream`` bit for bit the numpy statement of its order), with
-   ``tile_stream`` at B = 1, 8, 64, 512 beside ``torch.sum`` and each
-   ``tile_body`` input (P5's full body also at G 8) timed warm and
-   with the L2 cold (``sweep`` lines); the real kernels' co-timings (the
-   slot kernel on uniform100k and its f64 form at nw 1-8, the windowed
-   slot kernel on the first 625,000 rows of clustered2500k_s64 at nw 1-8,
+   error; ``tile_stream``, ``tile_body`` and both forms of
+   ``window_gather`` three calls bit for bit, ``tile_stream`` and
+   ``window_gather`` bit for bit the numpy statements of their orders,
+   ``window_gather`` also within 1e-5 of the numpy oracle), with
+   ``tile_stream`` at B = 1, 8, 64, 512 beside ``torch.sum``, each
+   ``tile_body`` input (P5's full body also at G 8) and both forms of
+   ``window_gather`` (g 32, 2,048 steps; its bound the adds of every
+   tile-gather) timed warm and with the L2 cold (``sweep`` lines); the
+   real kernels' co-timings (the slot kernel on uniform100k and its f64
+   form at nw 1-8, the windowed slot kernel on the first 625,000 rows of
+   clustered2500k_s64 at nw 1-8,
    the row kernel on clustered200k in f32, df16 and df, webbase1m's light
    part at g 8 and 16, its straggler stream in f32 and f64, its hub gather
    and fold); the table ``derive_prices`` makes of them beside the
@@ -245,6 +257,18 @@ BOUND_F64_KERNEL = 1e-12
 ITERS = 30
 #: calls on one x whose ys must agree bit for bit (every handle and plan)
 REPEAT_CALLS = 3
+#: the families whose handle (or mesh plan) the streams check calls on two
+#: CUDA streams at once: K1 slot (clustered200k: output blocks of several
+#: chunks), K1 row + slot (powerlaw100k), K2 (clustered200k_f64), K6
+#: (tridiag2500k_sell) and K9 (webbase1m_dist4's v1 shards)
+STREAM_FAMILIES = ("clustered200k", "powerlaw100k", "clustered200k_f64",
+                   "tridiag2500k_sell", "webbase1m_dist4")
+#: rounds of the streams check, and calls a CUDA stream a round
+STREAM_ROUNDS = 50
+STREAM_CALLS = 2
+#: L2 flushes (256 MB rewritten each, about 0.15 ms) that hold both CUDA
+#: streams back each round while the host enqueues their calls
+STREAM_GATE = 8
 #: profile windows per measurement: device times are their median
 WINDOWS = 5
 HBM_BYTES_PER_S = 3.35e12
@@ -823,11 +847,12 @@ def check_stream(st, x, timing=False):
         ok = diff == 0
     if not ok:
         # what state a wrong launch leaves, and whether it repeats
-        left = (int(st.ticket.count_nonzero()) if hasattr(st, "ticket")
-                else None)
+        sets = getattr(st, "tickets_by_stream", None)
+        left = (None if sets is None else
+                sum(int(t.count_nonzero()) for t in sets.values()))
         again = scaled_err(run(st, x), ref, absref, bound)[0]
-        fresh = (dataclasses.replace(st, ticket=torch.zeros_like(st.ticket))
-                 if hasattr(st, "ticket") else st)
+        # a replace copy starts with no tickets: zeros on its first launch
+        fresh = st if sets is None else dataclasses.replace(st)
         fresh_err = scaled_err(run(fresh, x), ref, absref, bound)[0]
         raise AssertionError(
             f"{kern}: kernel disagrees with its plain version (max scaled "
@@ -1050,6 +1075,68 @@ def repeats_its_y(name, fn, x, calls=REPEAT_CALLS):
                                  f"another y than the first ({diff} of "
                                  f"{y.numel()} positions differ)")
     return True
+
+
+def stream_xs(x):
+    """The two x of the streams check, x and x reversed, taken in turns by
+    each CUDA stream's calls: a launch that counts on tickets another
+    launch took, and so adds partial sums before they are written, reads
+    another x's stale sums and gives another y (with one x for every call,
+    stale partials hold the same sums)."""
+    return x, x.flip(0)
+
+
+def two_streams(fn, x, rounds=STREAM_ROUNDS, calls=STREAM_CALLS,
+                want=None):
+    """Call fn on two CUDA streams at once, with no sync between launches:
+    each round the current stream runs a gate (STREAM_GATE L2 flushes)
+    that both streams wait on, the host enqueues ``calls`` calls on each,
+    alternating streams, call c of stream i on x number (i + c) % 2 of
+    :func:`stream_xs`, and then waits for all; every y is held bit for bit
+    to ``want`` (the pair of ys of the two x), by default fn's ys on the
+    current stream alone.  Returns the counts of rounds and calls that
+    gave another y."""
+    import torch
+    from spmv_tpu_torch.bench.probes import flush_l2
+    dev = x.device
+    xs = stream_xs(x)
+    wants = [fn(v) for v in xs] if want is None else want
+    torch.cuda.synchronize(dev)
+    main = torch.cuda.current_stream(dev)
+    sides = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    wrong_rounds = wrong_calls = 0
+    for _ in range(rounds):
+        for _g in range(STREAM_GATE):
+            flush_l2(dev)
+        gate = main.record_event()
+        for s in sides:
+            s.wait_event(gate)
+        ys = []
+        for c in range(calls):
+            for i, s in enumerate(sides):
+                with torch.cuda.stream(s):
+                    ys.append(((i + c) % 2, fn(xs[(i + c) % 2])))
+        torch.cuda.synchronize(dev)
+        bad = sum(not torch.equal(y, wants[i]) for i, y in ys)
+        wrong_calls += bad
+        wrong_rounds += bad > 0
+        del ys
+    return {"rounds": rounds, "calls_a_stream": calls,
+            "wrong_rounds": wrong_rounds, "wrong_calls": wrong_calls}
+
+
+def streams_check(name, fn, x):
+    """The streams check of one family: :func:`two_streams`, logged as a
+    ``{"phase": "streams", ...}`` line; fails on any wrong y."""
+    t0 = time.perf_counter()
+    rec = two_streams(fn, x)
+    log(json.dumps({"phase": "streams", "family": name, **rec,
+                    "wall_s": time.perf_counter() - t0}))
+    if rec["wrong_calls"]:
+        raise AssertionError(f"{name}: {rec['wrong_calls']} calls on two "
+                             "CUDA streams gave another y than one stream "
+                             f"alone ({rec['wrong_rounds']} of "
+                             f"{rec['rounds']} rounds)")
 
 
 def coo2_nonfinite(c, x):
@@ -1493,6 +1580,8 @@ def main_path(dev, kern, gpu):
             raise AssertionError(f"{name}: max scaled error {rel:.3g} "
                                  f"against {ref_name}")
         repeats_its_y(name, h, x)
+        if name in STREAM_FAMILIES:
+            streams_check(name, h, x)
         gold = torch.from_numpy(st.spmv_golden(a.astype(np.float64), xh))
         rel_gold = scaled_err(y, gold, absref, bound, atol)[0]
         gold_self = scaled_err(gold, ref, absref, bound)[0]
@@ -1921,6 +2010,8 @@ def dist_phase(dev, kern, keep):
             raise AssertionError(f"{name}: max scaled error {rel:.3g} "
                                  f"against {ref_name}")
         repeats_its_y(name, plan, x)
+        if name in STREAM_FAMILIES:
+            streams_check(name, plan, x)
         streams = []
         timed = set()
         for stream, xin, part in dist_streams(plan, x):
@@ -2701,31 +2792,66 @@ def probe_kernel_records(dev, mats):
                                                            c), ones)
                for b in (1, 8)]}}))
 
-    # window_gather: P9's loop and wide forms
-    loop, wide, x, oracle = pr.p9_arrays()
+    # window_gather: P9's loop and wide forms at the probe's g 32 and 2048
+    # steps, each against its plain version and the numpy oracle, three
+    # calls bit for bit and bit for bit the numpy statement of its order;
+    # both timed warm and cold, ns a tile-gather.  The bound is the adds
+    # of every (step, tile) gather the probe times (its ns a tile divides
+    # by g · nsteps), 1024 a tile; the inputs are 416 KB
+    g9, steps9 = 32, 2048
+    loop, wide, x, oracle = pr.p9_arrays(g9)
     xd = torch.from_numpy(x).to(dev)
-    args = {False: [torch.from_numpy(v).to(dev) for v in loop],
-            True: [torch.from_numpy(v).to(dev) for v in wide] + [None]}
+    split = pr.gather_split(g9, steps9, nsm)
+    ops = g9 * steps9 * 1024
     err = 0.0
-    for w, (a0, a1, a2) in args.items():
-        y = pr.window_gather(w, a0, a1, a2, xd, 2048)
-        err = max(err, _held("window_gather", y,
+    for form, w, arrs in (("loop", False, loop), ("wide", True,
+                                                  wide + (None,))):
+        a0, a1, a2 = (None if v is None else torch.from_numpy(v).to(dev)
+                      for v in arrs)
+        absref = pr.window_gather_plain(w, a0, a1, a2, xd.abs())
+        y = pr.window_gather(w, a0, a1, a2, xd, steps9)
+        err = max(err, _held(f"window_gather {form}", y,
                              pr.window_gather_plain(w, a0, a1, a2, xd),
-                             pr.window_gather_plain(w, a0, a1, a2,
-                                                    xd.abs()), BOUND))
-        _held("window_gather (oracle)", y, torch.from_numpy(oracle),
-              pr.window_gather_plain(w, a0, a1, a2, xd.abs()), BOUND)
-    a0, a1, a2 = args[False]
-    nbytes = 3 * a0.numel() * 4 + xd.numel() * 4 + 4096
-    bound, by = _bound_ms(nbytes, a0.numel())
-    recs["window_gather"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda v: pr.window_gather(False, a0, a1, a2, v, 2048),
-                   xd),
-        plain_ms=cuda_ms(lambda v: pr.window_gather_plain(False, a0, a1, a2,
-                                                          v), xd),
-        library_ms=None, library_call=None, bound_ms=bound, bound_by=by,
-        bytes=nbytes, family="P9 loop, g 32, 2048 steps")
+                             absref, BOUND))
+        _held(f"window_gather {form} (oracle)", y,
+              torch.from_numpy(oracle), absref, BOUND)
+        fn = (lambda v, w=w, a0=a0, a1=a1, a2=a2:  # noqa: E731
+              pr.window_gather(w, a0, a1, a2, v, steps9))
+        repeats_its_y(f"window_gather {form}", fn, xd)
+        if not np.array_equal(y.cpu().numpy(), pr.window_gather_order(
+                w, *arrs, x, split)):
+            raise AssertionError(f"window_gather {form}: not its order's "
+                                 "numpy statement bit for bit")
+        nbytes = sum(v.nbytes for v in arrs if v is not None) + x.nbytes \
+            + 4096
+        bound, by = _bound_ms(nbytes, ops)
+        warm = profile_calls(fn, xd)
+        cold = profile_calls(fn, xd, cold=True)
+        rec = dict(
+            ms=cuda_ms(fn, xd), device_ms=warm["device_ms"],
+            device_ms_spread=warm.get("device_ms_spread"),
+            cold_ms=cuda_ms(fn, xd, cold=True),
+            cold_device_ms=cold["device_ms"],
+            cold_device_ms_spread=cold.get("device_ms_spread"),
+            plain_ms=cuda_ms(lambda v, w=w, a0=a0, a1=a1, a2=a2:
+                             pr.window_gather_plain(w, a0, a1, a2, v), xd),
+            bound_ms=bound, bound_by=by, bytes=nbytes)
+        log(json.dumps({"phase": "prices", "sweep": "window_gather",
+                        "form": form, "g": g9, "nsteps": steps9,
+                        "chunks": len(split.chunks), **rec,
+                        "ns_tile_warm": _per(rec["device_ms"],
+                                             g9 * steps9),
+                        "ns_tile_cold": _per(rec["cold_device_ms"],
+                                             g9 * steps9),
+                        "bound_share_warm": (
+                            bound / rec["device_ms"]
+                            if isinstance(rec["device_ms"], float)
+                            else "not measured")}))
+        if form == "loop":
+            recs["window_gather"] = dict(
+                rec, library_ms=None, library_call=None,
+                family=f"P9 loop, g {g9}, {steps9} steps")
+    recs["window_gather"]["max_abs_err"] = err
 
     # tiny and fma_err, bit for bit
     rng = np.random.default_rng(0)
@@ -3034,6 +3160,55 @@ def bench_phase(gpu):
             "windows_ms": w, "window_spread": max(w) / min(w) - 1}))
 
 
+#: shared-memory loads window_gather's step loop issues an iteration: 4
+#: tiles of 4 rows a thread, each slot's ridx, wsel, cell and x words in the
+#: loop form, its srow, cell and x words in the wide form
+GATHER_LOOP_LDS = {"loop": 64, "wide": 48}
+
+
+def gather_sass(lib, nvcc, ptxas):
+    """window_gather's step loop in the built library's SASS (``cuobjdump
+    -sass``; the loop is the backward branch whose body holds the most
+    LDS), beside ptxas' registers and spills for each form; fails unless
+    the loop issues every slot's shared-memory loads each step (they are
+    volatile, so nvcc cannot hoist them out and fold the steps)."""
+    so = lib.libs["probes"]._name
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                           "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    rec = {"phase": "sass", "kernel": "window_gather"}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "window_gather_kernel" not in name:
+            continue
+        form = "wide" if "ILb1E" in name else "loop"
+        ins = [(int(a, 16), t.strip()) for a, t in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        best = {"lds": 0}
+        for addr, text in ins:
+            m = re.search(r"BRA (0x[0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+                lds = sum(1 for t in body if re.search(r"\bLDS\b", t))
+                if lds > best["lds"]:
+                    best = {"lds": lds, "fadd": sum(
+                        1 for t in body if re.search(r"\bFADD\b", t)),
+                        "instructions": len(body)}
+        m = re.search(r"Compiling entry function '" + re.escape(name)
+                      + r"'.*?Used (\d+) registers", ptxas, re.S)
+        sp = re.search(r"Function properties for " + re.escape(name)
+                       + r"\s+\d+ bytes stack frame, (\d+) bytes spill",
+                       ptxas)
+        rec[form] = dict(best, registers=int(m.group(1)) if m else None,
+                         spill_bytes=int(sp.group(1)) if sp else None)
+    log(json.dumps(rec))
+    for form, want in GATHER_LOOP_LDS.items():
+        if rec.get(form, {}).get("lds", 0) < want:
+            raise AssertionError(f"window_gather ({form}): its step loop "
+                                 f"issues {rec.get(form)} shared-memory "
+                                 f"loads, not {want} each step")
+
+
 def kernels_line(launches, kern):
     """The ``kernels`` line's entries, one a kernel."""
     kernels = []
@@ -3112,6 +3287,7 @@ def main() -> int:
     log(json.dumps({"phase": "ptxas", "kernels": len(regs),
                     "registers_max": max(regs, default=0),
                     "spill_bytes": sum(spills)}))
+    gather_sass(lib, nvcc, ptxas)
 
     # the process's first profile window (the profiler starts CUPTI on
     # first use): what it saw, beside the first family's windows

@@ -5,6 +5,7 @@ NVIDIA card, on each kernel's largest stream.
 
     python3 sell_ab.py OTHER_ROOT [--rounds R] [--kernels K,...]
     python3 sell_ab.py OTHER_ROOT --routes
+    python3 sell_ab.py OTHER_ROOT --streams
 
 OTHER_ROOT is the root of another checkout (for example the parent
 commit, unpacked with ``git archive`` into a directory that ``.gitignore``
@@ -36,9 +37,10 @@ probes give them from clustered200k (``probes.probe_inputs``):
 ``tile_stream`` on P1's four streams (S_big, S_tile, S_tile8, S_nodep; P7
 runs S_tile's and S_tile8's) and P3's, each beside ``torch.sum`` over the
 same tiles; ``tile_body`` on P2's stream, P4's three, P5's seven and P5's
-full body at G 8, on a random x and carry.  Each tree's own wrapper
-(``bench.probes``) runs them; this tree's must give the same y bit for
-bit on three calls.
+full body at G 8, on a random x and carry; ``window_gather`` on P9's
+loop and wide forms (g 32, 2048 steps, ``probes.p9_arrays``), each beside
+the bound of its adds.  Each tree's own wrapper (``bench.probes``) runs
+them; this tree's must give the same y bit for bit on three calls.
 
 Per stream: both trees' y against the plain version (f32 1e-5, f64 1e-12
 of (|A||x|)_i; COO2 pass 1 bit for bit; the probe kernels 1e-5 of the sum
@@ -53,6 +55,15 @@ without a card or when a kernel disagrees with its plain version.
 ``--routes`` times no kernel: it plans ``chip_smoke.PRICE_FAMILIES`` at
 full size under the other checkout's ``H100`` price table and this one's
 (``route_ab``), to list the routes a re-derived table moves.
+
+``--streams`` times no kernel: it runs ``chip_smoke.py``'s streams check
+(``two_streams``: calls on two CUDA streams at once, behind one gate) on
+every SELL stream of ``chip_smoke.STREAM_FAMILIES``'s plans, placed by
+each tree, in turns (other, this, this, other; R · 50 rounds a turn),
+every y held bit for bit to this tree's y of its x on one stream (x and
+x reversed, in turns); one JSON line a stream with each side's rounds
+and calls that gave another y and the tickets each turn left nonzero.
+Fails when this tree gives another y.
 """
 
 import argparse
@@ -233,21 +244,15 @@ def nchunks(st):
 
 
 def probe_jobs(dev, other_pr, kernels=None):
-    """(kernel, label, {side: fn of the carry}, tiles, bytes, check) of the
-    probe kernels' streams; ``check(y)`` is (scaled error, within 1e-5)
-    against the plain version."""
+    """(kernel, label, {side: fn of the carry}, tiles, (bytes, operations),
+    check, carry) of the probe kernels' streams; ``check(y)`` is (scaled
+    error, within 1e-5) against the plain version."""
     import dataclasses
     import numpy as np
     import torch
     import chip_smoke as cs
     from spmv_tpu_torch.bench import probes as pr
     from spmv_tpu_torch.io import generate
-    if kernels is not None and not {"tile_stream", "tile_body"} & set(
-            kernels):
-        return
-    _a, packed, v2 = pr.probe_inputs(cs.FAMILIES["clustered200k"][0](
-        generate, np))
-    vals = torch.from_numpy(packed.vals).to(dev)
 
     def checker(plain, plain_abs):
         ref, absref = plain(), plain_abs()
@@ -258,6 +263,33 @@ def probe_jobs(dev, other_pr, kernels=None):
             return rel, ok
         return check
 
+    if kernels is None or "window_gather" in kernels:
+        g, nsteps = 32, 2048
+        loop, wide, x, _oracle = pr.p9_arrays(g)
+        xd = torch.from_numpy(x).to(dev)
+        for label, w, arrs in (("P9 loop", False, loop),
+                               ("P9 wide", True, wide + (None,))):
+            a0, a1, a2 = (None if v is None else torch.from_numpy(v).to(dev)
+                          for v in arrs)
+            yield ("window_gather", label,
+                   {"other": lambda v, w=w, a0=a0, a1=a1, a2=a2:
+                    other_pr.window_gather(w, a0, a1, a2, v, nsteps),
+                    "this": lambda v, w=w, a0=a0, a1=a1, a2=a2:
+                    pr.window_gather(w, a0, a1, a2, v, nsteps)},
+                   g * nsteps,
+                   (sum(v.nbytes for v in arrs if v is not None)
+                    + x.nbytes + 4096, g * nsteps * 1024),
+                   checker(lambda w=w, a0=a0, a1=a1, a2=a2:
+                           pr.window_gather_plain(w, a0, a1, a2, xd),
+                           lambda w=w, a0=a0, a1=a1, a2=a2:
+                           pr.window_gather_plain(w, a0, a1, a2,
+                                                  xd.abs())), xd)
+    if kernels is not None and not {"tile_stream", "tile_body"} & set(
+            kernels):
+        return
+    _a, packed, v2 = pr.probe_inputs(cs.FAMILIES["clustered200k"][0](
+        generate, np))
+    vals = torch.from_numpy(packed.vals).to(dev)
     if kernels is None or "tile_stream" in kernels:
         ticket = torch.zeros(1, dtype=torch.int32, device=dev)
         ones = torch.ones(8, 128, dtype=torch.float32, device=dev)
@@ -273,7 +305,7 @@ def probe_jobs(dev, other_pr, kernels=None):
             if not acc:
                 del sides["torch_sum"]
             yield ("tile_stream", label, sides, nt,
-                   nt * 4096 + (1 if acc else nt // block + 1) * 4096,
+                   (nt * 4096 + (1 if acc else nt // block + 1) * 4096, 0),
                    checker(lambda b=block, a=acc: pr.tile_stream_plain(
                        vals, b, a, ones),
                        lambda b=block, a=acc: pr.tile_stream_plain(
@@ -291,7 +323,7 @@ def probe_jobs(dev, other_pr, kernels=None):
             yield ("tile_body", label,
                    {"other": lambda c, b=b: other_pr.tile_body(b, c),
                     "this": lambda c, b=b: pr.tile_body(b, c)}, b.ntiles,
-                   cs.body_bytes(b),
+                   (cs.body_bytes(b), 0),
                    checker(lambda b=b: pr.tile_body_plain(b, c0),
                            lambda b=babs: pr.tile_body_plain(b, c0.abs())),
                    c0)
@@ -303,7 +335,7 @@ def probe_ab(dev, other_pr, rounds, kernels=None):
     this, other), ``torch.sum`` measured once after them; one JSON line a
     stream with ns a tile and the bound's share of the device times."""
     import chip_smoke as cs
-    for kernel, label, fns, nt, nbytes, check, c in probe_jobs(
+    for kernel, label, fns, nt, (nbytes, ops), check, c in probe_jobs(
             dev, other_pr, kernels):
         errs = {}
         for side in ("other", "this"):
@@ -319,9 +351,10 @@ def probe_ab(dev, other_pr, rounds, kernels=None):
                 runs[side].append(measure(fns[side], c))
         if "torch_sum" in fns:
             runs["torch_sum"] = [measure(fns["torch_sum"], c)]
-        bound = nbytes / cs.HBM_BYTES_PER_S * 1e3
+        bound, by = cs._bound_ms(nbytes, ops)
         rec = {"kernel": kernel, "stream": label, "tiles": nt,
-               "bytes": nbytes, "bound_ms": bound, "scaled_err": errs}
+               "bytes": nbytes, "operations": ops, "bound_ms": bound,
+               "bound_by": by, "scaled_err": errs}
         for side, rs in runs.items():
             med = {k: statistics.median(r[k] for r in rs)
                    for k in ("device_ms", "cold_device_ms", "ms", "host_us")
@@ -399,6 +432,85 @@ def route_ab(dev, other_prices):
         torch.cuda.empty_cache()
 
 
+def family_sell_streams(dev, family):
+    """The SELL streams of ``family``'s plan in ``chip_smoke.py``, planned
+    by this checkout: a main-path family's handle (its method as the
+    script plans it), or a dist family's mesh plan (its shard streams)."""
+    import numpy as np
+    import chip_smoke as cs
+    import spmv_tpu_torch as tt
+    from spmv_tpu_torch import parallel
+    from spmv_tpu_torch.io import generate
+    if family in cs.DIST_FAMILIES:
+        base, ndev = cs.DIST_FAMILIES[family][:2]
+        plan = cs.dist_family_plan(
+            family, cs.FAMILIES[base][0](generate, np),
+            parallel.make_mesh_1d(ndev, device=dev))
+        sts = [st for q in plan.parts.values() if hasattr(q, "streams")
+               for st in q.streams if st is not None]
+    else:
+        h = tt.create_handle(cs.FAMILIES[family][0](generate, np),
+                             method=getattr(tt.Method, cs.method_of(family)),
+                             device=dev)
+        sts = [st for st, _c in cs.family_streams(h.plan)]
+    return [st for st in sts if cs.kernel_of(st).startswith("sell")]
+
+
+def stream_ab(dev, other, this, rounds):
+    """The streams check on both trees: every SELL stream of
+    ``chip_smoke.STREAM_FAMILIES``'s plans (:func:`family_sell_streams`),
+    placed by each tree, called on two CUDA streams at once in turns
+    (other, this, this, other), each turn ``rounds`` of
+    ``chip_smoke.two_streams``; every y held bit for bit to this tree's y
+    on one stream, and the other tree's tickets set to 0 before each of
+    its turns.  One JSON line a stream.  Returns the count of this tree's
+    calls that gave another y."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    rng = np.random.default_rng(0)
+    failed = 0
+    for family in cs.STREAM_FAMILIES:
+        for i, st in enumerate(family_sell_streams(dev, family)):
+            fields = host_fields(st)
+            sides = {"other": place(other, fields, dev),
+                     "this": place(this, fields, dev)}
+            x = torch.from_numpy(rng.standard_normal(st.n).astype(
+                np.float64 if st.dtype == torch.float64
+                else np.float32)).to(dev)
+            want = [this.sell_spmv(sides["this"], v)
+                    for v in cs.stream_xs(x)]
+            torch.cuda.synchronize()
+            per_block = np.diff(st.block_chunk_ptr.cpu().numpy())
+            rec = {"streams": family, "stream": i,
+                   "kernel": cs.kernel_of(st), "chunks": st.nchunks,
+                   "nblocks": st.nblocks,
+                   "blocks_of_several_chunks": int((per_block > 1).sum()),
+                   "rounds_a_turn": rounds}
+            runs = {"other": [], "this": []}
+            for side in ("other", "this", "this", "other"):
+                mod, s = (other, this)[side == "this"], sides[side]
+                if hasattr(s, "ticket"):
+                    s.ticket.zero_()
+                r = cs.two_streams(lambda v, f=mod.sell_spmv, s=s: f(s, v),
+                                   x, rounds=rounds, want=want)
+                sets = ([s.ticket] if hasattr(s, "ticket")
+                        else list(s.tickets_by_stream.values()))
+                r["tickets_left"] = sum(int(t.count_nonzero())
+                                        for t in sets)
+                runs[side].append(r)
+            for side, rs in runs.items():
+                rec[side] = {k: sum(r[k] for r in rs) for k in
+                             ("rounds", "wrong_rounds", "wrong_calls")}
+                rec[side]["tickets_left_a_turn"] = [r["tickets_left"]
+                                                    for r in rs]
+            failed += rec["this"]["wrong_calls"]
+            cs.log(json.dumps(rec))
+            del sides, st, x, want
+        torch.cuda.empty_cache()
+    return failed
+
+
 def measure(fn, x):
     import chip_smoke as cs
     warm = cs.profile_calls(fn, x)
@@ -420,6 +532,9 @@ def main() -> int:
     ap.add_argument("--routes", action="store_true",
                     help="plan the price families under both trees' H100 "
                     "tables instead of timing kernels")
+    ap.add_argument("--streams", action="store_true",
+                    help="run the two-stream check on both trees' SELL "
+                    "streams instead of timing kernels")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -438,6 +553,11 @@ def main() -> int:
                              "--format=csv,noheader"]))
         return 0
     other = importlib.import_module(OTHER + ".ops.sell")
+    if args.streams:
+        failed = stream_ab(dev, other, this, args.rounds * cs.STREAM_ROUNDS)
+        cs.log(cs._cmd_line(["nvidia-smi", "--query-gpu=name,power.limit",
+                             "--format=csv,noheader"]))
+        return 1 if failed else 0
     other_coo2 = importlib.import_module(OTHER + ".ops.coo2")
     rng = np.random.default_rng(0)
     kernels = args.kernels and args.kernels.split(",")

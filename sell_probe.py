@@ -7,6 +7,7 @@ sound.  Run from the repository root:
     python3 sell_probe.py variants    # copies of the kernel, one part changed
     python3 sell_probe.py stress      # partial-sum scratch poisoned with NaN
     python3 sell_probe.py probes      # the calibration's probe kernels
+    python3 sell_probe.py streams     # two CUDA streams, fence left out
 
 Streams are those of ``sell_ab.py`` (each SELL kernel's largest stream in
 ``chip_smoke.py``), packed once on the host.  Each prints one JSON line a
@@ -40,8 +41,16 @@ profile windows.
   CUDA events after ``probes.flush_l2`` (the cold times' flush: 256 MB
   rewritten in place) and after a read of 1 GiB, which leaves the L2
   clean.
+* ``streams``: ``chip_smoke.py``'s streams check (``two_streams``: calls
+  on two CUDA streams at once, behind one gate; 500 rounds) on every SELL
+  stream of ``chip_smoke.STREAM_FAMILIES``' plans, on the shipped kernel
+  and on a copy without the proxy fence before a stage is handed back to
+  the bulk copies (``nofence``: ``csrc/tma.cuh`` ``fence_stage_reads``),
+  each y held bit for bit to the shipped kernel's y of its x on one
+  stream; the rounds and calls that gave another y, a stream a line.
 
-Exits non-zero without a card, or when ``stress`` finds a launch wrong.
+Exits non-zero without a card, or when ``stress`` finds a launch wrong or
+``streams`` a wrong y of the shipped kernel.
 """
 
 import argparse
@@ -83,6 +92,13 @@ PROBE_VARIANTS = {
     "ku4": [("constexpr int kBodyU = 2;", "constexpr int kBodyU = 4;")],
 }
 PROBE_ENTRIES = ("spmv_probe_tile_stream", "spmv_probe_tile_body")
+FENCE_VARIANTS = {
+    "nofence": [("        fence_stage_reads();\n        __syncwarp();\n"
+                 "        if ((l & 31) == 0) mbar_arrive(&empty[s]);",
+                 "        __syncwarp();\n"
+                 "        if ((l & 31) == 0) mbar_arrive(&empty[s]);")]}
+#: rounds of the streams probe, a stream and kernel
+FENCE_ROUNDS = 500
 
 
 def build_variants(source="sell.cu", variants=VARIANTS,
@@ -200,10 +216,48 @@ def probe_kernels(dev):
         del v, flat
 
 
+def stream_fence(dev):
+    """The ``streams`` subcommand: one JSON line a stream; returns the
+    shipped kernel's calls that gave another y."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    import sell_ab
+    from spmv_tpu_torch import _build
+    from spmv_tpu_torch.ops import sell
+    base, fns = build_variants(variants=FENCE_VARIANTS)
+    rng = np.random.default_rng(0)
+    failed = 0
+    for family in cs.STREAM_FAMILIES:
+        for i, st in enumerate(sell_ab.family_sell_streams(dev, family)):
+            x = torch.from_numpy(rng.standard_normal(st.n).astype(
+                np.float64 if st.dtype == torch.float64
+                else np.float32)).to(dev)
+            want = [sell.sell_spmv(st, v) for v in cs.stream_xs(x)]
+            rec = {"probe": "streams", "family": family, "stream": i,
+                   "kernel": cs.kernel_of(st), "chunks": st.nchunks,
+                   "nblocks": st.nblocks}
+            for name in ("base", *FENCE_VARIANTS, "base"):
+                _build._kernels = SimpleNamespace(**{**vars(base),
+                                                     **fns[name]})
+                r = cs.two_streams(lambda v: sell.sell_spmv(st, v), x,
+                                   rounds=FENCE_ROUNDS, want=want)
+                rec.setdefault(name, []).append(
+                    {k: r[k] for k in ("wrong_rounds", "wrong_calls")})
+                if name == "base":
+                    failed += r["wrong_calls"]
+            _build._kernels = base
+            rec["rounds"] = FENCE_ROUNDS
+            cs.log(json.dumps(rec))
+            del st, x, want
+        torch.cuda.empty_cache()
+    return failed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("probe", choices=("chunks", "variants", "stress",
-                                      "probes"))
+                                      "probes", "streams"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -217,11 +271,15 @@ def main() -> int:
     from spmv_tpu_torch import _build
     from spmv_tpu_torch.ops import sell
     dev = torch.device("cuda", 0)
-    if args.probe == "probes":
-        probe_kernels(dev)
+    if args.probe in ("probes", "streams"):
+        failed = 0
+        if args.probe == "probes":
+            probe_kernels(dev)
+        else:
+            failed = stream_fence(dev)
         cs.log(cs._cmd_line(["nvidia-smi", "--query-gpu=name,power.limit",
                              "--format=csv,noheader"]))
-        return 0
+        return 1 if failed else 0
     rng = np.random.default_rng(0)
     kernels = {"variants": ["sell_slot_w", "sell_slot", "sell_v1"],
                "stress": ["sell_row", "sell_row_df", "sell_v1",
@@ -282,7 +340,8 @@ def main() -> int:
                     wrong += not ok
                     differ += not torch.equal(y, y0)
                     worst = max(worst, rel)
-                left = int(s2.ticket.count_nonzero())
+                left = sum(int(t.count_nonzero())
+                           for t in s2.tickets_by_stream.values())
                 failed += wrong + differ + left
                 rec[key] = {"chunks": s2.nchunks, "most_a_block": most,
                             "launches": 300, "wrong": wrong,

@@ -117,7 +117,7 @@ def load_kernels() -> SimpleNamespace:
                 "spmv_probe_tile_body": ("probes", ctypes.c_int,
                                          [p] * 16 + [i64] * 9 + [p]),
                 "spmv_probe_window_gather": ("probes", ctypes.c_int,
-                                             [p] * 5 + [i64] * 3 + [p]),
+                                             [p] * 12 + [i64] * 4 + [p]),
                 "spmv_probe_tiny": ("probes", ctypes.c_int, [p] * 3),
                 "spmv_probe_fma_err": ("probes", ctypes.c_int,
                                        [p] * 4 + [i64, p]),

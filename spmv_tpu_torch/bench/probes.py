@@ -60,7 +60,8 @@ from . import timing
 __all__ = ["tile_stream", "tile_stream_plain", "tile_body", "tile_body_plain",
            "window_gather", "window_gather_plain", "tiny", "tiny_plain",
            "fma_err", "fma_err_plain", "Split", "stream_split",
-           "body_split", "tile_stream_order", "STREAM_INPUTS",
+           "body_split", "gather_split", "tile_stream_order",
+           "window_gather_order", "STREAM_INPUTS",
            "body_inputs", "flush_l2", "probe_inputs", "probe_stream",
            "probe_g8", "probe_huge", "probe_v2proto", "probe_body",
            "probe_tiny", "probe_step", "probe_fma", "probe_wide_gather",
@@ -116,6 +117,11 @@ STREAM_CHUNKS_PER_SM = 2
 BODY_CHUNKS_PER_SM = 4
 #: slots a node of the fixed-order reduce sums (``csrc/probes.cu`` kFan)
 REDUCE_FAN = 16
+#: most tiles a window_gather block holds in shared memory beside the x
+#: bundle (``csrc/probes.cu`` kGatherTiles: 80 KB a block in the loop form)
+GATHER_TILES = 4
+#: window_gather blocks an SM (two of 80 KB fit in its shared memory)
+GATHER_BLOCKS_PER_SM = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +133,8 @@ class Split:
     host tables."""
 
     #: (nchunks, 4): tile_lo, tile_hi, then (tile_stream) the chunk's slot
-    #: or -1 and its output, (tile_body) its runs' bounds in ``runs``
+    #: or -1 and its output, (tile_body) its runs' bounds in ``runs``,
+    #: (window_gather) step_lo, step_hi
     chunks: np.ndarray
     slot_out: np.ndarray          # (nslots,): each slot's split output
     slot_ptr: np.ndarray          # (nsplit + 1,): slots of each
@@ -136,6 +143,9 @@ class Split:
     runs: Optional[np.ndarray] = None
     #: tile_body: the groups no tile visits (zero-filled)
     zero_groups: Optional[np.ndarray] = None
+    #: window_gather: (nchunks,) the slot a chunk writes, -1 for the output
+    #: itself, -2 for nothing
+    writes: Optional[np.ndarray] = None
 
     @property
     def nslots(self) -> int:
@@ -237,6 +247,33 @@ def body_split(ginfo: np.ndarray, g: int, ngroups: int, nsm: int) -> Split:
                  zero_groups=np.flatnonzero(cnt == 0).astype(np.int32))
 
 
+def gather_split(g: int, nsteps: int, nsm: int) -> Split:
+    """:func:`window_gather`'s chunks over its ``nsteps · g`` (step, tile)
+    gathers: the g tiles cut evenly into groups of at most
+    :data:`GATHER_TILES`, each group's steps cut evenly into runs, enough
+    for about :data:`GATHER_BLOCKS_PER_SM` chunks an SM in all.  Every
+    step of a group gives the same sum, so the chunk of its first run
+    writes it: straight to the output when one group holds all g tiles,
+    else into the group's slot of the reduce, which adds the groups in
+    tile order; the other chunks write nothing.  ``chunks[c]`` =
+    (tile_lo, tile_hi, step_lo, step_hi), a group's runs in step order."""
+    if g < 1 or nsteps < 1:
+        raise ValueError("window_gather: at least one tile and one step")
+    if g * nsteps >= 2 ** 31:
+        raise ValueError("window_gather: at most 2^31 - 1 tile-gathers")
+    ngroups = -(-g // GATHER_TILES)
+    tiles = _even(g, ngroups)
+    nruns = max(1, min(nsteps, -(-nsm * GATHER_BLOCKS_PER_SM // ngroups)))
+    steps = _even(nsteps, nruns)
+    grp = np.repeat(np.arange(ngroups), nruns)
+    run = np.tile(np.arange(nruns), ngroups)
+    writes = np.where(run > 0, -2, grp if ngroups > 1 else -1)
+    return Split(_i32(tiles[grp], tiles[grp + 1], steps[run],
+                      steps[run + 1]),
+                 *_tree([ngroups] if ngroups > 1 else []),
+                 writes=writes.astype(np.int32))
+
+
 def tile_stream_order(vals: np.ndarray, block: int, accumulate: bool,
                       c: np.ndarray, split: Split) -> np.ndarray:
     """:func:`tile_stream`'s kernel stated in numpy f32, in its order: each
@@ -305,6 +342,7 @@ def _on_device(key: tuple, anchor, make, stamp=None) -> SimpleNamespace:
         slot_ptr=put(sp.slot_ptr), node_ptr=put(sp.node_ptr),
         runs=None if sp.runs is None else put(sp.runs),
         zero_groups=None if sp.zero_groups is None else put(sp.zero_groups),
+        writes=None if sp.writes is None else put(sp.writes),
         partial=torch.empty((sp.nslots + sp.nnodes) * WINDOW,
                             dtype=torch.float32, device=dev),
         tickets=torch.zeros(max(sp.ntickets, 1), dtype=torch.int32,
@@ -528,23 +566,86 @@ def window_gather_plain(wide: bool, a0, a1, a2, x) -> torch.Tensor:
     return xg.sum(0)
 
 
+def window_gather_order(wide: bool, a0, a1, a2, x,
+                        split: Split) -> np.ndarray:
+    """:func:`window_gather`'s kernel stated in numpy f32, in its order:
+    each writing chunk adds its tiles' gathered slots to 0 in tile order;
+    with one group that is the output, else the groups' slots are added
+    to 0 in order by nodes of :data:`REDUCE_FAN`, and the nodes, where
+    there are several, to 0 in order.  Every operation is one f32 add, so
+    this is the kernel's result bit for bit (the steps repeat it).  Each
+    slot gathers at the column the kernel computes: x[(8 wsel + s(i, r)) ·
+    128 + r] (loop form), x[srow · 1024 + ctab(srow, l)] (wide)."""
+    a0, a1 = np.asarray(a0, np.int64), np.asarray(a1, np.int64)
+    xf = np.asarray(x, np.float32).reshape(-1)
+    if wide:
+        col = a1 * (P9_NW * LANES) + np.take_along_axis(a0, a1, 1)
+    else:
+        s = np.take_along_axis(a0, a1, 2)
+        col = (SUB * np.asarray(a2, np.int64) + s) * LANES + a1
+    xg = xf[col]
+    sums = {}
+    for (lo, hi, _s0, _s1), w in zip(split.chunks.tolist(),
+                                     split.writes.tolist()):
+        if w == -2:
+            continue
+        acc = np.zeros((SUB, LANES), np.float32)
+        for t in range(lo, hi):
+            acc = acc + xg[t]
+        sums[w] = acc
+    if -1 in sums:
+        return sums[-1]
+    s1 = int(split.slot_ptr[1])
+    nodes = []
+    for a in range(0, s1, REDUCE_FAN):
+        acc = np.zeros((SUB, LANES), np.float32)
+        for i in range(a, min(a + REDUCE_FAN, s1)):
+            acc = acc + sums[i]
+        nodes.append(acc)
+    if len(nodes) == 1:
+        return nodes[0]
+    acc = np.zeros((SUB, LANES), np.float32)
+    for nd in nodes:
+        acc = acc + nd
+    return acc
+
+
 def window_gather(wide: bool, a0, a1, a2, x, nsteps: int) -> torch.Tensor:
-    """P9's gather as a kernel: ``nsteps`` blocks, each over the same g
-    tiles (the TPU probe's clamped block index reads them every step),
-    each writing the same (8, 128) sum: :func:`window_gather_plain`."""
+    """P9's gather as a kernel: :func:`window_gather_plain`, with every one
+    of the ``nsteps · g`` (step, tile) gathers done, as the TPU probe's
+    ``nsteps`` grid steps over the same g tiles do.  The chunks of
+    :func:`gather_split` each gather their tiles over their steps from x
+    and index planes staged in shared memory; the g tiles' sum is taken in
+    a fixed order (a group's tiles in order, then the groups in order), so
+    every launch gives the same bits.  Index planes are (g, 8, 128) int32
+    (a2 is not read in the wide form), x 8 windows of f32."""
     ts = [t for t in (a0, a1, a2, x) if t is not None]
     if not _on_card("window_gather", *ts):
         return window_gather_plain(wide, a0, a1, a2, x)
-    if any(t.dtype != torch.int32 for t in ts[:-1]) \
-            or x.dtype != torch.float32 or x.numel() != P9_NW * WINDOW:
+    planes = (a0, a1) if wide else (a0, a1, a2)
+    if (any(t is None or t.dtype != torch.int32
+            or t.dim() != 3 or tuple(t.shape) != tuple(a0.shape)
+            or tuple(t.shape[1:]) != (SUB, LANES) for t in planes)
+            or x.dtype != torch.float32 or x.numel() != P9_NW * WINDOW):
         raise ValueError("window_gather: int32 (g, 8, 128) index planes "
-                         "and an f32 x of 8 windows")
-    out = torch.empty(SUB, LANES, dtype=torch.float32, device=x.device)
+                         "(three in the loop form) and an f32 x of 8 "
+                         "windows")
+    dev = x.device
+    nsm = sm_count(dev)
+    g = a0.shape[0]
+    tabs = _on_device(("gather", g, nsteps, nsm, dev, _stream(dev)), None,
+                      lambda: (gather_split(g, nsteps, nsm), dev))
+    sp = tabs.split
+    out = torch.empty(SUB, LANES, dtype=torch.float32, device=dev)
     lib = _build.load_kernels()
     err = lib.spmv_probe_window_gather(
-        a0.data_ptr(), a1.data_ptr(), None if a2 is None else a2.data_ptr(),
-        x.data_ptr(), out.data_ptr(), a0.shape[0], nsteps, int(wide),
-        _stream(x.device))
+        *(_aligned(t).data_ptr() for t in planes[:2]),
+        None if wide else _aligned(a2).data_ptr(), _aligned(x).data_ptr(),
+        out.data_ptr(), tabs.chunks.data_ptr(), tabs.writes.data_ptr(),
+        tabs.slot_out.data_ptr(), tabs.slot_ptr.data_ptr(),
+        tabs.node_ptr.data_ptr(), tabs.partial.data_ptr(),
+        tabs.tickets.data_ptr(), len(sp.chunks), sp.nslots, sp.nnodes,
+        int(wide), _stream(dev))
     _build.check(lib, err, "window_gather")
     _count("window_gather")
     return out

@@ -186,6 +186,7 @@ __global__ void __launch_bounds__(kThreads, 4)
       }
       prod[h] = make_float4(p[0], p[1], p[2], p[3]);
     }
+    fence_stage_reads();
     __syncwarp();
     if ((j & 31) == 0) mbar_arrive(&empty[s]);  // the stage is free
     float* o = out + (t0 + k) * kTile;

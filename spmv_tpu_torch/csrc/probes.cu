@@ -56,12 +56,16 @@
 //
 // Bounds on the H100: tile_stream and tile_body read their stream once (4 B
 // a slot of f32 values, 2 B of meta), so device-memory bytes bind them;
-// window_gather reads the same 128 KB again and again from L1/L2, and
-// tiny and fma_err one 4 KB tile: launch latency binds those.
+// window_gather's bound is its adds (its inputs are 416 KB), and what
+// binds it is its shared-memory loads: it stages x and its tiles' indices
+// once a block and gathers from shared memory every step (see below);
+// tiny and fma_err read one 4 KB tile: launch latency binds those.
 //
 // fma_err computes a*b - p with __fmaf_rn: sm_90 has an IEEE fused
 // multiply-add, so the product's error is exact in one instruction where
 // the TPU probe asked whether its compiler fused it.
+#include <atomic>
+
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -407,6 +411,7 @@ __global__ void __launch_bounds__(kBodyThreads, 4)
           else
             v[u][i] = float((ms >> 10) & 7u) * 0.125f;
         }
+        fence_stage_reads();
         __syncwarp();
         if ((j & 31) == 0) mbar_arrive(&empty[s]);  // the stage is free
       }
@@ -502,51 +507,182 @@ int body_dispatch_gather(const BodyArgs& a, int64_t gather, bool mask,
   }
 }
 
-constexpr int kNw = 8;  // P9's bundle of 8 windows
+// -- window_gather (P9) ------------------------------------------------------
 
-// P9: g tiles a step, one block a step (every step reads the same g tiles,
-// as the TPU probe's clamped block index does), each writing the same sum
-// over the g tiles.  Loop form: per slot, for each of the 8 windows j, the
-// take0 + take1 gather x2[(8 j + s(i, r)) * 128 + r] and a select on
-// wsel == j.  Wide form: one gather xb[srow][c(srow, l)] from the
-// (8, 1024) bundle.  A thread a lane l.
-__global__ void window_gather_kernel(const int32_t* __restrict__ a0,
-                                     const int32_t* __restrict__ a1,
-                                     const int32_t* __restrict__ a2,
-                                     const float* __restrict__ x,
-                                     float* __restrict__ out, int g,
-                                     int wide) {
-  const int l = threadIdx.x;
-  float acc[kSub];
+constexpr int kNw = 8;                   // P9's bundle of 8 windows
+constexpr int kBundle = kNw * kTile;     // its 8192 f32
+constexpr int kGatherTiles = 4;          // most tiles a block holds
+constexpr int kGatherThreads = 256;      // lane p % 128, 4 rows (p / 128)
+constexpr int kGatherRows = kTile / kGatherThreads;
+
+template <bool kWide>
+__host__ __device__ constexpr int gather_planes() { return kWide ? 2 : 3; }
+template <bool kWide>
+__host__ __device__ constexpr int gather_smem_bytes() {
+  return (kBundle + gather_planes<kWide>() * kGatherTiles * kTile) * 4;
+}
+
+// A 4-B load from shared memory that the compiler must issue where it
+// stands: every step reads the same indices and x, so plain loads would be
+// hoisted out of the step loop and the loop folded to one step.
+__device__ __forceinline__ int lds_volatile(uint32_t addr) {
+  int v;
+  asm volatile("ld.volatile.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// P9: the g tiles' gathered sum, every (step, tile) gather done.  The TPU
+// probe runs nsteps grid steps over the same g tiles (its clamped block
+// index), each step taking its tiles' 1024 slots from the VMEM-resident
+// x; here block c takes tiles [ch.x, ch.y) over steps [ch.z, ch.w)
+// (bench/probes.py gather_split: about two blocks an SM).  It stages the
+// 32 KB bundle and its tiles' index planes in shared memory once (the
+// TPU's VMEM), then every step re-reads them with volatile loads: thread
+// p takes lane l = p % 128 of rows 4 (p / 128) .. + 3 of each tile, the
+// slot's own index words first, then the cell words they name, then the
+// x words, 4 x kGatherTiles slots in flight.  Loop form (a0 sidx, a1
+// ridx, a2 wsel; x window-major): one load at the column the select
+// names, x[(8 wsel + s(i, r)) * 128 + r], where the TPU takes eight and
+// selects.  Wide form (a0 ctab, a1 srow): x[srow * 1024 + ctab(srow, l)].
+// Indices are taken modulo their ranges (r < 128, s and wsel < 8, ctab <
+// 1024).  Each slot's sum over the block's tiles (in tile order, from 0)
+// is held to the previous step's, bit for bit, and a step that differs
+// makes it NaN, so every step's adds are used.  The block of steps from 0
+// writes its tiles' sum: straight to out when one block holds all g
+// tiles, else into its slot of the Tree, which adds the slots in tile
+// order (writes[c] = slot, -1 for out, -2 for nothing).
+//
+// Bound: 67 M adds at nsteps 2048, g 32 (1 us at 67 TFLOP/s).  What binds
+// it is shared-memory issue: 4 loads a slot in the loop form, 3 in the
+// wide, one warp-wide load an SM a clock, with no bank conflicts where r
+// and the column in the bundle run with the lane (the probe's instance).
+template <bool kWide>
+__global__ void __launch_bounds__(kGatherThreads, 2)
+    window_gather_kernel(const int32_t* __restrict__ a0,
+                         const int32_t* __restrict__ a1,
+                         const int32_t* __restrict__ a2,
+                         const float* __restrict__ x,
+                         float* __restrict__ out,
+                         const int4* __restrict__ chunks,
+                         const int32_t* __restrict__ writes, const Tree tr) {
+  extern __shared__ __align__(16) int32_t sm[];
+  constexpr int kPlane = kGatherTiles * kTile;  // int32 words a plane
+  const int p = threadIdx.x;
+  const int4 ch = chunks[blockIdx.x];
+  const int nt = ch.y - ch.x;
+  const int wr = writes[blockIdx.x];
+  {
+    // the bundle, then each plane's tiles [ch.x, ch.y), 16 B a load
+    const int4* xs = reinterpret_cast<const int4*>(x);
+    int4* d = reinterpret_cast<int4*>(sm);
+    for (int q = p; q < kBundle / 4; q += kGatherThreads) d[q] = __ldg(xs + q);
+    const int32_t* src[3] = {a0, a1, a2};
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) acc[i] = 0.f;
-  for (int k = 0; k < g; ++k) {
-    const int64_t base = int64_t(k) * kTile;
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      const int64_t slot = base + i * kLanes + l;
-      if (wide) {
-        // a0 = ctab (column in the bundle), a1 = srow
-        const int sr = __ldg(a1 + slot);
-        const int col = __ldg(a0 + base + sr * kLanes + l);
-        acc[i] += __ldg(x + sr * (kNw * kLanes) + col);
-      } else {
-        // a0 = sidx, a1 = ridx, a2 = wsel
-        const int r = __ldg(a1 + slot);
-        const int s = __ldg(a0 + base + i * kLanes + r);
-        const int wsel = __ldg(a2 + slot);
-        float xg = 0.f;
-#pragma unroll
-        for (int jw = 0; jw < kNw; ++jw) {
-          const float gj = __ldg(x + (jw * kSub + s) * kLanes + r);
-          xg = wsel == jw ? gj : xg;
-        }
-        acc[i] += xg;
-      }
+    for (int pl = 0; pl < gather_planes<kWide>(); ++pl) {
+      const int4* s4 =
+          reinterpret_cast<const int4*>(src[pl] + int64_t(ch.x) * kTile);
+      int4* d4 = reinterpret_cast<int4*>(sm + kBundle + pl * kPlane);
+      for (int q = p; q < nt * (kTile / 4); q += kGatherThreads)
+        d4[q] = __ldg(s4 + q);
     }
   }
+  __syncthreads();
+  const uint32_t sx = smem_addr(sm);
+  const uint32_t sp0 = sx + kBundle * 4;       // a0's plane
+  const uint32_t sp1 = sp0 + kPlane * 4;       // a1's
+  const uint32_t sp2 = sp1 + kPlane * 4;       // a2's (loop form)
+  const int l = p % kLanes, i0 = p / kLanes * kGatherRows;
+  float res[kGatherRows];
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) out[i * kLanes + l] = acc[i];
+  for (int u = 0; u < kGatherRows; ++u) res[u] = 0.f;
+  for (int step = ch.z; step < ch.w; ++step) {
+    int idx[kGatherTiles][kGatherRows], sel[kGatherTiles][kGatherRows];
+    // the slots' own words: ridx and wsel, or srow
+#pragma unroll
+    for (int k = 0; k < kGatherTiles; ++k)
+#pragma unroll
+      for (int u = 0; u < kGatherRows; ++u) {
+        if (k >= nt) continue;
+        const uint32_t slot = 4u * (k * kTile + (i0 + u) * kLanes + l);
+        idx[k][u] = lds_volatile(sp1 + slot);
+        if (!kWide) sel[k][u] = lds_volatile(sp2 + slot);
+      }
+    // the cell words they name: s at (i, r), or ctab at (srow, l)
+#pragma unroll
+    for (int k = 0; k < kGatherTiles; ++k)
+#pragma unroll
+      for (int u = 0; u < kGatherRows; ++u) {
+        if (k >= nt) continue;
+        if (kWide) {
+          const int sr = idx[k][u] & (kSub - 1);
+          const int c = lds_volatile(sp0 + 4u * (k * kTile + sr * kLanes + l));
+          idx[k][u] = sr * (kNw * kLanes) + (c & (kNw * kLanes - 1));
+        } else {
+          const int r = idx[k][u] & (kLanes - 1);
+          const int s = lds_volatile(sp0 + 4u * (k * kTile +
+                                                 (i0 + u) * kLanes + r));
+          idx[k][u] = ((kSub * (sel[k][u] & (kNw - 1)) + (s & (kSub - 1)))
+                       * kLanes) + r;
+        }
+      }
+    // the x words, added in tile order
+    float acc[kGatherRows];
+#pragma unroll
+    for (int u = 0; u < kGatherRows; ++u) acc[u] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kGatherTiles; ++k)
+#pragma unroll
+      for (int u = 0; u < kGatherRows; ++u) {
+        if (k >= nt) continue;
+        acc[u] += __int_as_float(lds_volatile(sx + 4u * idx[k][u]));
+      }
+#pragma unroll
+    for (int u = 0; u < kGatherRows; ++u)
+      res[u] = step == ch.z || acc[u] == res[u] ? acc[u] : __int_as_float(
+                                                               0x7fc00000);
+  }
+  if (wr == -2) return;
+  if (wr == -1) {
+#pragma unroll
+    for (int u = 0; u < kGatherRows; ++u) out[(i0 + u) * kLanes + l] = res[u];
+    return;
+  }
+  float* part = reinterpret_cast<float*>(tr.partial) + int64_t(wr) * kTile;
+#pragma unroll
+  for (int u = 0; u < kGatherRows; ++u) part[(i0 + u) * kLanes + l] = res[u];
+  __shared__ int slot, last;
+  if (p == 0) slot = wr;
+  take_tickets(tr, &slot, 1, &last);
+  if (last) finish_node(tr, wr, reinterpret_cast<float4*>(out), nullptr);
+}
+
+template <bool kWide>
+int gather_launch(const void* a0, const void* a1, const void* a2,
+                  const void* x, void* out, const void* chunks,
+                  const void* writes, const Tree& tr, int64_t nchunks,
+                  cudaStream_t stream) {
+  constexpr int smem = gather_smem_bytes<kWide>();
+  auto* kernel = window_gather_kernel<kWide>;
+  // past the 48 KB default, once per device; a refusal is returned like a
+  // launch error
+  static std::atomic<uint64_t> allowed{0};  // one bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  const uint64_t bit = uint64_t(1) << (dev & 63);
+  if (!(allowed.load() & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return int(err);
+    allowed.fetch_or(bit);
+  }
+  kernel<<<unsigned(nchunks), kGatherThreads, smem, stream>>>(
+      static_cast<const int32_t*>(a0), static_cast<const int32_t*>(a1),
+      static_cast<const int32_t*>(a2), static_cast<const float*>(x),
+      static_cast<float*>(out), static_cast<const int4*>(chunks),
+      static_cast<const int32_t*>(writes), tr);
+  return int(cudaGetLastError());
 }
 
 // P6: one (8, 128) f32 tile times 2.
@@ -646,18 +782,26 @@ extern "C" int spmv_probe_tile_body(
 
 // Loop form (wide = 0): a0 sidx, a1 ridx, a2 wsel, (g, 1024) int32 each, x
 // (8 windows * 1024,) window-major.  Wide form: a0 ctab, a1 srow, a2 unused,
-// x the (8, 1024) bundle.  out: (1024,).  nsteps blocks.
-extern "C" int spmv_probe_window_gather(const void* a0, const void* a1,
-                                        const void* a2, const void* x,
-                                        void* out, int64_t g, int64_t nsteps,
-                                        int64_t wide, void* stream) {
-  if (nsteps <= 0) return 0;
-  spmv::window_gather_kernel<<<unsigned(nsteps), spmv::kLanes, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(a0), static_cast<const int32_t*>(a1),
-      static_cast<const int32_t*>(a2), static_cast<const float*>(x),
-      static_cast<float*>(out), int(g), int(wide));
-  return int(cudaGetLastError());
+// x the (8, 1024) bundle.  All 16-B aligned.  out: (1024,).  chunks:
+// (nchunks, 4) int32 (tile_lo, tile_hi, step_lo, step_hi), at most 4 tiles
+// each; writes: (nchunks,) int32; slot_out, slot_ptr, node_ptr, partial
+// and tickets as for tile_stream: bench/probes.py's gather_split.
+// nchunks blocks.
+extern "C" int spmv_probe_window_gather(
+    const void* a0, const void* a1, const void* a2, const void* x, void* out,
+    const void* chunks, const void* writes, const void* slot_out,
+    const void* slot_ptr, const void* node_ptr, void* partial, void* tickets,
+    int64_t nchunks, int64_t nslots, int64_t nnodes, int64_t wide,
+    void* stream) {
+  if (nchunks <= 0) return 0;
+  const spmv::Tree tr{static_cast<const int32_t*>(slot_out),
+                      static_cast<const int32_t*>(slot_ptr),
+                      static_cast<const int32_t*>(node_ptr),
+                      static_cast<int32_t*>(tickets),
+                      static_cast<float4*>(partial), nslots, nnodes};
+  auto* launch = wide ? spmv::gather_launch<true> : spmv::gather_launch<false>;
+  return launch(a0, a1, a2, x, out, chunks, writes, tr, nchunks,
+                static_cast<cudaStream_t>(stream));
 }
 
 // v, out: (1024,) f32.

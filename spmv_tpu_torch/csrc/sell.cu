@@ -101,8 +101,11 @@
 //     counter, reset to 0 by the last), and the last chunk to finish adds
 //     the block's partials in chunk order.  The ticket is the only atomic:
 //     the sums are taken in a fixed order and the result is deterministic.
-//     A stream's tickets are shared state: launches over one stream must
-//     not overlap (they do not on one CUDA stream).
+//     The tickets are shared state: launches that use one set must not
+//     overlap.  ops/sell.py keeps a set for each CUDA stream a stream is
+//     launched on (launches on one CUDA stream do not overlap), so only a
+//     captured CUDA graph, which binds the set of the stream it was
+//     captured on, must not be replayed on two streams at once.
 #include <atomic>
 #include <type_traits>
 
@@ -400,6 +403,7 @@ __global__ void __launch_bounds__(kThreads, is_double(kVM) ? 3 : 4)
                        : base[u] + off[u][i] < p.n
                            ? __ldg(x + base[u] + off[u][i]) : T(0);
         }
+        fence_stage_reads();
         __syncwarp();
         if ((l & 31) == 0) mbar_arrive(&empty[s]);  // the stage is free
       }

@@ -20,6 +20,17 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
+// A consumer hands a stage back to the bulk copies: its generic-proxy
+// reads of the stage are ordered before the async-proxy writes of the
+// next copy into it.  The empty barrier's arrive and wait order the
+// generic proxy only; without this fence a read issued late (a staged x
+// word at an address decoded from the meta) could see the next tile's
+// bytes: a few wrong rows when two launches share the SMs (sell.cu's row
+// mode on two CUDA streams; sell_probe.py streams builds the kernel
+// without it).  Every consumer thread calls it before the warp's arrive.
+__device__ __forceinline__ void fence_stage_reads() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
                :: "r"(smem_addr(bar)) : "memory");

@@ -51,8 +51,13 @@ shared-memory ring with bulk copies, and 128 consumer threads decode
 their lane of each tile from shared memory, so the x gathers are the only
 dependent global loads.  One launch a call: a block with several chunks is
 added up, in chunk order, by whichever of its chunks finishes last (a
-per-block ticket counter, :attr:`SellStream.ticket`, is the only atomic),
-so the result is deterministic.
+per-block ticket counter is the only atomic), so the result is
+deterministic.  The tickets are the only state that launches over one
+SELL stream share, so :func:`tickets` keeps a set for each CUDA stream it
+is launched on: calls on two CUDA streams never count on each other's
+tickets.  A CUDA graph captured over :func:`sell_spmv` binds the set of
+the CUDA stream it was captured on, so one graph must not be replayed on
+two streams at once (the rule its static buffers set already).
 
 Not carried over from the TPU: the per-tile window DMAs of K5-K7 (a VMEM
 workaround; the kernel's gathers read x where it lies), the SMEM
@@ -83,7 +88,7 @@ __all__ = ["SellStream", "prepare_sell", "prepare_v1", "binary_v2",
            "row_df_w_launches", "slot_df_w_launches", "v1_launches",
            "v1_df_launches", "v1_bin_launches", "V2_MAX_N", "CHUNK_TILES",
            "CHUNKS_PER_SM", "MAX_REDUCE_BYTES", "H100_SMS", "chunk_len",
-           "chunk_tables", "sm_count"]
+           "chunk_tables", "sm_count", "tickets"]
 
 #: the JAX package's VMEM-resident-x bound: streams up to it replace the
 #: resident kernels (K1, K2), streams past it the windowed ones (K5-K7)
@@ -154,11 +159,14 @@ class SellStream:
     chunk_step_ptr: torch.Tensor  # (nchunks + 1,) int32
     chunk_block: torch.Tensor     # (nchunks,) int32 output block per chunk
     block_chunk_ptr: torch.Tensor  # (nblocks + 1,) int32
-    ticket: torch.Tensor          # (nblocks,) int32 zeros: the kernel's
-    #                               last-chunk counters, left 0 by each
-    #                               launch (one launch at a time a stream)
     gpk: Optional[torch.Tensor] = None  # (ntiles,) int32, the v1 layout's
     #                                     group << 4 | row << 1 | first
+    #: the kernel's last-chunk counters, (nblocks,) int32 zeros that each
+    #: launch leaves 0, one set a CUDA stream: (device index, cuda_stream)
+    #: → tensor, made by :func:`tickets` (a ``dataclasses.replace`` copy
+    #: starts with none)
+    tickets_by_stream: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
     #: what every launch passes that is fixed per stream (CUDA streams)
     _launch: Optional[tuple] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
@@ -234,15 +242,14 @@ def sm_count(device) -> int:
 
 def _placed_tables(step_block: np.ndarray, nblocks: int, g: int, device,
                    nsm: Optional[int], value_mode: str):
-    """The chunk tables and ticket counters of a stream, on ``device``."""
+    """The chunk tables of a stream, on ``device``."""
     csp, cb, bcp = chunk_tables(step_block, nblocks, g,
                                 sm_count(device) if nsm is None else nsm,
                                 8 if value_mode in DF_MODES else 4)
     return dict(step_block=dev_put(step_block, device),
                 chunk_step_ptr=dev_put(csp, device),
                 chunk_block=dev_put(cb, device),
-                block_chunk_ptr=dev_put(bcp, device),
-                ticket=dev_put(np.zeros(nblocks, np.int32), device))
+                block_chunk_ptr=dev_put(bcp, device))
 
 
 def binary_v2(packed: Sell8W, g: int = 16) -> Sell8WV2:
@@ -464,12 +471,24 @@ def kernel_name(st: SellStream) -> str:
             + ("_w" if st.n > V2_MAX_N else ""))
 
 
+def tickets(st: SellStream, key) -> torch.Tensor:
+    """The ticket counters of launches over ``st`` on the CUDA stream
+    ``key`` = (device index, cuda_stream): made zero on the key's first
+    use, on the current CUDA stream, which is the one the launch goes to,
+    so the fill is ordered before it; kept while ``st`` lives."""
+    t = st.tickets_by_stream.get(key)
+    if t is None:
+        t = st.tickets_by_stream[key] = torch.zeros(
+            st.nblocks, dtype=torch.int32, device=st.meta.device)
+    return t
+
+
 def _launch_args(st: SellStream):
-    """(the arguments before x, those after it, the kernel name) of every
-    launch over ``st``: fixed per stream (the pointers, the value mode; the
-    ring's size follows from the value mode inside the kernel), computed
-    once when it is placed.  Raises when a bulk-copied plane is not 16-B
-    aligned."""
+    """(the arguments before the tickets, those after x, the kernel name)
+    of every launch over ``st``: fixed per stream (the pointers, the value
+    mode; the ring's size follows from the value mode inside the kernel),
+    computed once when it is placed.  Raises when a bulk-copied plane is
+    not 16-B aligned."""
     for t in (st.meta, st.vals, st.vals_lo):
         if t is not None and t.data_ptr() % 16:
             raise ValueError("sell stream: meta and value planes must be "
@@ -477,7 +496,7 @@ def _launch_args(st: SellStream):
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     before = (ptr(st.meta), ptr(st.vals), ptr(st.vals_lo), ptr(st.palette),
               ptr(st.tinfo), ptr(st.gpk), ptr(st.chunk_step_ptr),
-              ptr(st.chunk_block), ptr(st.block_chunk_ptr), ptr(st.ticket))
+              ptr(st.chunk_block), ptr(st.block_chunk_ptr))
     after = (st.nchunks, st.g, st.n, _VALUE_MODES[st.value_mode],
              int(st.slot_mode), st.nw, int(st.cell_w))
     return before, after, kernel_name(st)
@@ -507,10 +526,11 @@ def sell_spmv(st: SellStream, x: torch.Tensor) -> torch.Tensor:
                            device=x.device)
                if st.nchunks > st.nblocks else None)
     out = torch.empty(st.nblocks * WINDOW, dtype=st.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.spmv_sell_launch(
-        *before, x.data_ptr(), None if partial is None else
-        partial.data_ptr(), out.data_ptr(), *after,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *before, tickets(st, (x.device.index, stream)).data_ptr(),
+        x.data_ptr(), None if partial is None else partial.data_ptr(),
+        out.data_ptr(), *after, stream)
     _build.check(lib, err, name)
     globals()[_COUNTERS[name]] += 1
     return out

@@ -479,3 +479,69 @@ def test_split_tables_are_made_anew_for_a_ginfo_written_in_place():
     assert first.split.zero_groups.tolist() == [3]
     assert tables() is again
     assert not again.tickets.any()
+
+
+# -- window_gather's split and summation order (P9) --------------------------
+
+@pytest.mark.parametrize("g", [4, 5, 7, 32])
+@pytest.mark.parametrize("nsteps", [2, 7, 2048])
+@pytest.mark.parametrize("nsm", [3, 7, 132])
+def test_gather_split_covers_every_step_tile_pair_once(g, nsteps, nsm):
+    # the grid's chunks cover every (step, tile) gather exactly once,
+    # also where g's groups do not divide the grid (g 5 and 7; g 32 on 7
+    # SMs: 8 groups, 14 chunks wanted); each chunk holds 1 to GATHER_TILES
+    # tiles, and each group's sum is written once, by its chunk of step 0
+    sp = pr.gather_split(g, nsteps, nsm)
+    lo, hi, s0, s1 = sp.chunks.T.astype(np.int64)
+    assert np.all(hi > lo) and np.all(hi - lo <= pr.GATHER_TILES)
+    assert np.all(s1 > s0)
+    seen = np.zeros((nsteps, g), np.int64)
+    for a, b, c, d in zip(lo, hi, s0, s1):
+        seen[c:d, a:b] += 1
+    assert np.all(seen == 1)
+    groups = sorted(set(zip(lo.tolist(), hi.tolist())))
+    assert groups[0][0] == 0 and groups[-1][1] == g
+    assert all(groups[k][1] == groups[k + 1][0]
+               for k in range(len(groups) - 1))
+    writers = sp.writes >= -1
+    assert np.array_equal(writers, s0 == 0)
+    if len(groups) == 1:
+        assert sp.nslots == 0 and np.all(sp.writes[writers] == -1)
+    else:
+        # the slots are the groups in tile order, one split output
+        assert np.array_equal(lo[writers][sp.writes[writers]],
+                              [a for a, _b in groups])
+        assert sp.slot_ptr.tolist() == [0, len(groups)]
+        assert np.all(sp.slot_out == 0)
+        assert np.diff(sp.node_ptr).tolist() == [
+            -(-len(groups) // pr.REDUCE_FAN)]
+    want = max(nsm * pr.GATHER_BLOCKS_PER_SM, len(groups))
+    assert len(lo) == len(groups) * min(nsteps, -(-want // len(groups)))
+
+
+def test_gather_split_rejects_no_work():
+    for g, nsteps in ((0, 4), (4, 0)):
+        with pytest.raises(ValueError):
+            pr.gather_split(g, nsteps, 132)
+
+
+@pytest.mark.parametrize("g", [4, 7, 32, 80])
+@pytest.mark.parametrize("kind", ["loop", "wide"])
+def test_gather_order_statement_matches_the_plain_sum(g, kind):
+    # the kernel's order (tiles of a group, then groups by nodes of 16; g
+    # 80 has 20 groups, so two nodes), stated in numpy f32, against
+    # window_gather_plain within f32 rounding
+    (s, r, w), (cin, srow), x, oracle = pr.p9_arrays(g, seed=g)
+    args = ((True, cin, srow, None) if kind == "wide"
+            else (False, s, r, w))
+    targs = [args[0]] + [None if a is None else torch.from_numpy(a)
+                         for a in args[1:]]
+    want = pr.window_gather_plain(*targs, torch.from_numpy(x)).numpy()
+    scale = pr.window_gather_plain(*targs,
+                                   torch.from_numpy(np.abs(x))).numpy()
+    for nsm in (3, 132):
+        got = pr.window_gather_order(*args, x, pr.gather_split(g, 2048,
+                                                               nsm))
+        assert got.dtype == np.float32 and got.shape == (8, 128)
+        assert np.all(np.abs(got - want) <= 1e-6 * scale)
+        assert np.all(np.abs(got - oracle) <= 1e-6 * scale)

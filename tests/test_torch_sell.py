@@ -824,7 +824,7 @@ def _chunked_plain(st, x, order):
     csp = st.chunk_step_ptr.numpy().astype(np.int64) * st.g
     cb = st.chunk_block.numpy()
     bcp = st.block_chunk_ptr.numpy()
-    ticket = st.ticket.numpy().copy()
+    ticket = tsell.tickets(st, ("cpu", 0)).numpy().copy()
     sums = []
     for c in range(len(cb)):
         acc = torch.zeros(1024, dtype=st.dtype)
@@ -877,8 +877,9 @@ def test_ticket_and_partials_layout(kind, request):
                             kind != "row", "df16" if kind == "slot_df"
                             else "f32", 3, seed=11)
         st = tsell.prepare_sell(pk, "cpu", kind != "row", nsm=64)
-    assert st.ticket.dtype == torch.int32 and st.ticket.shape == (
-        st.nblocks,) and not bool(st.ticket.any())
+    ticket = tsell.tickets(st, ("cpu", 0))
+    assert ticket.dtype == torch.int32 and ticket.shape == (
+        st.nblocks,) and not bool(ticket.any())
     assert np.diff(st.block_chunk_ptr.numpy()).max() > 1
     rng = np.random.default_rng(0)
     x = rng.standard_normal(st.n).astype(
