@@ -31,7 +31,9 @@ its ticket counters a CUDA stream); lines ``{"phase": "streams", ...}``.
    process per source), with ptxas' registers and spill bytes, and
    ``window_gather``'s step loop in ``cuobjdump -sass``: it must issue
    every slot's shared-memory loads each step (64 ``LDS`` an iteration in
-   the loop form, 48 in the wide form);
+   the loop form, 48 in the wide form); ``tiny`` and ``fma_err`` must
+   carry ``ACQBULK`` (what ``griddepcontrol.wait`` lowers to) before their
+   first global load, and ``PREEXIT`` (the dependents' trigger);
 3. kernels: each kernel against its plain PyTorch version on the card —
    ``sell_row`` over f32/bf16/palette values, ``sell_slot`` over
    nw ∈ {1,2,4,8} × cell_w × the three value modes, ``dia`` over f32/bf16,
@@ -107,7 +109,11 @@ its ticket counters a CUDA stream); lines ``{"phase": "streams", ...}``.
    each probe kernel against its plain version on every input its probes
    give it (f32 sums within 1e-5 of the sum of magnitudes; ``tiny`` and
    ``fma_err`` bit for bit, ``fma_err`` also equal to the exact product
-   error; ``tile_stream``, ``tile_body`` and both forms of
+   error, ``tiny``'s chains of 100 launches from C with and without
+   programmatic dependent launch bit for bit v·2^100, 20 chains each;
+   ``tiny`` and ``fma_err`` one call, device time and the host's µs a
+   call, and ``tiny``'s chains' ms a launch with the card held until the
+   host has queued them; ``tile_stream``, ``tile_body`` and both forms of
    ``window_gather`` three calls bit for bit, ``tile_stream`` and
    ``window_gather`` bit for bit the numpy statements of their orders,
    ``window_gather`` also within 1e-5 of the numpy oracle), with
@@ -623,20 +629,6 @@ def cuda_ms(fn, x, iters=ITERS, cold=False):
     return statistics.median(times)
 
 
-def host_us(fn, x, calls=1000):
-    """The host's time per call of fn(x) in µs: a host clock around
-    ``calls`` enqueues with no synchronise inside (the card runs behind)."""
-    import torch
-    fn(x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn(x)
-    t = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return t / calls * 1e6
-
-
 _flush = {}
 
 
@@ -907,6 +899,7 @@ def kernel_phase(dev, kern):
     from spmv_tpu_torch.formats import coo2 as coo2_fmt, dia as dia_fmt
     from spmv_tpu_torch.formats.sell8d import pack_sell8d
     from spmv_tpu_torch.formats.sell8w import pack_sell8w, plan_v2
+    from spmv_tpu_torch.bench import timing
     from spmv_tpu_torch.io import generate
     from spmv_tpu_torch.ops import coo2, dia, sell
     from spmv_tpu_torch.types import CsrMatrix
@@ -1034,8 +1027,8 @@ def kernel_phase(dev, kern):
                                              c64.colidx, hi)), lo=lo),
                     np.float64)):
         rec = check_stream(st, xvec(st.n, dt), timing=True)
-        rec["host_us"] = host_us(lambda v: sell.sell_spmv(st, v),
-                                 xvec(st.n, dt))
+        rec["host_us"] = timing.host_us(lambda v: sell.sell_spmv(st, v),
+                                        xvec(st.n, dt))
         keep_kernel(kern, kernel_of(st), rec, st, "clustered200k (v1 pack)")
         rows.append({"kernel": kernel_of(st), "n": st.n,
                      "tiles": st.meta.shape[0], **rec})
@@ -2654,7 +2647,7 @@ def probe_kernel_records(dev, mats):
     import dataclasses as dc
     import numpy as np
     import torch
-    from spmv_tpu_torch.bench import probes as pr
+    from spmv_tpu_torch.bench import probes as pr, timing
     from spmv_tpu_torch.ops.sell import sm_count
     a, packed, v2 = pr.probe_inputs(mats["clustered"])
     vals = torch.from_numpy(packed.vals).to(dev)
@@ -2853,25 +2846,44 @@ def probe_kernel_records(dev, mats):
                 family=f"P9 loop, g {g9}, {steps9} steps")
     recs["window_gather"]["max_abs_err"] = err
 
-    # tiny and fma_err, bit for bit
+    # tiny and fma_err, bit for bit; tiny's chains of 100 launches from C
+    # (with and without PDL) bit for bit v·2^100 over CHAIN_CHECKS chains
+    # each: a wait placed after the load would read a predecessor's output
+    # early, and with an 8 KB tile such a race may show rarely.  One call
+    # (events), device time (profiler), the host's µs a call, and each
+    # chain's ms a launch (probes.chain_ms)
     rng = np.random.default_rng(0)
     v = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32)
                          ).to(dev)
+    err = _held("tiny", pr.tiny(v), pr.tiny_plain(v), None, None,
+                exact=True)
+    n = pr.CHAIN_LAUNCHES
+    want = pr.tiny_chain_plain(v, n)
+    for pdl in (False, True):
+        for i in range(CHAIN_CHECKS):
+            err = max(err, _held(f"tiny_chain (pdl {pdl}, chain {i})",
+                                 pr.tiny_chain(v, n, pdl), want, None, None,
+                                 exact=True))
+    chain, chain_pdl = pr.chain_ms(v, False), pr.chain_ms(v, True)
     recs["tiny"] = dict(
-        max_abs_err=_held("tiny", pr.tiny(v), pr.tiny_plain(v), None, None,
-                          exact=True),
-        ms=cuda_ms(pr.tiny, v), plain_ms=cuda_ms(pr.tiny_plain, v),
+        max_abs_err=err, ms=cuda_ms(pr.tiny, v),
+        device_ms=profile_calls(pr.tiny, v)["device_ms"],
+        host_us=timing.host_us(pr.tiny, v), chain_ms=chain["ms"],
+        chain_pdl_ms=chain_pdl["ms"], chain_host_us=chain["host_us"],
+        chain_pdl_host_us=chain_pdl["host_us"], chain_checks=CHAIN_CHECKS,
+        plain_ms=cuda_ms(pr.tiny_plain, v),
         library_ms=cuda_ms(lambda t: torch.mul(t, 2.0), v),
         library_call="torch.mul(v, 2.0)", bytes=8192, family="P6 tile",
         **dict(zip(("bound_ms", "bound_by"), _bound_ms(8192, 1024))))
     a8, b8 = (torch.from_numpy(rng.standard_normal((8, 128)).astype(
         np.float32)).to(dev) for _ in range(2))
     p8 = a8 * b8
+    fma = lambda t: pr.fma_err(t, b8, p8)  # noqa: E731
     recs["fma_err"] = dict(
-        max_abs_err=_held("fma_err", pr.fma_err(a8, b8, p8),
-                          pr.fma_err_plain(a8, b8, p8), None, None,
-                          exact=True),
-        ms=cuda_ms(lambda t: pr.fma_err(t, b8, p8), a8),
+        max_abs_err=_held("fma_err", fma(a8), pr.fma_err_plain(a8, b8, p8),
+                          None, None, exact=True),
+        ms=cuda_ms(fma, a8), device_ms=profile_calls(fma, a8)["device_ms"],
+        host_us=timing.host_us(fma, a8),
         plain_ms=cuda_ms(lambda t: pr.fma_err_plain(t, b8, p8), a8),
         library_ms=None, library_call=None, bytes=16384, family="P8 tile",
         **dict(zip(("bound_ms", "bound_by"), _bound_ms(16384, 2048))))
@@ -3160,10 +3172,74 @@ def bench_phase(gpu):
             "windows_ms": w, "window_spread": max(w) / min(w) - 1}))
 
 
+#: the SASS that griddepcontrol.wait and griddepcontrol.launch_dependents
+#: lower to on sm_90a (nvcc 12.9, ``cuobjdump -sass``)
+PDL_WAIT_SASS, PDL_TRIGGER_SASS = "ACQBULK", "PREEXIT"
+#: the kernels that launch with programmatic dependent launch
+PDL_KERNELS = ("tiny_kernel", "fma_err_kernel")
+#: chains of ``probes.CHAIN_LAUNCHES`` launches held bit for bit, each way
+CHAIN_CHECKS = 20
+
 #: shared-memory loads window_gather's step loop issues an iteration: 4
 #: tiles of 4 rows a thread, each slot's ridx, wsel, cell and x words in the
 #: loop form, its srow, cell and x words in the wide form
 GATHER_LOOP_LDS = {"loop": 64, "wide": 48}
+
+
+def probe_sass(lib, nvcc):
+    """The built ``probes`` library's SASS (``cuobjdump -sass``): each
+    function's mangled name → its (address, instruction) pairs."""
+    so = lib.libs["probes"]._name
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                           "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        out[fn.split("\n", 1)[0].strip()] = [
+            (int(a, 16), t.strip()) for a, t in re.findall(
+                r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+    return out
+
+
+def sass_op(text):
+    """An instruction's opcode without its predicate and modifiers
+    (``@!P0 LDG.E.128 R8, ...`` → ``LDG``)."""
+    words = text.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0] if words else ""
+
+
+def pdl_sass(lib, nvcc):
+    """``tiny`` and ``fma_err`` in the built SASS: each must carry the
+    wait of programmatic dependent launch (:data:`PDL_WAIT_SASS`, what
+    ``griddepcontrol.wait`` lowers to) before its first global load, and
+    the trigger (:data:`PDL_TRIGGER_SASS`); logs a ``sass`` line each."""
+    sass = probe_sass(lib, nvcc)
+    for kernel in PDL_KERNELS:
+        names = [n for n in sass if kernel in n]
+        if len(names) != 1:
+            raise AssertionError(f"sass: {len(names)} functions named "
+                                 f"{kernel}")
+        ins = sass[names[0]]
+        ops = [(a, sass_op(t)) for a, t in ins]
+
+        def first(op, ops=ops):
+            return next((a for a, o in ops if o == op), None)
+        rec = {"phase": "sass", "kernel": kernel.replace("_kernel", ""),
+               "wait": PDL_WAIT_SASS, "wait_at": first(PDL_WAIT_SASS),
+               "trigger": PDL_TRIGGER_SASS,
+               "trigger_at": first(PDL_TRIGGER_SASS),
+               "first_load_at": first("LDG"), "instructions": len(ins)}
+        log(json.dumps(rec))
+        if rec["wait_at"] is None or rec["trigger_at"] is None:
+            raise AssertionError(f"sass: {kernel} has no {PDL_WAIT_SASS} "
+                                 f"or {PDL_TRIGGER_SASS}: it was not built "
+                                 "for programmatic dependent launch")
+        if rec["first_load_at"] is None or \
+                rec["first_load_at"] < rec["wait_at"]:
+            raise AssertionError(f"sass: {kernel} loads before its "
+                                 f"{PDL_WAIT_SASS} (griddepcontrol.wait)")
 
 
 def gather_sass(lib, nvcc, ptxas):
@@ -3172,18 +3248,11 @@ def gather_sass(lib, nvcc, ptxas):
     LDS), beside ptxas' registers and spills for each form; fails unless
     the loop issues every slot's shared-memory loads each step (they are
     volatile, so nvcc cannot hoist them out and fold the steps)."""
-    so = lib.libs["probes"]._name
-    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
-                           "-sass", so], capture_output=True, text=True,
-                          check=True).stdout
     rec = {"phase": "sass", "kernel": "window_gather"}
-    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = fn.split("\n", 1)[0].strip()
+    for name, ins in probe_sass(lib, nvcc).items():
         if "window_gather_kernel" not in name:
             continue
         form = "wide" if "ILb1E" in name else "loop"
-        ins = [(int(a, 16), t.strip()) for a, t in re.findall(
-            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
         best = {"lds": 0}
         for addr, text in ins:
             m = re.search(r"BRA (0x[0-9a-f]+)", text)
@@ -3209,6 +3278,11 @@ def gather_sass(lib, nvcc, ptxas):
                                  f"loads, not {want} each step")
 
 
+#: the launch figures of ``tiny`` and ``fma_err`` the kernels line adds
+LAUNCH_FIELDS = ("host_us", "chain_ms", "chain_pdl_ms", "chain_host_us",
+                 "chain_pdl_host_us", "chain_checks")
+
+
 def kernels_line(launches, kern):
     """The ``kernels`` line's entries, one a kernel."""
     kernels = []
@@ -3231,7 +3305,8 @@ def kernels_line(launches, kern):
                         "bytes": k["bytes"],
                         "stream_bound_ms": k.get("stream_bound_ms"),
                         "stream_bytes": k.get("stream_bytes"),
-                        "family": k["family"]})
+                        "family": k["family"],
+                        **{f: k[f] for f in LAUNCH_FIELDS if f in k}})
         if name in ALSO_REPLACES:
             kernels[-1]["also_replaces"] = list(ALSO_REPLACES[name])
     return kernels
@@ -3288,6 +3363,7 @@ def main() -> int:
                     "registers_max": max(regs, default=0),
                     "spill_bytes": sum(spills)}))
     gather_sass(lib, nvcc, ptxas)
+    pdl_sass(lib, nvcc)
 
     # the process's first profile window (the profiler starts CUPTI on
     # first use): what it saw, beside the first family's windows

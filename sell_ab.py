@@ -4,6 +4,7 @@ of another checkout of the port beside this one's, in one process on one
 NVIDIA card, on each kernel's largest stream.
 
     python3 sell_ab.py OTHER_ROOT [--rounds R] [--kernels K,...]
+    python3 sell_ab.py OTHER_ROOT --kernels tiny,fma_err
     python3 sell_ab.py OTHER_ROOT --routes
     python3 sell_ab.py OTHER_ROOT --streams
 
@@ -41,6 +42,11 @@ full body at G 8, on a random x and carry; ``window_gather`` on P9's
 loop and wide forms (g 32, 2048 steps, ``probes.p9_arrays``), each beside
 the bound of its adds.  Each tree's own wrapper (``bench.probes``) runs
 them; this tree's must give the same y bit for bit on three calls.
+``tiny`` (P6) and ``fma_err`` (P8), which the launch binds, run on their
+(8, 128) tiles, held bit for bit to their plain versions, and are also
+timed as an eager chain of 100 dependent calls; then ``tiny``'s chains
+from C without and with programmatic dependent launch, which only this
+tree has (``tiny_chains``).
 
 Per stream: both trees' y against the plain version (f32 1e-5, f64 1e-12
 of (|A||x|)_i; COO2 pass 1 bit for bit; the probe kernels 1e-5 of the sum
@@ -246,7 +252,8 @@ def nchunks(st):
 def probe_jobs(dev, other_pr, kernels=None):
     """(kernel, label, {side: fn of the carry}, tiles, (bytes, operations),
     check, carry) of the probe kernels' streams; ``check(y)`` is (scaled
-    error, within 1e-5) against the plain version."""
+    error, within 1e-5) against the plain version, or for ``tiny`` and
+    ``fma_err`` (positions differing in bits, none)."""
     import dataclasses
     import numpy as np
     import torch
@@ -263,6 +270,21 @@ def probe_jobs(dev, other_pr, kernels=None):
             return rel, ok
         return check
 
+    def exact(ref):
+        return lambda y: (int(cs.bit_diff(y, ref)), torch.equal(y, ref))
+
+    rng = np.random.default_rng(0)
+    v, a8, b8 = (torch.from_numpy(rng.standard_normal((8, 128)).astype(
+        np.float32)).to(dev) for _ in range(3))
+    p8 = a8 * b8
+    if kernels is None or "tiny" in kernels:
+        yield ("tiny", "P6 tile", {"other": other_pr.tiny, "this": pr.tiny},
+               1, (8192, 1024), exact(pr.tiny_plain(v)), v)
+    if kernels is None or "fma_err" in kernels:
+        yield ("fma_err", "P8 tile",
+               {"other": lambda t: other_pr.fma_err(t, b8, p8),
+                "this": lambda t: pr.fma_err(t, b8, p8)},
+               1, (16384, 2048), exact(pr.fma_err_plain(a8, b8, p8)), a8)
     if kernels is None or "window_gather" in kernels:
         g, nsteps = 32, 2048
         loop, wide, x, _oracle = pr.p9_arrays(g)
@@ -329,11 +351,17 @@ def probe_jobs(dev, other_pr, kernels=None):
                    c0)
 
 
+#: the probe kernels the launch binds: ``probe_ab`` also times them as an
+#: eager chain of dependent calls
+LAUNCH_BOUND = ("tiny", "fma_err")
+
+
 def probe_ab(dev, other_pr, rounds, kernels=None):
     """Each probe stream: both trees against the plain version, this
     tree's three calls bit for bit, then ``rounds`` turns (other, this,
     this, other), ``torch.sum`` measured once after them; one JSON line a
-    stream with ns a tile and the bound's share of the device times."""
+    stream with ns a tile and the bound's share of the device times, and
+    for :data:`LAUNCH_BOUND` the eager chain's ms a call."""
     import chip_smoke as cs
     for kernel, label, fns, nt, (nbytes, ops), check, c in probe_jobs(
             dev, other_pr, kernels):
@@ -345,10 +373,11 @@ def probe_ab(dev, other_pr, rounds, kernels=None):
                 raise AssertionError(f"{kernel} {label} ({side}): scaled "
                                      f"error {rel:.3g}")
         cs.repeats_its_y(f"{kernel} {label}", fns["this"], c)
+        chain = kernel in LAUNCH_BOUND
         runs = {"other": [], "this": []}
         for _ in range(rounds):
             for side in ("other", "this", "this", "other"):
-                runs[side].append(measure(fns[side], c))
+                runs[side].append(measure(fns[side], c, chain))
         if "torch_sum" in fns:
             runs["torch_sum"] = [measure(fns["torch_sum"], c)]
         bound, by = cs._bound_ms(nbytes, ops)
@@ -357,10 +386,12 @@ def probe_ab(dev, other_pr, rounds, kernels=None):
                "bound_by": by, "scaled_err": errs}
         for side, rs in runs.items():
             med = {k: statistics.median(r[k] for r in rs)
-                   for k in ("device_ms", "cold_device_ms", "ms", "host_us")
-                   if all(isinstance(r[k], float) for r in rs)}
-            med["device_ms_turns"] = [r["device_ms"] for r in rs]
-            med["cold_device_ms_turns"] = [r["cold_device_ms"] for r in rs]
+                   for k in ("device_ms", "cold_device_ms", "ms", "host_us",
+                             "eager_chain_ms")
+                   if all(isinstance(r.get(k), float) for r in rs)}
+            for k in ("device_ms", "cold_device_ms", "ms", "eager_chain_ms"):
+                if k in rs[0]:
+                    med[f"{k}_turns"] = [r[k] for r in rs]
             for k in ("device_ms", "cold_device_ms"):
                 if k in med:
                     med[f"ns_tile_{k}"] = med[k] * 1e6 / nt
@@ -372,7 +403,43 @@ def probe_ab(dev, other_pr, rounds, kernels=None):
             rec["this_over_other_cold"] = (
                 rec["this"].get("cold_device_ms", float("nan"))
                 / rec["other"].get("cold_device_ms", float("nan")))
+        for k in ("ms", "eager_chain_ms"):
+            if k in rec["this"] and k in rec["other"]:
+                rec[f"this_over_other_{k}"] = (rec["this"][k]
+                                               / rec["other"][k])
         cs.log(json.dumps(rec))
+
+
+def tiny_chains(dev, rounds, kernels=None):
+    """``tiny``'s chains from C (``probes.tiny_chain``, which the other
+    tree does not have): ``2 · rounds`` turns, each holding one chain of
+    ``probes.CHAIN_LAUNCHES`` launches without and then with programmatic
+    dependent launch bit for bit to v·2^100 and timing it
+    (``probes.chain_ms``); one JSON line, the medians and the turns."""
+    if kernels is not None and "tiny" not in kernels:
+        return
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from spmv_tpu_torch.bench import probes as pr
+    v = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, 128)).astype(np.float32)).to(dev)
+    want = pr.tiny_chain_plain(v, pr.CHAIN_LAUNCHES)
+    turns = {"chain": [], "chain_pdl": []}
+    for _ in range(2 * rounds):
+        for pdl, key in ((False, "chain"), (True, "chain_pdl")):
+            if not torch.equal(pr.tiny_chain(v, pr.CHAIN_LAUNCHES, pdl),
+                               want):
+                raise AssertionError(f"tiny_chain (pdl {pdl}): not "
+                                     "v·2^100 bit for bit")
+            turns[key].append(pr.chain_ms(v, pdl))
+    rec = {"kernel": "tiny", "stream": "chains from C",
+           "launches": pr.CHAIN_LAUNCHES}
+    for key, cs_ in turns.items():
+        for k in ("ms", "host_us"):
+            rec[f"{key}_{k}"] = statistics.median(c[k] for c in cs_)
+            rec[f"{key}_{k}_turns"] = [c[k] for c in cs_]
+    cs.log(json.dumps(rec))
 
 
 def route_ab(dev, other_prices):
@@ -511,15 +578,24 @@ def stream_ab(dev, other, this, rounds):
     return failed
 
 
-def measure(fn, x):
+def measure(fn, x, chain=False):
+    """Device time warm and cold (``chip_smoke.profile_calls``), one call
+    (CUDA events), the host's µs a call, and with ``chain`` the ms a call
+    of an eager chain of 100 dependent calls, best of 3 (the probe's
+    ``tiny_pallas_ms`` method)."""
     import chip_smoke as cs
+    from spmv_tpu_torch.bench import timing
     warm = cs.profile_calls(fn, x)
     cold = cs.profile_calls(fn, x, cold=True)
-    return {"device_ms": warm["device_ms"],
-            "device_ms_spread": warm.get("device_ms_spread"),
-            "cold_device_ms": cold["device_ms"],
-            "cold_device_ms_spread": cold.get("device_ms_spread"),
-            "ms": cs.cuda_ms(fn, x), "host_us": cs.host_us(fn, x)}
+    rec = {"device_ms": warm["device_ms"],
+           "device_ms_spread": warm.get("device_ms_spread"),
+           "cold_device_ms": cold["device_ms"],
+           "cold_device_ms_spread": cold.get("device_ms_spread"),
+           "ms": cs.cuda_ms(fn, x), "host_us": timing.host_us(fn, x)}
+    if chain:
+        rec["eager_chain_ms"] = min(timing.time_op_samples(
+            fn, x, iters=100, repeats=3)) * 1e3
+    return rec
 
 
 def main() -> int:
@@ -634,8 +710,9 @@ def main() -> int:
         del sides, st, x, ref, absref
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-    probe_ab(dev, importlib.import_module(OTHER + ".bench.probes"),
-             args.rounds, kernels)
+    other_pr = importlib.import_module(OTHER + ".bench.probes")
+    probe_ab(dev, other_pr, args.rounds, kernels)
+    tiny_chains(dev, args.rounds, kernels)
     cs.log(cs._cmd_line(["nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"]))
     return 0

@@ -8,6 +8,7 @@ sound.  Run from the repository root:
     python3 sell_probe.py stress      # partial-sum scratch poisoned with NaN
     python3 sell_probe.py probes      # the calibration's probe kernels
     python3 sell_probe.py streams     # two CUDA streams, fence left out
+    python3 sell_probe.py launch      # tiny and fma_err, PDL left out
 
 Streams are those of ``sell_ab.py`` (each SELL kernel's largest stream in
 ``chip_smoke.py``), packed once on the host.  Each prints one JSON line a
@@ -48,9 +49,23 @@ profile windows.
   the bulk copies (``nofence``: ``csrc/tma.cuh`` ``fence_stage_reads``),
   each y held bit for bit to the shipped kernel's y of its x on one
   stream; the rounds and calls that gave another y, a stream a line.
+* ``launch``: ``tiny`` (P6) and ``fma_err`` (P8) from copies of
+  ``probes.cu`` that take apart what their redesign changed at once:
+  ``noattr`` (launched without the programmatic-serialization attribute,
+  the ``griddepcontrol`` instructions kept), ``nogdc`` (neither the
+  attribute nor the instructions), ``ldg`` (PDL kept, inputs read through
+  the read-only path, ``__ldg``, as before the redesign; timed only, since
+  a PDL grid may be alive while its predecessor writes) and ``parent``
+  (``nogdc`` and ``ldg``: the kernels as before the redesign, launched
+  through ``cudaLaunchKernelEx``).  ``ROUNDS`` rounds of turns (the
+  shipped kernels, each copy, the shipped kernels), each variant's device
+  time (``chip_smoke.profile_calls``) and one call (CUDA events); one
+  JSON line a kernel with every variant's median and its ratio to the
+  shipped kernels'.
 
-Exits non-zero without a card, or when ``stress`` finds a launch wrong or
-``streams`` a wrong y of the shipped kernel.
+Exits non-zero without a card, or when ``stress`` finds a launch wrong,
+``streams`` a wrong y of the shipped kernel or ``launch`` a shipped
+kernel not bit for bit its plain version.
 """
 
 import argparse
@@ -99,6 +114,18 @@ FENCE_VARIANTS = {
                  "        if ((l & 31) == 0) mbar_arrive(&empty[s]);")]}
 #: rounds of the streams probe, a stream and kernel
 FENCE_ROUNDS = 500
+_NO_ATTR = ("Allowed = pdl ? 1 : 0;", "Allowed = 0;")
+_NO_GDC = [('"griddepcontrol.launch_dependents;"', '""'),
+           ('"griddepcontrol.wait;"', '""'), _NO_ATTR]
+_LDG = [("const float4 a = __ldcg(v + threadIdx.x);",
+         "const float4 a = __ldg(v + threadIdx.x);"),
+        ("__fmaf_rn(__ldcg(a + i), __ldcg(b + i), -__ldcg(p + i))",
+         "__fmaf_rn(__ldg(a + i), __ldg(b + i), -__ldg(p + i))")]
+LAUNCH_VARIANTS = {"noattr": [_NO_ATTR], "nogdc": _NO_GDC, "ldg": _LDG,
+                   "parent": _NO_GDC + _LDG}
+LAUNCH_ENTRIES = ("spmv_probe_tiny", "spmv_probe_fma_err")
+#: rounds of turns of the launch probe
+LAUNCH_ROUNDS = 5
 
 
 def build_variants(source="sell.cu", variants=VARIANTS,
@@ -254,10 +281,57 @@ def stream_fence(dev):
     return failed
 
 
+def launch_kernels(dev):
+    """The ``launch`` subcommand: one JSON line a kernel; returns the
+    shipped kernels' calls that were not their plain version bit for
+    bit."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from spmv_tpu_torch import _build
+    from spmv_tpu_torch.bench import probes as pr
+    rng = np.random.default_rng(0)
+    v, a8, b8 = (torch.from_numpy(rng.standard_normal((8, 128)).astype(
+        np.float32)).to(dev) for _ in range(3))
+    p8 = a8 * b8
+    runs = {"tiny": (pr.tiny, pr.tiny_plain(v), v),
+            "fma_err": (lambda t: pr.fma_err(t, b8, p8),
+                        pr.fma_err_plain(a8, b8, p8), a8)}
+    base, fns = build_variants("probes.cu", LAUNCH_VARIANTS, LAUNCH_ENTRIES)
+    got = {kernel: {} for kernel in runs}
+    failed = 0
+    for _ in range(LAUNCH_ROUNDS):
+        for name in ("base", *LAUNCH_VARIANTS, "base"):
+            _build._kernels = SimpleNamespace(**{**vars(base), **fns[name]})
+            for kernel, (fn, want, x) in runs.items():
+                r = got[kernel].setdefault(name, {"wrong": 0, "device_ms": [],
+                                                  "ms": []})
+                wrong = not torch.equal(fn(x), want)
+                r["wrong"] += wrong
+                failed += wrong and name == "base"
+                r["device_ms"].append(cs.profile_calls(fn, x)["device_ms"])
+                r["ms"].append(cs.cuda_ms(fn, x))
+    _build._kernels = base
+    for kernel, by_name in got.items():
+        rec = {"probe": "launch", "kernel": kernel, "rounds": LAUNCH_ROUNDS}
+        for name, r in by_name.items():
+            rec[name] = {"wrong": r["wrong"],
+                         "device_ms": statistics.median(r["device_ms"]),
+                         "ms": statistics.median(r["ms"]),
+                         "device_ms_turns": r["device_ms"],
+                         "ms_turns": r["ms"]}
+        for name in LAUNCH_VARIANTS:
+            for k in ("device_ms", "ms"):
+                rec[name][f"over_base_{k}"] = (rec[name][k]
+                                               / rec["base"][k])
+        cs.log(json.dumps(rec))
+    return failed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("probe", choices=("chunks", "variants", "stress",
-                                      "probes", "streams"))
+                                      "probes", "streams", "launch"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -271,10 +345,12 @@ def main() -> int:
     from spmv_tpu_torch import _build
     from spmv_tpu_torch.ops import sell
     dev = torch.device("cuda", 0)
-    if args.probe in ("probes", "streams"):
+    if args.probe in ("probes", "streams", "launch"):
         failed = 0
         if args.probe == "probes":
             probe_kernels(dev)
+        elif args.probe == "launch":
+            failed = launch_kernels(dev)
         else:
             failed = stream_fence(dev)
         cs.log(cs._cmd_line(["nvidia-smi", "--query-gpu=name,power.limit",

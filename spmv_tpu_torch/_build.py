@@ -119,6 +119,8 @@ def load_kernels() -> SimpleNamespace:
                 "spmv_probe_window_gather": ("probes", ctypes.c_int,
                                              [p] * 12 + [i64] * 4 + [p]),
                 "spmv_probe_tiny": ("probes", ctypes.c_int, [p] * 3),
+                "spmv_probe_tiny_chain": ("probes", ctypes.c_int,
+                                          [p] * 3 + [i64] * 2 + [p]),
                 "spmv_probe_fma_err": ("probes", ctypes.c_int,
                                        [p] * 4 + [i64, p]),
                 "spmv_cuda_error_string": ("errors", ctypes.c_char_p,

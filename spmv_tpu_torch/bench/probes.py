@@ -20,11 +20,16 @@ to the wrapper's count):
   ``kern_wide``): an 8-window take0 + take1 + select loop against one wide
   gather over an (8, 1024) bundle;
 * :func:`tiny` — P6 (``probe5_floor.py:tiny_pallas``): one (8, 128) tile
-  times 2;
+  times 2; :func:`tiny_chain` launches it ``n`` times from one C call, the
+  counterpart of the TPU probe's compiled loop;
 * :func:`fma_err` — P8 (``probe_r4_compute.py:probe_fma``): ``a·b − p``
   with ``p = fl(a·b)``.  On sm_90 the kernel is one IEEE fused
   multiply-add (``__fmaf_rn``), so the error comes out exact; the probe
   asserts it does.
+
+``tiny`` and ``fma_err`` launch with programmatic dependent launch (sm_90):
+a launch may start while the kernel before it runs and waits for it before
+its first read.
 
 The probe functions (``probe_*``) build their input as the JAX probe does
 and return its figures under the JAX probe's JSON field names (``variant``,
@@ -59,13 +64,14 @@ from . import timing
 
 __all__ = ["tile_stream", "tile_stream_plain", "tile_body", "tile_body_plain",
            "window_gather", "window_gather_plain", "tiny", "tiny_plain",
-           "fma_err", "fma_err_plain", "Split", "stream_split",
-           "body_split", "gather_split", "tile_stream_order",
-           "window_gather_order", "STREAM_INPUTS",
-           "body_inputs", "flush_l2", "probe_inputs", "probe_stream",
-           "probe_g8", "probe_huge", "probe_v2proto", "probe_body",
-           "probe_tiny", "probe_step", "probe_fma", "probe_wide_gather",
-           "p9_arrays", "run_probes", "calibrate", "KERNEL_COUNTS"]
+           "tiny_chain", "tiny_chain_plain", "chain_ms", "fma_err",
+           "fma_err_plain", "Split", "stream_split", "body_split",
+           "gather_split", "tile_stream_order", "window_gather_order",
+           "STREAM_INPUTS", "body_inputs", "flush_l2", "probe_inputs",
+           "probe_stream", "probe_g8", "probe_huge", "probe_v2proto",
+           "probe_body", "probe_tiny", "probe_step", "probe_fma",
+           "probe_wide_gather", "p9_arrays", "run_probes", "calibrate",
+           "KERNEL_COUNTS"]
 
 #: launches of each probe kernel; reset by callers that count
 tile_stream_launches = 0
@@ -86,9 +92,9 @@ BODY_GATHERS = {"full": 0, "no_dim1": 1, "none": 2}
 P9_NW = 8
 
 
-def _count(name: str) -> None:
+def _count(name: str, launches: int = 1) -> None:
     attr = KERNEL_COUNTS[name]
-    globals()[attr] += 1
+    globals()[attr] += launches
 
 
 def _on_card(name: str, *ts: torch.Tensor) -> bool:
@@ -657,12 +663,18 @@ def tiny_plain(v: torch.Tensor) -> torch.Tensor:
     return v * 2.0
 
 
-def tiny(v: torch.Tensor) -> torch.Tensor:
-    """P6: one (8, 128) f32 tile times 2, one launch."""
-    if not _on_card("tiny", v):
-        return tiny_plain(v)
+def _tiny_input(v: torch.Tensor) -> torch.Tensor:
     if v.dtype != torch.float32 or v.numel() != WINDOW:
         raise ValueError("tiny: one f32 (8, 128) tile")
+    return _aligned(v)
+
+
+def tiny(v: torch.Tensor) -> torch.Tensor:
+    """P6: one (8, 128) f32 tile times 2, one launch with programmatic
+    dependent launch (``csrc/probes.cu`` ``pdl_launch``)."""
+    if not _on_card("tiny", v):
+        return tiny_plain(v)
+    v = _tiny_input(v)
     out = torch.empty_like(v)
     lib = _build.load_kernels()
     err = lib.spmv_probe_tiny(v.data_ptr(), out.data_ptr(),
@@ -672,6 +684,34 @@ def tiny(v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def tiny_chain_plain(v: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` applications of :func:`tiny_plain`: v·2ⁿ, exact in f32 while
+    no value overflows (n ≤ 100 for normal inputs of magnitude < 2²⁷)."""
+    for _ in range(n):
+        v = tiny_plain(v)
+    return v
+
+
+def tiny_chain(v: torch.Tensor, n: int, pdl: bool = True) -> torch.Tensor:
+    """P6 as the TPU probe times it, a loop of dependent launches with no
+    host work between them: ``n`` launches of ``tiny`` from one C call
+    (``spmv_probe_tiny_chain``), v → a, then a ↔ b, with programmatic
+    dependent launch when ``pdl``.  Counts ``n`` launches of ``tiny``."""
+    if not _on_card("tiny_chain", v):
+        return tiny_chain_plain(v, n)
+    v = _tiny_input(v)
+    if n < 1:
+        raise ValueError("tiny_chain: at least one launch")
+    a, b = torch.empty_like(v), torch.empty_like(v)
+    lib = _build.load_kernels()
+    err = lib.spmv_probe_tiny_chain(v.data_ptr(), a.data_ptr(),
+                                    b.data_ptr(), n, int(pdl),
+                                    _stream(v.device))
+    _build.check(lib, err, "tiny_chain")
+    _count("tiny", n)
+    return a if n % 2 else b
+
+
 def fma_err_plain(a, b, p) -> torch.Tensor:
     """a·b − p in f64, rounded to f32: exact when p = fl(a·b) (the error
     of an f32 product is an f32)."""
@@ -679,7 +719,8 @@ def fma_err_plain(a, b, p) -> torch.Tensor:
 
 
 def fma_err(a, b, p) -> torch.Tensor:
-    """P8: a·b − p a slot by one fused multiply-add (``__fmaf_rn``)."""
+    """P8: a·b − p a slot by one fused multiply-add (``__fmaf_rn``), one
+    launch with programmatic dependent launch."""
     if not _on_card("fma_err", a, b, p):
         return fma_err_plain(a, b, p)
     if any(t.dtype != torch.float32 or t.shape != a.shape
@@ -960,12 +1001,65 @@ def probe_body(v2, device) -> List[dict]:
     return recs
 
 
+#: launches of one :func:`tiny_chain` call that :func:`chain_ms` times
+CHAIN_LAUNCHES = 100
+#: GPU clock cycles the card spins (``torch.cuda._sleep``) before each
+#: timed chain, about 2.5 ms at the H100's 1.98 GHz: the host enqueues
+#: the whole chain meanwhile (100 launches take it about 0.5 ms on the
+#: H100's host, 3.9-5.1 µs a launch), so the events see the card's floor,
+#: not the host's launch rate
+CHAIN_HOLD_CYCLES = 5_000_000
+
+
+def chain_ms(v: torch.Tensor, pdl: bool) -> dict:
+    """ms a launch of one :func:`tiny_chain` call of
+    :data:`CHAIN_LAUNCHES` launches: the best of 3 × 10 samples, each two
+    CUDA events around one call with the card held first
+    (:data:`CHAIN_HOLD_CYCLES`), over the launches; ``host_us``: the
+    host's µs a launch inside the same calls (the C loop's
+    ``cudaLaunchKernelEx``).  On the CPU the host clock around the plain
+    loop, nothing held."""
+    dev, n = v.device, CHAIN_LAUNCHES
+    tiny_chain(v, n, pdl)
+    timing.synchronize(dev)
+    ms, host = [], []
+    for _ in range(30):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(CHAIN_HOLD_CYCLES)
+            start.record()
+            t0 = time.perf_counter()
+            tiny_chain(v, n, pdl)
+            host.append(time.perf_counter() - t0)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end) / n)
+        else:
+            t0 = time.perf_counter()
+            tiny_chain(v, n, pdl)
+            host.append(time.perf_counter() - t0)
+            ms.append(host[-1] * 1e3 / n)
+    return {"ms": min(ms), "host_us": min(host) * 1e6 / n}
+
+
 def probe_tiny(device, iters: int = 100) -> dict:
-    """P6 (``tiny_pallas``): ms a launch over a chain of ``iters``
-    dependent launches."""
-    ms, all_ms = _times(tiny, torch.ones(SUB, LANES, dtype=torch.float32,
-                                         device=device), iters=iters)
-    return {"tiny_pallas_ms": ms, "all_ms": all_ms}
+    """P6 (``tiny_pallas``): ms a launch over an eager chain of ``iters``
+    dependent :func:`tiny` calls (``tiny_pallas_ms``, which
+    :func:`calibrate` reads as ``launch_ns``: a stripe pays an eager call),
+    beside the card's floor, one :func:`tiny_chain` call of
+    :data:`CHAIN_LAUNCHES` launches from C without and with programmatic
+    dependent launch (``tiny_chain_ms``, ``tiny_chain_pdl_ms``, and the
+    host's µs a launch in them), and the host's µs of one eager call
+    (``tiny_host_us``).  On the CPU every figure is the plain version's."""
+    v = torch.ones(SUB, LANES, dtype=torch.float32, device=device)
+    ms, all_ms = _times(tiny, v, iters=iters)
+    plain, pdl = chain_ms(v, False), chain_ms(v, True)
+    return {"tiny_pallas_ms": ms, "all_ms": all_ms,
+            "tiny_chain_ms": plain["ms"], "tiny_chain_pdl_ms": pdl["ms"],
+            "tiny_chain_host_us": plain["host_us"],
+            "tiny_chain_pdl_host_us": pdl["host_us"],
+            "tiny_host_us": timing.host_us(tiny, v)}
 
 
 def probe_fma(device) -> dict:
@@ -1181,7 +1275,8 @@ def calibrate(mats: dict, device, probes: Optional[dict] = None) -> dict:
     """The named figures :func:`derive_prices` reads, on ``device``:
 
     * from the probes (``probes``, :func:`run_probes`' records): the launch
-      (P6); the stream ceiling, the best of P1/P3 with the L2 cold
+      (P6's eager chain, ``tiny_pallas_ms``; see :func:`derive_prices`);
+      the stream ceiling, the best of P1/P3 with the L2 cold
       (``stream_gbs``), and beside it the best chained, warm figure
       (``stream_gbs_warm``, not read by the table); and beside the table
       P4's bf16 tile over its palette tile (``vals_ns_p4``, a

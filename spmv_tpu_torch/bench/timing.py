@@ -22,8 +22,8 @@ from typing import Callable
 import torch
 
 __all__ = ["time_op", "time_op_samples", "time_spmv",
-           "time_spmv_samples", "time_spmv_chain", "is_cuda_error",
-           "empty_cache_after_oom", "synchronize"]
+           "time_spmv_samples", "time_spmv_chain", "host_us",
+           "is_cuda_error", "empty_cache_after_oom", "synchronize"]
 
 #: the exponent bits of an IEEE float, by its integer view's type
 _EXP_MASK = {torch.float32: (torch.int32, 0x7F800000),
@@ -54,6 +54,20 @@ def synchronize(device: torch.device) -> None:
     """Wait for the card's work on ``device``; nothing on the CPU."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def host_us(fn: Callable, x: torch.Tensor, calls: int = 1000) -> float:
+    """The host's µs per call of ``fn(x)``: a host clock around ``calls``
+    calls with no synchronise inside, after one warm call; on the card the
+    device runs behind, so this is the enqueue, not the work."""
+    fn(x)
+    synchronize(x.device)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(x)
+    t = time.perf_counter() - t0
+    synchronize(x.device)
+    return t / calls * 1e6
 
 
 def time_op_samples(step: Callable, x0: torch.Tensor, iters: int = 10,

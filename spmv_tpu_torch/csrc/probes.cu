@@ -59,12 +59,22 @@
 // window_gather's bound is its adds (its inputs are 416 KB), and what
 // binds it is its shared-memory loads: it stages x and its tiles' indices
 // once a block and gathers from shared memory every step (see below);
-// tiny and fma_err read one 4 KB tile: launch latency binds those.
+// tiny and fma_err read one 4 KB tile (8 and 16 KB moved), so no body gets
+// near their bounds: the launch binds them, and their design is the
+// launch.  Both launch with programmatic dependent launch (PDL, sm_90;
+// pdl_launch below): each issues griddepcontrol.launch_dependents as it
+// starts, so the next kernel on the stream may be scheduled while it
+// runs, and griddepcontrol.wait before its first read, which returns once
+// the kernels before it have completed and their writes are visible.  The
+// TPU probe times a launch inside one compiled loop; the port's
+// counterpart is spmv_probe_tiny_chain, n dependent launches from C with
+// no Python between them.
 //
 // fma_err computes a*b - p with __fmaf_rn: sm_90 has an IEEE fused
 // multiply-add, so the product's error is exact in one instruction where
 // the TPU probe asked whether its compiler fused it.
 #include <atomic>
+#include <utility>
 
 #include "common.cuh"
 #include "tma.cuh"
@@ -685,20 +695,68 @@ int gather_launch(const void* a0, const void* a1, const void* a2,
   return int(cudaGetLastError());
 }
 
-// P6: one (8, 128) f32 tile times 2.
-__global__ void tiny_kernel(const float4* __restrict__ v,
-                            float4* __restrict__ out) {
-  const float4 a = __ldg(v + threadIdx.x);
+// Programmatic dependent launch (PTX ISA 7.8, sm_90).  The trigger lets
+// the next kernel on the stream be scheduled before this one ends; the
+// wait returns once every kernel before this one has completed and its
+// writes are visible.  A kernel must not touch memory that a predecessor
+// writes before its wait, and reads after it with ld.global.cg, not the
+// read-only path: with PDL the grid is alive while its predecessor writes
+// its input, which the read-only (nc) path does not allow.  The trigger may
+// come first: a successor waits on this grid's completion all the same.
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// P6: one (8, 128) f32 tile times 2, 256 threads, a float4 each.
+__global__ void tiny_kernel(const float4* v, float4* out) {
+  pdl_trigger();
+  pdl_wait();
+  const float4 a = __ldcg(v + threadIdx.x);
   out[threadIdx.x] = make_float4(2.f * a.x, 2.f * a.y, 2.f * a.z, 2.f * a.w);
 }
 
 // P8: e = a * b - p, fused: exactly the rounding error of p = fl(a * b).
-__global__ void fma_err_kernel(const float* __restrict__ a,
-                               const float* __restrict__ b,
-                               const float* __restrict__ p,
-                               float* __restrict__ e, int64_t n) {
+__global__ void fma_err_kernel(const float* a, const float* b,
+                               const float* p, float* e, int64_t n) {
+  pdl_trigger();
+  pdl_wait();
   const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n) e[i] = __fmaf_rn(__ldg(a + i), __ldg(b + i), -__ldg(p + i));
+  if (i < n) e[i] = __fmaf_rn(__ldcg(a + i), __ldcg(b + i), -__ldcg(p + i));
+}
+
+// One launch of `kernel` on `stream` through cudaLaunchKernelEx with
+// cudaLaunchAttributeProgrammaticStreamSerialization = pdl.  A refused
+// launch returns its error (cleared from cudaGetLastError, so no later
+// entry reports it); nothing falls back to a plain launch.
+//
+// With pdl the kernel may start while the kernel before it on the stream
+// runs, and waits for it (griddepcontrol.wait) before it reads.  The
+// other kernels of the port (the SELL, DIA and COO2 kernels, tile_stream,
+// tile_body, window_gather) launch without the attribute, so each starts
+// only after a tiny or fma_err before it has completed: they never overlap
+// one, and a tiny after one of them waits for it before its first read.
+template <typename... Params, typename... Args>
+int pdl_launch(void (*kernel)(Params...), unsigned blocks, unsigned threads,
+               cudaStream_t stream, bool pdl, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = pdl ? 1 : 0;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return int(err);
+  }
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -804,23 +862,44 @@ extern "C" int spmv_probe_window_gather(
                 static_cast<cudaStream_t>(stream));
 }
 
-// v, out: (1024,) f32.
+// v, out: (1024,) f32, 16-B aligned.  One launch with PDL.
 extern "C" int spmv_probe_tiny(const void* v, void* out, void* stream) {
-  spmv::tiny_kernel<<<1, spmv::kStreamThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(v), static_cast<float4*>(out));
-  return int(cudaGetLastError());
+  return spmv::pdl_launch(spmv::tiny_kernel, 1, spmv::kStreamThreads,
+                          static_cast<cudaStream_t>(stream), true,
+                          static_cast<const float4*>(v),
+                          static_cast<float4*>(out));
 }
 
-// a, b, p, e: (n,) f32.
+// n dependent tiny launches back to back, with PDL when pdl != 0, and no
+// host work between them but the launch calls: v -> a, then a -> b, b ->
+// a, ...  The result is in a for odd n, in b for even n.  v, a, b: (1024,)
+// f32, 16-B aligned, a and b apart from v and each other.  Stops at the
+// first refused launch and returns its error.
+extern "C" int spmv_probe_tiny_chain(const void* v, void* a, void* b,
+                                     int64_t n, int64_t pdl, void* stream) {
+  const float4* src = static_cast<const float4*>(v);
+  float4* dst = static_cast<float4*>(a);
+  float4* next = static_cast<float4*>(b);
+  for (int64_t i = 0; i < n; ++i) {
+    const int err = spmv::pdl_launch(
+        spmv::tiny_kernel, 1, spmv::kStreamThreads,
+        static_cast<cudaStream_t>(stream), pdl != 0, src, dst);
+    if (err) return err;
+    src = dst;
+    std::swap(dst, next);
+  }
+  return 0;
+}
+
+// a, b, p, e: (n,) f32.  One launch with PDL, 256 threads a block.
 extern "C" int spmv_probe_fma_err(const void* a, const void* b,
                                   const void* p, void* e, int64_t n,
                                   void* stream) {
   if (n <= 0) return 0;
-  const int64_t blocks = (n + 255) / 256;
-  spmv::fma_err_kernel<<<unsigned(blocks), 256, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(p), static_cast<float*>(e), n);
-  return int(cudaGetLastError());
+  return spmv::pdl_launch(spmv::fma_err_kernel, unsigned((n + 255) / 256),
+                          256, static_cast<cudaStream_t>(stream), true,
+                          static_cast<const float*>(a),
+                          static_cast<const float*>(b),
+                          static_cast<const float*>(p),
+                          static_cast<float*>(e), n);
 }

@@ -146,7 +146,19 @@ def derive_prices(m: Mapping) -> Prices:
     """The price table from named figures, as ``chip_smoke.py``'s
     ``prices`` phase measures them (``bench/probes.py``):
 
-    * ``launch_ns``: one launch in a chain of dependent launches (P6);
+    * ``launch_ns``: one launch in a chain of dependent launches (P6),
+      read from the eager chain of ``probes.tiny`` calls
+      (``tiny_pallas_ms``): each stripe of a striped plan is one eager
+      ``sell_spmv`` call (``sell8d.stripe_overhead_ns``), which pays the
+      Python wrapper and its ctypes launch, so the eager figure is what a
+      stripe costs today.  ``tiny`` itself launches with programmatic
+      dependent launch (PDL) and a SELL kernel without it; the host binds
+      the eager chain either way, so the two pay the same Python call.
+      Once a bound closure no longer pays a Python call a launch (ROADMAP
+      item 10), ``launch_ns`` moves to the card's floor without PDL,
+      ``tiny_chain_ms``, the launch a SELL kernel makes; to
+      ``tiny_chain_pdl_ms`` only if the SELL kernels gain the wait and
+      launch with the attribute;
     * ``stream_gbs``: the tile-stream ceiling, GB/s (P1/P3);
     * ``step_solve``: ``{"g8": {"ms", "steps", "tiles"}, "g16": {...}}``,
       one light matrix through the slot kernel at g = 8 and 16;

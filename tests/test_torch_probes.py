@@ -21,10 +21,12 @@ import dataclasses
 import importlib.util
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from spmv_tpu.formats.sell8w import pack_sell8w as j_pack_sell8w
@@ -254,6 +256,44 @@ def test_fma_err_numpy_statement():
     assert np.array_equal(e.astype(np.float64), exact)
 
 
+@pytest.mark.parametrize("n", [1, 2, 99, 100])
+def test_tiny_chain_plain_is_v_times_two_to_the_n(n):
+    # the chain's plain version, n applications of tiny: v·2ⁿ bit for bit
+    # (a power of two times a normal f32 is exact while it stays finite)
+    v = np.random.default_rng(8).standard_normal((8, 128)).astype(np.float32)
+    got = pr.tiny_chain_plain(torch.from_numpy(v), n).numpy()
+    assert got.dtype == np.float32
+    assert np.array_equal(got, v * np.float32(2.0 ** n))
+
+
+def test_tiny_chain_plain_matches_tiny_kern_applied_twice():
+    # probe5_floor.py builds tiny_kern inside main(): rebuilt here as it is
+    # written there, run in interpret mode, applied n = 2 times
+    def tiny_kern(v_ref, o_ref):
+        o_ref[:] = v_ref[:] * 2.0
+
+    tiny_pallas = jax.jit(pl.pallas_call(
+        tiny_kern, out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
+        interpret=True))
+    v = np.random.default_rng(9).standard_normal((8, 128)).astype(np.float32)
+    want = np.asarray(tiny_pallas(tiny_pallas(jnp.asarray(v))))
+    got = pr.tiny_chain_plain(torch.from_numpy(v), 2)
+    assert np.array_equal(got.numpy(), want)
+    # on a CPU tensor the chain's wrapper runs its plain version
+    assert np.array_equal(pr.tiny_chain(torch.from_numpy(v), 2).numpy(),
+                          want)
+
+
+def test_probe_tiny_reports_the_eager_and_chained_figures():
+    # the plain loop's times on the CPU, under the card's field names
+    rec = pr.probe_tiny("cpu", iters=3)
+    for k in ("tiny_pallas_ms", "tiny_chain_ms", "tiny_chain_pdl_ms",
+              "tiny_host_us", "tiny_chain_host_us",
+              "tiny_chain_pdl_host_us"):
+        assert isinstance(rec[k], float) and rec[k] > 0, k
+    assert len(rec["all_ms"]) == 3
+
+
 def test_wrappers_raise_off_the_cpu_without_cuda():
     # a tensor neither on the CPU nor on a CUDA device: no fallback
     meta_dev = torch.empty(4, 8, 128, device="meta")
@@ -263,9 +303,18 @@ def test_wrappers_raise_off_the_cpu_without_cuda():
         pr.tiny(torch.empty(8, 128, device="meta"))
 
 
-def test_run_probes_and_calibrate_on_the_cpu():
-    # every probe under its JAX field names, and every figure that
-    # derive_prices reads, at a small size on the plain versions
+def test_chain_and_fma_err_raise_off_the_cpu_without_cuda():
+    # tiny_chain and fma_err, like tiny: no kernel for a meta tensor
+    with pytest.raises(ValueError, match="no kernel"):
+        pr.tiny_chain(torch.empty(8, 128, device="meta"), 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        pr.fma_err(*(torch.empty(8, 128, device="meta") for _ in range(3)))
+
+
+@pytest.fixture(scope="module")
+def calibrated():
+    """(mats, run_probes' records, calibrate's result) at a small size on
+    the plain versions."""
     def f64(a):
         return CsrMatrix(a.m, a.n, a.rowptr, a.colidx,
                          np.random.default_rng(7).standard_normal(a.nnz))
@@ -278,6 +327,25 @@ def test_run_probes_and_calibrate_on_the_cpu():
             "webbase": t_gen.webbase_like(20000, 20000, 60000,
                                           dtype=np.float32, seed=11)}
     runs = pr.run_probes(mats, "cpu")
+    return mats, runs, pr.calibrate(mats, "cpu", runs)
+
+
+def test_calibrate_takes_launch_ns_from_the_eager_chain(calibrated):
+    # launch_ns stays the eager figure (a stripe pays an eager call), not
+    # the chain's: P6's figures made distinct, the table's launch is the
+    # eager one's
+    mats, runs, _cal = calibrated
+    p6 = dict(runs["P6"], tiny_pallas_ms=0.0125, tiny_chain_ms=0.0025,
+              tiny_chain_pdl_ms=0.0015)
+    fig = pr.calibrate(mats, "cpu", dict(runs, P6=p6))["figures"]
+    assert fig["launch_ns"] == 0.0125 * 1e6
+    assert pm.derive_prices(fig).stripe_call_ns == 0.0125 * 1e6
+
+
+def test_run_probes_and_calibrate_on_the_cpu(calibrated):
+    # every probe under its JAX field names, and every figure that
+    # derive_prices reads, at a small size on the plain versions
+    mats, runs, cal = calibrated
     assert [r["variant"] for r in runs["P1"]] == ["S_big", "S_tile",
                                                   "S_tile8", "S_nodep"]
     assert {"variant", "ms", "equiv_gflops"} <= set(runs["P2"])
@@ -290,7 +358,6 @@ def test_run_probes_and_calibrate_on_the_cpu():
     assert [r["acc_block"] for r in runs["P7"]] == [1, 8]
     assert runs["P8"]["fused_exact"]
     assert all(r["max_err"] < 1e-4 for r in runs["P9"])
-    cal = pr.calibrate(mats, "cpu", runs)
     fig = cal["figures"]
     assert cal["detail"]["slot_w"][8]["kernel"] == "sell_slot_w"
     assert cal["detail"]["slot_df16"][4]["value_mode"] == "df16"
@@ -303,6 +370,7 @@ def test_probes_module_counts_only_kernel_launches():
     # on the CPU the wrappers run their plain versions and count nothing
     before = {k: getattr(pr, a) for k, a in pr.KERNEL_COUNTS.items()}
     pr.tiny(torch.ones(8, 128))
+    pr.tiny_chain(torch.ones(8, 128), 5)
     pr.fma_err(torch.ones(4), torch.ones(4), torch.ones(4))
     assert before == {k: getattr(pr, a) for k, a in pr.KERNEL_COUNTS.items()}
 
