@@ -574,38 +574,15 @@ def _cmd_line(cmd):
 
 
 def read_counts():
-    """Every kernel's launch count."""
-    from spmv_tpu_torch.bench import probes
-    from spmv_tpu_torch.ops import coo2, dia, sell
-    return {**{k: getattr(probes, a)
-               for k, a in probes.KERNEL_COUNTS.items()},
-            "sell_row": sell.row_launches, "sell_slot": sell.slot_launches,
-            "dia": dia.launches, "sell_row_df": sell.row_df_launches,
-            "sell_slot_df": sell.slot_df_launches,
-            "dia_f64": dia.f64_launches,
-            "coo2_pass1": coo2.coo2_launches,
-            "sell_row_bin": sell.row_bin_launches,
-            "sell_row_w": sell.row_w_launches,
-            "sell_slot_w": sell.slot_w_launches,
-            "sell_row_df_w": sell.row_df_w_launches,
-            "sell_slot_df_w": sell.slot_df_w_launches,
-            "sell_v1": sell.v1_launches, "sell_v1_df": sell.v1_df_launches,
-            "sell_v1_bin": sell.v1_bin_launches}
+    """Every kernel's launch count: a copy of ``profiling.launches``, 0 for
+    a kernel of :data:`KERNELS` that did not launch."""
+    from spmv_tpu_torch.utils.profiling import launches
+    return {**dict.fromkeys(KERNELS, 0), **launches}
 
 
 def zero_counts():
-    from spmv_tpu_torch.bench import probes
-    from spmv_tpu_torch.ops import coo2, dia, sell
-    for attr in probes.KERNEL_COUNTS.values():
-        setattr(probes, attr, 0)
-    sell.row_launches = sell.slot_launches = 0
-    sell.row_df_launches = sell.slot_df_launches = 0
-    sell.row_bin_launches = 0
-    sell.row_w_launches = sell.slot_w_launches = 0
-    sell.row_df_w_launches = sell.slot_df_w_launches = 0
-    sell.v1_launches = sell.v1_df_launches = sell.v1_bin_launches = 0
-    dia.launches = dia.f64_launches = 0
-    coo2.coo2_launches = 0
+    from spmv_tpu_torch.utils.profiling import launches
+    launches.clear()
 
 
 def cuda_ms(fn, x, iters=ITERS, cold=False):
@@ -2925,10 +2902,11 @@ def prices_calibration(dev, kern, mats):
     import dataclasses as dc
     from spmv_tpu_torch.bench import probes as pr
     from spmv_tpu_torch.formats import prices as pm
-    for attr in pr.KERNEL_COUNTS.values():
-        setattr(pr, attr, 0)
+    from spmv_tpu_torch.utils.profiling import launches
+    for k in pr.KERNELS:
+        launches[k] = 0
     runs = pr.run_probes(mats, dev)
-    counts = {k: getattr(pr, a) for k, a in pr.KERNEL_COUNTS.items()}
+    counts = {k: launches[k] for k in pr.KERNELS}
     log(json.dumps({"phase": "main_path_launches", "path": "prices",
                     **counts}))
     for k, c in counts.items():

@@ -60,6 +60,7 @@ from .. import _build
 from ..formats import _bf16
 from ..formats.sell8w import LANES, SUB, WINDOW
 from ..ops.sell import sm_count
+from ..utils.profiling import launches
 from . import timing
 
 __all__ = ["tile_stream", "tile_stream_plain", "tile_body", "tile_body_plain",
@@ -71,19 +72,11 @@ __all__ = ["tile_stream", "tile_stream_plain", "tile_body", "tile_body_plain",
            "probe_stream", "probe_g8", "probe_huge", "probe_v2proto",
            "probe_body", "probe_tiny", "probe_step", "probe_fma",
            "probe_wide_gather", "p9_arrays", "run_probes", "calibrate",
-           "KERNEL_COUNTS"]
+           "KERNELS"]
 
-#: launches of each probe kernel; reset by callers that count
-tile_stream_launches = 0
-tile_body_launches = 0
-window_gather_launches = 0
-tiny_launches = 0
-fma_err_launches = 0
-#: kernel name → its count's attribute in this module
-KERNEL_COUNTS = {"tile_stream": "tile_stream_launches",
-                 "tile_body": "tile_body_launches",
-                 "window_gather": "window_gather_launches",
-                 "tiny": "tiny_launches", "fma_err": "fma_err_launches"}
+#: the probe kernels, under whose names ``profiling.launches`` counts their
+#: launches
+KERNELS = ("tile_stream", "tile_body", "window_gather", "tiny", "fma_err")
 
 #: the value modes and gather stages of :func:`tile_body`
 BODY_VALUES = {"f32": 0, "bf16": 1, "palette": 2, "dyadic": 3}
@@ -92,9 +85,8 @@ BODY_GATHERS = {"full": 0, "no_dim1": 1, "none": 2}
 P9_NW = 8
 
 
-def _count(name: str, launches: int = 1) -> None:
-    attr = KERNEL_COUNTS[name]
-    globals()[attr] += launches
+def _count(name: str, n: int = 1) -> None:
+    launches[name] += n
 
 
 def _on_card(name: str, *ts: torch.Tensor) -> bool:

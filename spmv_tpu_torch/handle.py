@@ -58,10 +58,12 @@ device.  A matrix of any other type raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import operator
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _torch_profiler
 
 from .types import (CsrMatrix, Method, VectorizedWay, METHOD_NAMES,
                     INT_DTYPE, dtype_name)
@@ -71,7 +73,8 @@ from .ops import coo2 as coo2_ops, dia as dia_ops, sell as sell_ops
 from .formats.prices import Prices, table as price_table
 from .ops import torch_csr
 from .ops.sell import V2_MAX_N
-from .utils.profiling import dev_put
+from .utils import profiling
+from .utils.profiling import dev_put, span, spanned
 
 __all__ = [
     "SpmvHandle",
@@ -829,10 +832,44 @@ def _place(plan: Dict[str, Any], device) -> Dict[str, Any]:
     return out
 
 
+#: the span of the host's whole side of one product: ``spmv()`` with its
+#: checks and cast, or a call of the handle's bound closure
+PRODUCT = "spmv.product"
+STRIPES = "spmv.glue.stripes"
+
+# The handle's glue between the kernels, each op in its span (the kernels'
+# outputs are computed before the op is called, outside it).  A closure
+# calls these only while spans are live (``profiling.live``, tested inline
+# so that tracing off costs a product no extra call) and the bare op
+# otherwise.
+_fold_add = spanned("spmv.glue.fold", operator.add)
+_fold_index_add = spanned("spmv.glue.fold", torch.Tensor.index_add_)
+_fold_mega = spanned("spmv.glue.fold", torch_csr.fold_add)
+_rest = spanned("spmv.glue.rest", add_rest)
+_xext_cat = spanned("spmv.glue.xext", torch.cat)
+_hub_ext = spanned("spmv.glue.xext", lambda x, hub: torch.cat([x, x[hub]]))
+_perm_gather = spanned("spmv.glue.perm", torch.Tensor.__getitem__)
+
+
+def _product(fn):
+    """The handle's outermost closure: ``fn`` inside the ``spmv.product``
+    span, which ``spmv()``, ``h(x)`` and a solver's direct call of
+    ``h._bound`` all pass."""
+    def product(x):
+        if _torch_profiler._is_profiler_enabled or \
+                profiling.record is not None:
+            with span(PRODUCT):
+                return fn(x)
+        return fn(x)
+    return product
+
+
 def _extend_x(f_dense, x: torch.Tensor) -> torch.Tensor:
     """Fold by x-extension: x with the dense part's output (its compact
     heavy rows) appended, which the light part of an f64 hybrid reads."""
-    return torch.cat([x, f_dense(x)])
+    cat = (_xext_cat if _torch_profiler._is_profiler_enabled
+           or profiling.record is not None else torch.cat)
+    return cat([x, f_dense(x)])
 
 
 def light_part_input(handle: "SpmvHandle", x: torch.Tensor) -> torch.Tensor:
@@ -867,11 +904,19 @@ def _graph_fns(method: Method, p: Dict[str, Any], m_rows: int):
         fns["heavy"] = _make_bound(method, p["heavy"], fold_k)
 
     def inputs(x):
-        x_ext = torch.cat([x, x[hub]]) if hub is not None else x
+        traced = (_torch_profiler._is_profiler_enabled
+                  or profiling.record is not None)
+        if hub is None:
+            x_ext = x
+        elif traced:
+            x_ext = _hub_ext(x, hub)
+        else:
+            x_ext = torch.cat([x, x[hub]])
         if not fold_k:
             return {"light": x_ext}
         y_heavy = fns["heavy"](x_ext)[:fold_k]
-        return {"heavy": x_ext, "light": torch.cat([x_ext, y_heavy])}
+        cat = _xext_cat if traced else torch.cat
+        return {"heavy": x_ext, "light": cat([x_ext, y_heavy])}
 
     return inputs, fns
 
@@ -902,6 +947,14 @@ def _sell_fn(p: Dict[str, Any], m_rows: int):
     nsl = max(-(-m_rows // window), 1)
 
     def striped(x):
+        # the span bounds the whole sum, the stripes' kernels nested in it:
+        # its self time is the glue
+        if _torch_profiler._is_profiler_enabled or \
+                profiling.record is not None:
+            s = profiling.opening(STRIPES)
+            if s is not None:
+                with s:
+                    return striped(x)
         out = torch.zeros(nsl, window, dtype=x.dtype, device=x.device)
         for lo, hi, vis, st in parts:
             o = sell_ops.sell_spmv(st, x[lo:hi]).view(-1, window)
@@ -932,8 +985,19 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
         if "fold_rows" in pd:
             # distinct rows (one a compact heavy row): one add a row
             fr = pd["fold_rows"]
-            return lambda x: f2(x).index_add_(0, fr, f1(x))
-        return lambda x: f1(x) + f2(x)
+
+            def fold_rows(x):
+                add = (_fold_index_add if _torch_profiler._is_profiler_enabled
+                       or profiling.record is not None
+                       else torch.Tensor.index_add_)
+                return add(f2(x), 0, fr, f1(x))
+            return fold_rows
+
+        def fold_sum(x):
+            add = (_fold_add if _torch_profiler._is_profiler_enabled
+                   or profiling.record is not None else operator.add)
+            return add(f1(x), f2(x))
+        return fold_sum
     if "graph" in p:
         inputs, fns = _graph_fns(method, p, m_rows)
         light_fn = fns["light"]
@@ -948,14 +1012,19 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
 
             def fn(x):
                 y = inner(x)
-                return torch_csr.fold_add(y[:m_rows], fold, y[m_rows:])
+                add = (_fold_mega if _torch_profiler._is_profiler_enabled
+                       or profiling.record is not None
+                       else torch_csr.fold_add)
+                return add(y[:m_rows], fold, y[m_rows:])
 
         if "rest" in p:
             r = p["rest"]
             kern = fn
 
             def fn(x):
-                return add_rest(r, x, kern(x))
+                add = (_rest if _torch_profiler._is_profiler_enabled
+                       or profiling.record is not None else add_rest)
+                return add(r, x, kern(x))
 
         return fn
     if "dia" in p:
@@ -1066,39 +1135,41 @@ def create_handle(a: CsrMatrix,
     plan_hints: Dict[str, Any] = {}
     if requested == Method.AUTO:
         from .inspector import choose_method
-        resolved = choose_method(a)
+        with span("predeal.inspect"):
+            resolved = choose_method(a)
         if (resolved == Method.BALANCED and perm is None
                 and 10_000 <= a.nnz and a.n <= 20_000_000):
-            # heavy-tailed matrices land here only because mega-rows
-            # explode the SELL-8W pad estimate: prefer the row-split
-            # hybrid on natural order, else a rows-only length sort, else
-            # the graph split
-            from .formats import reorder as reorder_mod
-            from .formats.sell8d import prepare_hybrid
-            from .formats.sell8w import estimate_sell8w_tiles, WINDOW
-            prep = prepare_hybrid(a, prices=prices)
-            if (prep is not None
-                    and prep.tiles * WINDOW / a.nnz
-                    <= min(32.0, 6.7e8 / a.nnz)
-                    and prep.spilled <= 0.02 * a.nnz):
-                resolved = Method.SELL_C_SIGMA   # hybrid in _plan_sell
-                plan_hints["hybrid_prep"] = prep
-            else:
-                perm_try = reorder_mod.length_order(a)
-                a_try = reorder_mod.reorder_rows(a, perm_try)
-                est = estimate_sell8w_tiles(a_try) * WINDOW / a.nnz
-                if est <= min(32.0, 6.7e8 / a.nnz):
-                    a, row_perm, resolved = (a_try, perm_try,
-                                             Method.SELL_C_SIGMA)
-            if resolved == Method.BALANCED and a.dtype == np.float32:
-                # web-graph regime: hub columns + heavy rows
-                # (formats/graph.py), else the tiled scan; the gate takes
-                # f32 only, so no other type prepares the split
-                from .formats.graph import prepare_graph_split
-                gprep = prepare_graph_split(a, prices=prices)
-                if _graph_gate(a, gprep):
-                    resolved = Method.SELL_C_SIGMA
-                    plan_hints["graph_prep"] = gprep
+            with span("predeal.prepare"):
+                # heavy-tailed matrices land here only because mega-rows
+                # explode the SELL-8W pad estimate: prefer the row-split
+                # hybrid on natural order, else a rows-only length sort, else
+                # the graph split
+                from .formats import reorder as reorder_mod
+                from .formats.sell8d import prepare_hybrid
+                from .formats.sell8w import estimate_sell8w_tiles, WINDOW
+                prep = prepare_hybrid(a, prices=prices)
+                if (prep is not None
+                        and prep.tiles * WINDOW / a.nnz
+                        <= min(32.0, 6.7e8 / a.nnz)
+                        and prep.spilled <= 0.02 * a.nnz):
+                    resolved = Method.SELL_C_SIGMA   # hybrid in _plan_sell
+                    plan_hints["hybrid_prep"] = prep
+                else:
+                    perm_try = reorder_mod.length_order(a)
+                    a_try = reorder_mod.reorder_rows(a, perm_try)
+                    est = estimate_sell8w_tiles(a_try) * WINDOW / a.nnz
+                    if est <= min(32.0, 6.7e8 / a.nnz):
+                        a, row_perm, resolved = (a_try, perm_try,
+                                                 Method.SELL_C_SIGMA)
+                if resolved == Method.BALANCED and a.dtype == np.float32:
+                    # web-graph regime: hub columns + heavy rows
+                    # (formats/graph.py), else the tiled scan; the gate takes
+                    # f32 only, so no other type prepares the split
+                    from .formats.graph import prepare_graph_split
+                    gprep = prepare_graph_split(a, prices=prices)
+                    if _graph_gate(a, gprep):
+                        resolved = Method.SELL_C_SIGMA
+                        plan_hints["graph_prep"] = gprep
     if (VectorizedWay(vectorized) == VectorizedWay.MXU
             and resolved in (Method.PARALLEL, Method.SELL_C_SIGMA,
                              Method.CSR5) and a.nnz > 0):
@@ -1108,27 +1179,28 @@ def create_handle(a: CsrMatrix,
         nblocks, fill = bcsr_fmt.bcsr_profile(a)
         if fill >= 0.02 and nblocks * bcsr_fmt.BLOCK ** 2 * 8 <= 4e9:
             resolved = Method.BCSR
-    plan = _build_plan(a, resolved, nthreads, VectorizedWay(vectorized),
-                       hints=plan_hints, prices=prices)
+    with span("predeal.build"):
+        plan = _build_plan(a, resolved, nthreads, VectorizedWay(vectorized),
+                           hints=plan_hints, prices=prices)
     if plan.pop("demoted", False):
         resolved = Method.BALANCED    # the reference's Balanced2 demotion
-    placed = _place(plan, dev)
-    bound = _make_bound(resolved, placed, a.m)
-    if perm is not None:
-        # y[perm[i]] = y'[i], so y = y'[inv]: two m-gathers a call
-        perm_dev = dev_put(np.asarray(perm).astype(np.int64), dev)
-        inv = np.empty_like(perm)
-        inv[perm] = np.arange(len(perm))
-        inv_dev = dev_put(inv.astype(np.int64), dev)
-        inner = bound
-        bound = lambda x: inner(x[perm_dev])[inv_dev]     # noqa: E731
-    elif row_perm is not None:
-        # rows-only reorder: x natural, y back with one m-gather
-        inv = np.empty_like(row_perm)
-        inv[row_perm] = np.arange(len(row_perm))
-        inv_dev = dev_put(inv.astype(np.int64), dev)
-        inner = bound
-        bound = lambda x: inner(x)[inv_dev]     # noqa: E731
+    with span("predeal.place"):
+        placed = _place(plan, dev)
+        bound = _make_bound(resolved, placed, a.m)
+        if perm is not None:
+            # y[perm[i]] = y'[i], so y = y'[inv]: two m-gathers a call
+            perm_dev = dev_put(np.asarray(perm).astype(np.int64), dev)
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(len(perm))
+            inv_dev = dev_put(inv.astype(np.int64), dev)
+            bound = _permuted(bound, perm_dev, inv_dev)
+        elif row_perm is not None:
+            # rows-only reorder: x natural, y back with one m-gather
+            inv = np.empty_like(row_perm)
+            inv[row_perm] = np.arange(len(row_perm))
+            inv_dev = dev_put(inv.astype(np.int64), dev)
+            bound = _permuted(bound, None, inv_dev)
+        bound = _product(bound)
     h = SpmvHandle(
         method=resolved, requested_method=requested,
         dtype=a.dtype, m=a.m, n=a.n, nnz=a.nnz,
@@ -1138,6 +1210,18 @@ def create_handle(a: CsrMatrix,
     if warm:
         spmv(h, torch.zeros(a.n, dtype=_torch_dtype(h.dtype), device=dev))
     return h
+
+
+def _permuted(inner, perm_dev, inv_dev):
+    """``inner`` between the reorder's gathers: x by ``perm_dev`` (None: x
+    stays natural) and y by ``inv_dev``."""
+    def permuted(x):
+        if _torch_profiler._is_profiler_enabled or \
+                profiling.record is not None:
+            xp = x if perm_dev is None else _perm_gather(x, perm_dev)
+            return _perm_gather(inner(xp), inv_dev)
+        return inner(x if perm_dev is None else x[perm_dev])[inv_dev]
+    return permuted
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -1150,7 +1234,13 @@ def spmv(handle: SpmvHandle, x) -> torch.Tensor:
     """Execute y = A @ x.  ``x`` is a tensor on ``handle.device`` (a numpy
     array is copied there), cast to f64 for an f64 matrix and to f32
     otherwise (a bf16 x upcasts exactly); the result is a tensor of that
-    type there."""
+    type there.  The checks, the cast and the product lie in one
+    ``spmv.product`` span."""
+    if _torch_profiler._is_profiler_enabled or profiling.record is not None:
+        s = profiling.opening(PRODUCT)
+        if s is not None:
+            with s:
+                return spmv(handle, x)
     if handle._bound is None:
         raise RuntimeError("handle was cleared/destroyed; create a new one")
     if not isinstance(x, torch.Tensor):

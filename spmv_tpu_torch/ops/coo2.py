@@ -21,23 +21,22 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _torch_profiler
 
 from .. import _build
 from ..formats import _bf16
 from ..formats.coo2 import Coo2
 from ..formats.dia import is_lossless_bf16
 from ..formats.sell8w import LANES, SUB, WINDOW
-from ..utils.profiling import dev_put
+from ..utils import profiling
+from ..utils.profiling import dev_put, launches
 from . import sell as sell_ops
 
 __all__ = ["Coo2Plan", "prepare_coo2", "coo2_pass1", "coo2_pass1_plain",
-           "coo2_spmv", "coo2_launches", "chunk_bounds", "G1"]
+           "coo2_spmv", "chunk_bounds", "G1"]
 
 #: pass-1 tiles per group: the tile count is padded to a multiple of it
 G1 = 16
-
-#: kernel launches made by :func:`coo2_pass1` (K8)
-coo2_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,8 +111,14 @@ def coo2_pass1_plain(p: Coo2Plan, x: torch.Tensor) -> torch.Tensor:
 
 def coo2_pass1(p: Coo2Plan, x: torch.Tensor) -> torch.Tensor:
     """Pass 1 (the product stream).  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel; any other device raises.  x is f32."""
-    global coo2_launches
+    CUDA tensor launches the kernel (K8, ``coo2_pass1`` in
+    ``profiling.launches``); any other device raises.  x is f32.  Inside
+    the span ``spmv.kernel.coo2_pass1``."""
+    if _torch_profiler._is_profiler_enabled or profiling.record is not None:
+        s = profiling.opening("spmv.kernel.coo2_pass1")
+        if s is not None:
+            with s:
+                return coo2_pass1(p, x)
     if x.device.type == "cpu":
         return coo2_pass1_plain(p, x)
     if x.device.type != "cuda":
@@ -134,7 +139,7 @@ def coo2_pass1(p: Coo2Plan, x: torch.Tensor) -> torch.Tensor:
         p.chunk_ptr.numel() - 1, p.n, int(p.vals.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "coo2_pass1")
-    coo2_launches += 1
+    launches["coo2_pass1"] += 1
     return out
 
 

@@ -18,19 +18,15 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _torch_profiler
 
 from .. import _build
 from ..formats import _bf16
 from ..formats.dia import DiaMatrix
-from ..utils.profiling import dev_put
+from ..utils import profiling
+from ..utils.profiling import dev_put, launches
 
-__all__ = ["DiaPlan", "prepare_dia", "dia_spmv", "dia_plain", "launches",
-           "f64_launches"]
-
-#: kernel launches made by :func:`dia_spmv` on f32/bf16 plans (K3) and on
-#: f64 plans (K4); reset by callers that count
-launches = 0
-f64_launches = 0
+__all__ = ["DiaPlan", "prepare_dia", "dia_spmv", "dia_plain"]
 
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
@@ -86,9 +82,17 @@ def dia_plain(p: DiaPlan, x: torch.Tensor) -> torch.Tensor:
 
 def dia_spmv(p: DiaPlan, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel; any other device raises.  x is f64 for an f64
-    plan, else f32."""
-    global launches, f64_launches
+    launches the kernel (K3 on f32/bf16 plans, ``dia`` in
+    ``profiling.launches``; K4 on f64 plans, ``dia_f64``); any other device
+    raises.  x is f64 for an f64 plan, else f32.  Inside the span
+    ``spmv.kernel.dia`` or ``spmv.kernel.dia_f64``."""
+    if _torch_profiler._is_profiler_enabled or profiling.record is not None:
+        name = ("spmv.kernel.dia_f64" if p.data.dtype == torch.float64
+                else "spmv.kernel.dia")
+        s = profiling.opening(name)
+        if s is not None:
+            with s:
+                return dia_spmv(p, x)
     if x.device.type == "cpu":
         return dia_plain(p, x)
     if x.device.type != "cuda":
@@ -105,9 +109,7 @@ def dia_spmv(p: DiaPlan, x: torch.Tensor) -> torch.Tensor:
         p.data.data_ptr(), p.offsets_dev.data_ptr(), x.data_ptr(),
         y.data_ptr(), p.m, p.n, len(p.offsets), _KINDS[p.data.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "dia_f64" if f64 else "dia")
-    if f64:
-        f64_launches += 1
-    else:
-        launches += 1
+    name = "dia_f64" if f64 else "dia"
+    _build.check(lib, err, name)
+    launches[name] += 1
     return y

@@ -73,22 +73,20 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _torch_profiler
 
 from .. import _build
 from ..formats import _bf16
 from ..formats.sell8w import (LANES, SUB, WINDOW, Sell8W, Sell8WV2,
                               plan_v2, v2_layout)
-from ..utils.profiling import dev_put
+from ..utils import profiling
+from ..utils.profiling import dev_put, launches
 
 __all__ = ["SellStream", "prepare_sell", "prepare_v1", "binary_v2",
            "pack_gpk", "build_sell8w_fn", "sell8w_spmv", "sell_spmv",
-           "sell_plain", "sell_decode", "kernel_name", "row_launches",
-           "slot_launches", "row_df_launches", "slot_df_launches",
-           "row_bin_launches", "row_w_launches", "slot_w_launches",
-           "row_df_w_launches", "slot_df_w_launches", "v1_launches",
-           "v1_df_launches", "v1_bin_launches", "V2_MAX_N", "CHUNK_TILES",
-           "CHUNKS_PER_SM", "MAX_REDUCE_BYTES", "H100_SMS", "chunk_len",
-           "chunk_tables", "sm_count", "tickets"]
+           "sell_plain", "sell_decode", "kernel_name", "KERNELS",
+           "V2_MAX_N", "CHUNK_TILES", "CHUNKS_PER_SM", "MAX_REDUCE_BYTES",
+           "H100_SMS", "chunk_len", "chunk_tables", "sm_count", "tickets"]
 
 #: the JAX package's VMEM-resident-x bound: streams up to it replace the
 #: resident kernels (K1, K2), streams past it the windowed ones (K5-K7)
@@ -111,22 +109,16 @@ H100_SMS = 132
 #: stay near 0.5 GB each on full-size streams)
 PLAIN_TILES = 1 << 16
 
-#: kernel launches made by :func:`sell_spmv` for each kernel name: f32
-#: (K1) and f64 (K2) streams up to V2_MAX_N, their windowed counterparts
-#: (K5 values, K6, K7) past it, binary (K5 binary) streams, and the v1
-#: streams (K9, K10, K11)
-row_launches = 0
-slot_launches = 0
-row_df_launches = 0
-slot_df_launches = 0
-row_bin_launches = 0
-row_w_launches = 0
-slot_w_launches = 0
-row_df_w_launches = 0
-slot_df_w_launches = 0
-v1_launches = 0
-v1_df_launches = 0
-v1_bin_launches = 0
+#: the names of the kernel's instantiations (:func:`kernel_name`), under
+#: which ``profiling.launches`` counts their launches: f32 (K1) and f64
+#: (K2) streams up to V2_MAX_N, their windowed counterparts (K5 values,
+#: K6, K7) past it, binary (K5 binary) streams, and the v1 streams (K9,
+#: K10, K11)
+KERNELS = ("sell_row", "sell_slot", "sell_row_df", "sell_slot_df",
+           "sell_row_bin", "sell_row_w", "sell_slot_w", "sell_row_df_w",
+           "sell_slot_df_w", "sell_v1", "sell_v1_df", "sell_v1_bin")
+#: kernel name → its span
+_SPANS = {k: "spmv.kernel." + k for k in KERNELS}
 
 _VALUE_MODES = {"f32": 0, "bf16": 1, "palette": 2,
                 "df": 3, "df16": 4, "palette_df": 5, "binary": 6}
@@ -507,7 +499,15 @@ def sell_spmv(st: SellStream, x: torch.Tensor) -> torch.Tensor:
     the plain version; a CUDA tensor launches the kernel; any other device
     raises.  x is f32 for an f32 or binary stream and f64 for a
     double-float one.  Each launch adds one to the count of its kernel
-    name."""
+    name in ``profiling.launches``; each call, on the card or the CPU,
+    lies inside the span ``spmv.kernel.<kernel name>``."""
+    if _torch_profiler._is_profiler_enabled or profiling.record is not None:
+        name = _SPANS[st._launch[2] if st._launch is not None
+                      else kernel_name(st)]
+        s = profiling.opening(name)
+        if s is not None:
+            with s:
+                return sell_spmv(st, x)
     if x.device.type == "cpu":
         return sell_plain(st, x)
     if x.device.type != "cuda":
@@ -532,17 +532,5 @@ def sell_spmv(st: SellStream, x: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), None if partial is None else partial.data_ptr(),
         out.data_ptr(), *after, stream)
     _build.check(lib, err, name)
-    globals()[_COUNTERS[name]] += 1
+    launches[name] += 1
     return out
-
-
-#: kernel name → the module-level count of its launches
-_COUNTERS = {"sell_row": "row_launches", "sell_slot": "slot_launches",
-             "sell_row_df": "row_df_launches",
-             "sell_slot_df": "slot_df_launches",
-             "sell_row_bin": "row_bin_launches",
-             "sell_row_w": "row_w_launches", "sell_slot_w": "slot_w_launches",
-             "sell_row_df_w": "row_df_w_launches",
-             "sell_slot_df_w": "slot_df_w_launches",
-             "sell_v1": "v1_launches", "sell_v1_df": "v1_df_launches",
-             "sell_v1_bin": "v1_bin_launches"}

@@ -17,6 +17,9 @@ counter stops, so x, the residual and the iteration count are exactly what
 the JAX loop returns, not what the iterations enqueued past convergence
 would leave.  ``host_syncs`` counts the host's reads.
 
+Each call of a solver lies in a ``solver.solve`` span, and each host read
+in a ``solver.read`` span (``utils/profiling.py``): one read, one span.
+
 All solvers accept an :class:`~spmv_tpu_torch.handle.SpmvHandle`, a mesh
 plan of ``spmv_tpu_torch.parallel``, or any ``x -> y`` callable, and
 return tensors on the device of b (or of the operator, for a numpy b).
@@ -24,10 +27,13 @@ return tensors on the device of b (or of the operator, for a numpy b).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Tuple
 
 import numpy as np
 import torch
+
+from .utils.profiling import span, spanned
 
 __all__ = ["cg", "bicgstab", "power_iteration", "CHECK_EVERY"]
 
@@ -36,7 +42,8 @@ __all__ = ["cg", "bicgstab", "power_iteration", "CHECK_EVERY"]
 CHECK_EVERY = 8
 
 #: the host's reads of a solver's state (one a block of iterations, and
-#: one for the result)
+#: one for the result); a module global, not a ``utils.profiling``
+#: counter, because callers (the benchmark among them) read it by this name
 host_syncs = 0
 
 
@@ -72,7 +79,8 @@ def _read(t: torch.Tensor):
     """One host read of the device state."""
     global host_syncs
     host_syncs += 1
-    return t.tolist()
+    with span("solver.read"):
+        return t.tolist()
 
 
 def _run(body: Callable, cond: Callable, maxiter: int) -> None:
@@ -91,6 +99,7 @@ def _run(body: Callable, cond: Callable, maxiter: int) -> None:
         block = min(2 * block, CHECK_EVERY)
 
 
+@functools.partial(spanned, "solver.solve")
 def cg(a, b, tol: float = 1e-6, maxiter: int = 1000,
        x0=None) -> Tuple[torch.Tensor, float, int]:
     """Conjugate gradients for SPD A.  Returns (x, residual_norm, iters)."""
@@ -122,6 +131,7 @@ def cg(a, b, tol: float = 1e-6, maxiter: int = 1000,
     return st["x"], float(rs), int(iters)
 
 
+@functools.partial(spanned, "solver.solve")
 def bicgstab(a, b, tol: float = 1e-6, maxiter: int = 1000,
              x0=None) -> Tuple[torch.Tensor, float, int]:
     """BiCGSTAB for general (nonsymmetric) A.
@@ -169,6 +179,7 @@ def bicgstab(a, b, tol: float = 1e-6, maxiter: int = 1000,
     return st["x"], float(rr), int(iters)
 
 
+@functools.partial(spanned, "solver.solve")
 def power_iteration(a, n: int = None, iters: int = 100,
                     seed: int = 0) -> Tuple[float, torch.Tensor]:
     """Dominant eigenvalue/vector via repeated SpMV (square A).  No host

@@ -1,9 +1,10 @@
-"""Utilities: the bandwidth model, profiling (pre-deal split, traces,
-timers)."""
+"""Utilities: the bandwidth model, profiling (spans, launch counts, the
+pre-deal's record, traces)."""
 
 from .perfmodel import bytes_moved, roofline_gflops
-from .profiling import (Stopwatch, dev_asarray, dev_put, predeal_profile,
-                        trace)
+from .profiling import (dev_asarray, dev_put, launches, predeal_profile,
+                        reset_spans, span, spans, trace)
 
-__all__ = ["bytes_moved", "roofline_gflops", "trace", "Stopwatch",
-           "predeal_profile", "dev_put", "dev_asarray"]
+__all__ = ["bytes_moved", "roofline_gflops", "trace", "predeal_profile",
+           "dev_put", "dev_asarray", "span", "spans", "reset_spans",
+           "launches"]

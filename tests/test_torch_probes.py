@@ -367,12 +367,17 @@ def test_run_probes_and_calibrate_on_the_cpu(calibrated):
 
 
 def test_probes_module_counts_only_kernel_launches():
-    # on the CPU the wrappers run their plain versions and count nothing
-    before = {k: getattr(pr, a) for k, a in pr.KERNEL_COUNTS.items()}
+    # on the CPU the wrappers run their plain versions and count nothing in
+    # the launch table; a launch counts under its kernel's name
+    from spmv_tpu_torch.utils.profiling import launches
+    before = {k: launches[k] for k in pr.KERNELS}
     pr.tiny(torch.ones(8, 128))
     pr.tiny_chain(torch.ones(8, 128), 5)
     pr.fma_err(torch.ones(4), torch.ones(4), torch.ones(4))
-    assert before == {k: getattr(pr, a) for k, a in pr.KERNEL_COUNTS.items()}
+    assert before == {k: launches[k] for k in pr.KERNELS}
+    pr._count("tiny", 5)
+    assert launches["tiny"] == before["tiny"] + 5
+    launches["tiny"] -= 5
 
 
 # -- the kernels' split tables and reduce order (csrc/probes.cu) -------------
