@@ -50,6 +50,22 @@ its ticket counters a CUDA stream); lines ``{"phase": "streams", ...}``.
    (clustered200k's ``pack_sell8w``): ``sell_v1`` (K9), ``sell_v1_df``
    (K10, the pack twice, hi and lo), ``sell_v1_bin`` (K11, validity in meta
    bit 15), and ``sell_v1`` on one stream at n = 2.5M;
+3a. sell_cs: K12, the row-split hybrid's light rows in SELL-32-σ with
+   explicit columns, on two handles that AUTO must plan as
+   ``hybrid(8w+cs)`` on the card: a 20,000-row power-law matrix with
+   gaussian f32 values and Graph500 SCALE 19's PageRank matrix as the
+   benchmark's ``graph500-s19`` cell draws it (``spmvbench``'s Kronecker
+   generator on the card, seed 1).  Per handle: one counted product that
+   must launch ``sell_cs`` and ``sell_row`` and not ``sell_slot``; K12
+   against its plain version (and the number of positions whose bits
+   differ), and with an inf at x[0], which padding slots read: NaN where
+   the plain version has NaN; K12 and the handle 20 calls each bit for
+   bit; the product against ``spmv_golden``.  On the graph also: the
+   layout's slots, bytes and padding beside the SELL-8D stream that the
+   CPU's route packs for the same light rows (its tiles and bytes) and the
+   heavy part's, K12 timed (warm, cold, device) beside that slot stream
+   and cuSPARSE on the same rows, and the two whole products in turns;
+   lines ``{"phase": "sell_cs", ...}``;
 4. main path: the bench's nine families (``bench.py``'s generator calls
    and seeds, ``_to_f64`` seed 7 for the f64 ones) through
    ``create_handle(a, device="cuda")`` and ``spmv``, with the AUTO plan
@@ -526,6 +542,8 @@ KERNELS = {
                    "spmv_tpu/ops/pallas_sell.py:132"),
     "sell_v1_bin": ("spmv_tpu_torch/csrc/sell.cu",
                     "spmv_tpu/ops/pallas_sell.py:77"),
+    # no TPU kernel: the hybrid's light rows, where the TPU ran K1 slot
+    "sell_cs": ("spmv_tpu_torch/csrc/sell_cs.cu", "none"),
     # the planner's calibration probes (P1-P9 of baselines/)
     "tile_stream": ("spmv_tpu_torch/csrc/probes.cu",
                     "baselines/probe2_stream.py:55"),
@@ -645,14 +663,17 @@ def scaled_err(y, ref, absref, bound, atol=0.0):
 def plain_kernels():
     """Route every kernel wrapper to its plain version (to time the same
     plan without the kernels)."""
-    from spmv_tpu_torch.ops import coo2, dia, sell
-    saved = sell.sell_spmv, dia.dia_spmv, coo2.coo2_pass1
+    from spmv_tpu_torch.ops import coo2, dia, sell, sell_cs
+    saved = (sell.sell_spmv, dia.dia_spmv, coo2.coo2_pass1,
+             sell_cs.cs_spmv)
     sell.sell_spmv, dia.dia_spmv = sell.sell_plain, dia.dia_plain
     coo2.coo2_pass1 = coo2.coo2_pass1_plain
+    sell_cs.cs_spmv = sell_cs.cs_plain
     try:
         yield
     finally:
-        sell.sell_spmv, dia.dia_spmv, coo2.coo2_pass1 = saved
+        (sell.sell_spmv, dia.dia_spmv, coo2.coo2_pass1,
+         sell_cs.cs_spmv) = saved
 
 
 def is_dia(st):
@@ -664,6 +685,11 @@ def is_coo2(st):
     return hasattr(st, "window_ids")
 
 
+def is_cs(st):
+    """A SELL-32-σ stream with explicit columns (K12)."""
+    return hasattr(st, "slice_ptr")
+
+
 def kernel_of(st):
     """The kernel name that runs a placed stream."""
     import torch
@@ -672,13 +698,15 @@ def kernel_of(st):
         return "dia_f64" if st.data.dtype == torch.float64 else "dia"
     if is_coo2(st):
         return "coo2_pass1"
+    if is_cs(st):
+        return "sell_cs"
     return sell.kernel_name(st)
 
 
 def abs_stream(st):
     if is_dia(st):
         return dataclasses.replace(st, data=st.data.abs())
-    if is_coo2(st):
+    if is_coo2(st) or is_cs(st):
         return dataclasses.replace(st, vals=st.vals.abs())
     return dataclasses.replace(
         st, palette=st.palette.abs(),
@@ -716,6 +744,11 @@ def stream_bound(st, nnz):
         stored = nb(st.meta, st.vals, st.window_ids) + (
             st.n + st.meta.numel()) * 4
         ops = nnz
+    elif is_cs(st):
+        # a nonzero's column and value; the layout as stored adds its
+        # padding slots, each lane's output row and the slice offsets
+        nbytes = nnz * 8 + xy
+        stored = nb(st.cols, st.vals, st.rows, st.slice_ptr) + xy
     else:
         slot = nb(st.meta, st.vals, st.vals_lo) / st.meta.numel()
         binary = st.value_mode == "binary"   # no palette, one add a slot
@@ -767,6 +800,10 @@ def stream_csr(st):
             vals.append(v[keep])
         rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
         shape = (st.m, st.n)
+    elif is_cs(st):
+        from spmv_tpu_torch.ops import sell_cs
+        rows, cols, vals = sell_cs.cs_decode(st)
+        shape = (st.m, st.n)
     else:
         rows, cols, vals = [], [], []
         for t0 in range(0, st.meta.shape[0], sell.PLAIN_TILES):
@@ -795,11 +832,13 @@ def matrix_csr(a, dev):
 def check_stream(st, x, timing=False):
     """Kernel vs plain version on one stream; returns a record."""
     import torch
-    from spmv_tpu_torch.ops import coo2, dia, sell
+    from spmv_tpu_torch.ops import coo2, dia, sell, sell_cs
     if is_dia(st):
         run, plain = dia.dia_spmv, dia.dia_plain
     elif is_coo2(st):
         run, plain = coo2.coo2_pass1, coo2.coo2_pass1_plain
+    elif is_cs(st):
+        run, plain = sell_cs.cs_spmv, sell_cs.cs_plain
     else:
         run, plain = sell.sell_spmv, sell.sell_plain
     absref = plain(abs_stream(st), x.abs())
@@ -1020,6 +1059,170 @@ def kernel_phase(dev, kern):
     for r in rows:
         log(json.dumps({"phase": "kernels", **r}))
     return rows
+
+
+#: calls on one x whose ys must agree bit for bit in the sell_cs phase
+CS_REPEAT_CALLS = 20
+
+
+def _cs_matrices(dev):
+    """The sell_cs phase's matrices: (name, a maker, whether to time)."""
+    import numpy as np
+    from spmv_tpu_torch.io import generate
+    from spmv_tpu_torch.types import CsrMatrix
+
+    def powerlaw():
+        a = generate.power_law(20_000, 20_000, 800_000, dtype=np.float32,
+                               seed=2)
+        v = np.random.default_rng(0).standard_normal(a.nnz)
+        return CsrMatrix(a.m, a.n, a.rowptr, a.colidx, v.astype(np.float32))
+
+    def graph():
+        # the graph500-s19 cell's matrix, drawn on the card from seed 1
+        from spmvbench.generators import kronecker
+        with open(os.path.join(ROOT, "spmvbench", "configs",
+                               "graph500-s19.json")) as f:
+            cfg = json.load(f)
+        g = kronecker.generate(cfg, 1, dev)
+        return CsrMatrix(g["m"], g["n"], g["rowptr"], g["colidx"], g["vals"])
+
+    return (("powerlaw20k_gauss", powerlaw, False),
+            ("graph500-s19", graph, True))
+
+
+def sell_cs_phase(dev, kern):
+    """Phase 3a (see the module): K12 on its two handles; its numbers go
+    into ``kern``.  Returns the launch counts of its counted products."""
+    import numpy as np
+    import torch
+    import spmv_tpu_torch as st
+    from spmv_tpu_torch import handle as th
+    from spmv_tpu_torch.ops import sell_cs
+
+    launches = {k: 0 for k in KERNELS}
+    rng = np.random.default_rng(0)
+    for name, make, timing in _cs_matrices(dev):
+        a = make()
+        log_matrix(name, a)
+        t0 = time.perf_counter()
+        h = st.create_handle(a, device=dev)
+        predeal_s = time.perf_counter() - t0
+        kind = th.plan_kind(h.plan)
+        if kind != "hybrid(8w+cs)":
+            raise AssertionError(f"{name}: AUTO planned {kind} "
+                                 f"({h.plan.get('value_mode')}) on the card, "
+                                 "not hybrid(8w+cs)")
+        stream = h.plan["hybrid"][1]["sell_cs"]
+        x = torch.from_numpy(rng.standard_normal(a.n).astype(np.float32)
+                             ).to(dev)
+        zero_counts()
+        y = st.spmv(h, x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts["sell_cs"] != 1 or not counts["sell_row"] \
+                or counts["sell_slot"]:
+            raise AssertionError(f"{name}: a product launched {counts}")
+        for k, c in counts.items():
+            launches[k] += c
+        xh = x.cpu().numpy().astype(np.float64)
+        ref, absref, bound, ref_name = reference(a, xh, np)
+        ref, absref = torch.from_numpy(ref), torch.from_numpy(absref)
+        rel, mabs, ok = scaled_err(y.cpu(), ref, absref, bound)
+        if not ok:
+            raise AssertionError(f"{name}: max scaled error {rel:.3g} "
+                                 f"against {ref_name}")
+        rec = check_stream(stream, x, timing=timing)
+        diff = int(bit_diff(sell_cs.cs_spmv(stream, x),
+                            sell_cs.cs_plain(stream, x)))
+        # padding slots read x[0]: an inf there gives NaN exactly where
+        # the plain version has NaN, and the finite rows agree
+        xi = x.clone()
+        xi[0] = float("inf")
+        yk, yp = sell_cs.cs_spmv(stream, xi), sell_cs.cs_plain(stream, xi)
+        nan = torch.isnan(yk)
+        if not torch.equal(nan, torch.isnan(yp)) or not torch.allclose(
+                yk[~nan], yp[~nan], rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"{name}: with an inf at x[0] K12 and its "
+                                 "plain version disagree")
+        repeats_its_y(f"{name} sell_cs",
+                      lambda v: sell_cs.cs_spmv(stream, v), x,
+                      calls=CS_REPEAT_CALLS)
+        repeats_its_y(name, h, x, calls=CS_REPEAT_CALLS)
+        kern["sell_cs"]["max_abs_err"] = max(kern["sell_cs"]["max_abs_err"],
+                                             rec["max_abs_err"])
+        slots = stream.vals.numel()
+        out = {"phase": "sell_cs", "family": name, "plan": kind, "m": a.m,
+               "n": a.n, "nnz": int(a.nnz), "predeal_s": predeal_s,
+               "light_nnz": stream.nnz, "slots": slots,
+               "slots_a_nonzero": slots / max(stream.nnz, 1),
+               "layout_bytes": sum(t.numel() * t.element_size() for t in (
+                   stream.cols, stream.vals, stream.rows, stream.slice_ptr)),
+               "slices": stream.nslices, "max_len": stream.max_len,
+               "max_scaled_err": rel, "max_abs_err_product": mabs,
+               "repeats_its_y": CS_REPEAT_CALLS,
+               "bit_diff_vs_plain": diff,
+               "inf_x0_nan_rows": int(nan.sum()), "kernel": rec}
+        if timing:
+            keep_kernel(kern, "sell_cs", rec, stream, f"{name} light part")
+            out.update(_cs_against_8d(h, a, x, ref, absref, bound))
+        log(json.dumps(out))
+        del h, stream
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _cs_against_8d(h, a, x, ref, absref, bound):
+    """The handle ``h`` (K12 light part) beside the plan the CPU's route
+    gives the same matrix (SELL-8D light part, K1 slot), both on the card:
+    the two light streams' bytes and times, the heavy part's bytes, and
+    the two whole products' ms in turns (8d, cs, cs, 8d)."""
+    import torch
+    from spmv_tpu_torch import handle as th
+    from spmv_tpu_torch.formats import sell_cs as cs_fmt
+    from spmv_tpu_torch.formats.sell8d import prepare_hybrid
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if t is not None)
+
+    prep = prepare_hybrid(a)
+    plan = th._build_plan(a, h.method, 0, hints={"hybrid_prep": prep})
+    if th.plan_kind(plan) != "hybrid(8w+8d)":
+        raise AssertionError(f"the CPU's route is {th.plan_kind(plan)}")
+    placed = th._place(plan, x.device)
+    f8d = th._make_bound(h.method, placed, a.m)
+    y8d = f8d(x)
+    rel, _, ok = scaled_err(y8d.cpu(), ref, absref, bound)
+    if not ok:
+        raise AssertionError(f"SELL-8D plan: max scaled error {rel:.3g}")
+    slot = placed["hybrid"][1]["sell8d"]
+    heavy = placed["hybrid"][0]["sell8w_v2"]
+    slot_rec = check_stream(slot, x, timing=True)
+    light_nnz = h.plan["hybrid"][1]["sell_cs"].nnz
+    turns = {"8d": [], "cs": []}
+    for k in ("8d", "cs", "cs", "8d"):
+        turns[k].append(cuda_ms(f8d if k == "8d" else h, x))
+    return {
+        "rule": {"sell8d_tiles_estimate": prep.ts,
+                 "sell8d_bytes_estimate": cs_fmt.sell8d_bytes(prep.ts),
+                 "cs_bytes": cs_fmt.layout_bytes(prep.sparse.row_lengths)},
+        "sell8d_light": {"tiles": slot.meta.shape[0],
+                         "bytes": nb(slot.meta, slot.vals, slot.vals_lo),
+                         "slots_a_nonzero": slot.meta.numel() / light_nnz,
+                         "nw": slot.nw, "value_mode": slot.value_mode,
+                         "rest_nnz": _rest_nnz(placed["hybrid"][1]),
+                         "kernel": slot_rec},
+        "heavy": {"tiles": heavy.meta.shape[0],
+                  "bytes": nb(heavy.meta, heavy.vals, heavy.vals_lo),
+                  "nnz": int(prep.dense_sorted.nnz),
+                  "slots_a_nonzero": heavy.meta.numel()
+                  / max(prep.dense_sorted.nnz, 1),
+                  "value_mode": heavy.value_mode},
+        "sell8d_scaled_err": rel,
+        "product_ms": turns,
+        "product_profile": {"cs": profile_calls(h, x),
+                            "8d": profile_calls(f8d, x)}}
 
 
 def bit_diff(y, ref):
@@ -1335,6 +1538,8 @@ def family_streams(plan):
         return [s for p in plan["hybrid"] for s in family_streams(p)]
     if "coo2" in plan:
         return [(plan["coo2"], None), (plan["coo2"].reduce, None)]
+    if "sell_cs" in plan:
+        return [(plan["sell_cs"], None)]
     if "sell8d_stripes" in plan:
         return [(st, slice(lo, hi))
                 for lo, hi, _vis, st in plan["sell8d_stripes"]]
@@ -1347,7 +1552,9 @@ def family_streams(plan):
 def keep_kernel(kern, k, rec, stream, family):
     """Keep a kernel's numbers at its largest stream."""
     kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], rec["max_abs_err"])
-    size = stream.data.numel() if is_dia(stream) else stream.meta.numel()
+    size = (stream.data.numel() if is_dia(stream)
+            else stream.vals.numel() if is_cs(stream)
+            else stream.meta.numel())
     if size >= kern[k].get("size", -1):
         kern[k].update(size=size, family=family, **{
             f: rec[f] for f in ("ms", "cold_ms", "device_ms",
@@ -1365,7 +1572,8 @@ def stream_record(stream, rec):
             "cell_w": getattr(stream, "cell_w", None),
             "g": getattr(stream, "g", None), "n": stream.n,
             "chunks": getattr(stream, "nchunks", None),
-            "tiles": None if is_dia(stream) else stream.meta.shape[0],
+            "tiles": (None if is_dia(stream) or is_cs(stream)
+                      else stream.meta.shape[0]),
             **rec}
 
 
@@ -2884,7 +3092,7 @@ def route_of(h):
     from spmv_tpu_torch.handle import plan_kind
     parts = [plan_kind(h.plan), str(h.plan.get("value_mode"))]
     for st, _cols in family_streams(h.plan):
-        if is_dia(st) or is_coo2(st):
+        if is_dia(st) or is_coo2(st) or is_cs(st):
             parts.append(kernel_of(st))
         else:
             parts.append(f"{kernel_of(st)}:nw{st.nw}:g{st.g}:"
@@ -3351,7 +3559,10 @@ def main() -> int:
                     "events_without_kernels": seen}))
     kern = {k: {"max_abs_err": 0.0} for k in KERNELS}
     kernel_phase(dev, kern)
+    cs_launches = sell_cs_phase(dev, kern)
     launches, ctx, pctx = main_path(dev, kern, smi)
+    for k, c in cs_launches.items():
+        launches[k] += c
     folds_phase(dev, smi, pctx["powerlaw100k"][1])
     for k, c in prices_phase(dev, kern, pctx).items():
         launches[k] += c

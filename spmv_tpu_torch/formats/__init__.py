@@ -1,2 +1,2 @@
 """Host-side format packers (jax-free copies of ``spmv_tpu.formats``)."""
-from . import _bf16, bcsr, coo2, dia, reorder, sell8d, sell8w
+from . import _bf16, bcsr, coo2, dia, reorder, sell8d, sell8w, sell_cs

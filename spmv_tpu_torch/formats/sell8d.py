@@ -1188,25 +1188,32 @@ def slot_stream_budget(vals: np.ndarray, nw: int, df: bool) -> float:
     10 B — and over-restricted palette_df by 4x, which stores only the
     2 B meta): palette_df 2 B, df16 8 B (meta + f32 hi + int16 lo),
     plain df 10 B."""
+    return 4e9 / SLOT_BYTES[slot_value_mode(vals, nw, df)]
+
+
+#: bytes a slot streams in each value mode (:func:`slot_stream_budget`)
+SLOT_BYTES = {"palette": 2.0, "bf16": 4.0, "f32": 6.0,
+              "palette_df": 2.0, "df16": 8.0, "df": 10.0}
+
+
+def slot_value_mode(vals: np.ndarray, nw: int, df: bool) -> str:
+    """The value mode :func:`pack_sell8d` gives these values at bundle
+    width ``nw`` when none is forced (``_apply_values``' ladder): a
+    palette where the distinct values fit the meta's codes; else for a
+    double-float stream (``df``) df16 where it is safe, else df; else bf16
+    where every value is exact in it, else f32."""
+    lb = int(nw).bit_length() - 1
+    palette = palette_entry_count(vals) <= (64 >> lb)
     if df:
-        lb = int(nw).bit_length() - 1
-        if palette_entry_count(vals) <= (64 >> lb):
-            bytes_per = 2.0                        # palette_df
-        elif df16_safe(np.asarray(vals)):
-            bytes_per = 8.0                        # df16
-        else:
-            bytes_per = 10.0                       # plain df
-    else:
-        lb = int(nw).bit_length() - 1
-        if palette_entry_count(vals) <= (64 >> lb):
-            bytes_per = 2.0
-        else:
-            v32 = np.asarray(vals, dtype=np.float32)
-            lossless = _bf16.is_lossless(v32[:1 << 20])
-            if lossless and len(v32) > (1 << 20):
-                lossless = _bf16.is_lossless(v32)
-            bytes_per = 4.0 if lossless else 6.0
-    return 4e9 / bytes_per
+        return ("palette_df" if palette
+                else "df16" if df16_safe(np.asarray(vals)) else "df")
+    if palette:
+        return "palette"
+    v32 = np.asarray(vals, dtype=np.float32)
+    lossless = _bf16.is_lossless(v32[:1 << 20])
+    if lossless and len(v32) > (1 << 20):
+        lossless = _bf16.is_lossless(v32)
+    return "bf16" if lossless else "f32"
 
 
 def palette_entry_count(vals: np.ndarray, limit: int = 65) -> int:

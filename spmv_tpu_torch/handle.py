@@ -5,7 +5,11 @@ packs, routed exactly as the JAX package routes on a TPU), places it on
 ``device``, and binds an ``x -> y`` closure; ``spmv`` then runs only device
 work.  Planning does not depend on the device: the CPU runs the same plans
 as the card, through each kernel's plain PyTorch version, so the CPU tests
-cover the plans the card runs.
+cover the plans the card runs.  One rule reads the device's type: the
+hybrid's light part (below) takes K12's layout only on a CUDA device, so
+every CPU handle keeps the JAX planner's route; a plan built for CUDA
+(``hints={"device_type": "cuda"}``) runs on the CPU through K12's plain
+version.
 
 Plans and what runs them:
 
@@ -24,7 +28,10 @@ column stripes     n > 2M: stripes of at most 2M columns, each a slot
                    windowed stream with the JAX package's TPU constants
 row-split hybrid   8W heavy rows + 8D light rows; the heavy output folds
                    back by a scatter-add (f32, and f64 past 2M columns) or
-                   by x-extension (f64)
+                   by x-extension (f64).  On a CUDA device an f32 light
+                   part that SELL-8D would pad to twice the bytes of
+                   SELL-32-σ with explicit columns takes that layout
+                   instead (``ops/sell_cs.py``, K12): ``hybrid(8w+cs)``
 graph (f32)        hub columns appended to x, heavy rows as SELL-8W v2 (K1
                    row), light rows as SELL-8D (K1 slot) over x extended by
                    the hubs and by the heavy output
@@ -69,7 +76,8 @@ from .types import (CsrMatrix, Method, VectorizedWay, METHOD_NAMES,
                     INT_DTYPE, dtype_name)
 from .formats import (_bf16, dia as dia_fmt, partition, sell as sell_fmt,
                       sell8w as sell8w_fmt)
-from .ops import coo2 as coo2_ops, dia as dia_ops, sell as sell_ops
+from .ops import (coo2 as coo2_ops, dia as dia_ops, sell as sell_ops,
+                  sell_cs as sell_cs_ops)
 from .formats.prices import Prices, table as price_table
 from .ops import torch_csr
 from .ops.sell import V2_MAX_N
@@ -162,7 +170,8 @@ def plan_kind(plan: Dict[str, Any]) -> str:
     if "graph" in plan:
         return "graph"
     if "hybrid" in plan:
-        return "hybrid(8w+8d)"
+        return ("hybrid(8w+cs)" if "sell_cs" in plan["hybrid"][1]
+                else "hybrid(8w+8d)")
     if "coo2" in plan:
         return "coo2"
     if "colidx_pad" in plan:
@@ -474,15 +483,19 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any],
     hint, and the f32 last resort).  Past V2_MAX_N columns slot mode is
     column stripes or one windowed stream, by the JAX planner's cost gate,
     and row mode is a windowed ``sell8w_v2w`` stream.  Every cost is
-    priced with ``prices`` (None is the JAX package's table).  None when
-    no tile plan fits: the caller falls through to the chunked SELL
+    priced with ``prices`` (None is the JAX package's table).  With
+    ``hints["device_type"]`` "cuda", the hybrid's light part takes
+    SELL-32-σ with explicit columns where ``sell_cs.use_sell_cs`` says so
+    (decided from the hybrid's estimates, before any SELL-8D pack).  None
+    when no tile plan fits: the caller falls through to the chunked SELL
     plan."""
+    from .formats import sell_cs as sell_cs_fmt
     from .formats.sell8d import (MAX_SPILL_STRIPED, MAX_STRIPES,
                                  column_stripe_bounds, cost_tables,
                                  dense_tile_ns, estimate_sell8d_auto,
                                  pack_sell8d, pack_sell8d_striped,
                                  prepare_hybrid, slot_stream_budget,
-                                 stripe_overhead_ns)
+                                 slot_value_mode, stripe_overhead_ns)
     WINDOW = sell8w_fmt.WINDOW
     df = np.dtype(a.dtype) == np.dtype(np.float64)
 
@@ -663,29 +676,44 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any],
                     pd["m_rows"] = prep.dense_sorted.m
                     pd["fold_rows"] = prep.fold_rows.astype(INT_DTYPE)
                     sparse = prep.sparse
-                    if (df and "sell8w_v2" in pd
-                            and "mega_sub_rows" not in pd
-                            and "rest_rows" not in pd):
-                        # f64 folds by x-extension: the light plan gains a
-                        # 1.0-valued entry (row fold_rows[j], column n + j)
-                        # per compact heavy row, and the executor appends
-                        # the heavy output to x; a windowed dense part
-                        # (past V2_MAX_N) folds by the scatter-add
-                        pd["fold_planes_ext"] = True
-                        sparse = _append_fold_entries(
-                            prep.sparse, prep.fold_rows, np.float64)
-                    allow_s = min(
-                        96.0,
-                        max(32.0, 1.5 * prep.ts * WINDOW
-                            / max(prep.sparse.nnz, 1)),
-                        slot_stream_budget(sparse.vals, prep.nw, df)
-                        / max(sparse.nnz, 1))
-                    psp = _sell8d_plan(
-                        sparse,
-                        {**extra, "sell8d_nw": prep.nw,
-                         "sell8d_allow": allow_s,
-                         "sell8d_striped": striped,
-                         "sell8d_max_spill": max_sp})
+                    if (not df and hints.get("device_type") == "cuda"
+                            and sell_cs_fmt.use_sell_cs(
+                                "cuda",
+                                slot_value_mode(sparse.vals, prep.nw, df),
+                                prep.ts,
+                                sell_cs_fmt.layout_bytes(
+                                    sparse.row_lengths))):
+                        # the light rows with explicit columns (K12):
+                        # every one of them, so no straggler of its own
+                        psp = _finish_rest(
+                            {"sell_cs": sell_cs_fmt.pack_sell_cs(sparse),
+                             "value_mode": "f32"},
+                            [extra.get("rest_host")])
+                    else:
+                        if (df and "sell8w_v2" in pd
+                                and "mega_sub_rows" not in pd
+                                and "rest_rows" not in pd):
+                            # f64 folds by x-extension: the light plan
+                            # gains a 1.0-valued entry (row fold_rows[j],
+                            # column n + j) per compact heavy row, and the
+                            # executor appends the heavy output to x; a
+                            # windowed dense part (past V2_MAX_N) folds by
+                            # the scatter-add
+                            pd["fold_planes_ext"] = True
+                            sparse = _append_fold_entries(
+                                prep.sparse, prep.fold_rows, np.float64)
+                        allow_s = min(
+                            96.0,
+                            max(32.0, 1.5 * prep.ts * WINDOW
+                                / max(prep.sparse.nnz, 1)),
+                            slot_stream_budget(sparse.vals, prep.nw, df)
+                            / max(sparse.nnz, 1))
+                        psp = _sell8d_plan(
+                            sparse,
+                            {**extra, "sell8d_nw": prep.nw,
+                             "sell8d_allow": allow_s,
+                             "sell8d_striped": striped,
+                             "sell8d_max_spill": max_sp})
                     return {"hybrid": (pd, psp),
                             "pad_ratio": prep.tiles * WINDOW / mat.nnz,
                             "value_mode": psp.get("value_mode"),
@@ -808,6 +836,8 @@ def _place(plan: Dict[str, Any], device) -> Dict[str, Any]:
                       for lo, hi, vis, pk in v]
         elif k in ("sell8w_v2", "sell8w_v2w"):
             out[k] = sell_ops.prepare_sell(v, device, slot_mode=False)
+        elif k == "sell_cs":
+            out[k] = sell_cs_ops.prepare_cs(v, device)
         elif k == "dia":
             out[k] = dia_ops.prepare_dia(v, device)
         elif k == "coo2":
@@ -930,12 +960,16 @@ def graph_part_inputs(handle: "SpmvHandle",
     return _graph_fns(handle.method, handle.plan, handle.m)[0](x)
 
 
-#: the plan keys of SELL tile streams
-_SELL_KEYS = ("sell8d", "sell8d_stripes", "sell8w_v2", "sell8w_v2w")
+#: the plan keys of SELL streams
+_SELL_KEYS = ("sell8d", "sell8d_stripes", "sell8w_v2", "sell8w_v2w",
+              "sell_cs")
 
 
 def _sell_fn(p: Dict[str, Any], m_rows: int):
     """``x -> y`` over a placed plan's SELL streams, before its folds."""
+    if "sell_cs" in p:
+        cs = p["sell_cs"]
+        return lambda x: sell_cs_ops.cs_spmv(cs, x)
     if "sell8d_stripes" not in p:
         st = next(p[k] for k in _SELL_KEYS if k in p)
         return lambda x: sell_ops.sell_spmv(st, x)[:st.m]
@@ -1179,6 +1213,7 @@ def create_handle(a: CsrMatrix,
         nblocks, fill = bcsr_fmt.bcsr_profile(a)
         if fill >= 0.02 and nblocks * bcsr_fmt.BLOCK ** 2 * 8 <= 4e9:
             resolved = Method.BCSR
+    plan_hints["device_type"] = dev.type
     with span("predeal.build"):
         plan = _build_plan(a, resolved, nthreads, VectorizedWay(vectorized),
                            hints=plan_hints, prices=prices)
