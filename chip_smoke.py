@@ -52,11 +52,12 @@ its ticket counters a CUDA stream); lines ``{"phase": "streams", ...}``.
    bit 15), and ``sell_v1`` on one stream at n = 2.5M;
 3a. sell_cs: K12, the row-split hybrid's light rows in SELL-32-σ with
    explicit columns, on two handles that AUTO must plan as
-   ``hybrid(8w+cs)`` on the card: a 20,000-row power-law matrix with
+   ``hybrid(split+cs)`` on the card: a 20,000-row power-law matrix with
    gaussian f32 values and Graph500 SCALE 19's PageRank matrix as the
    benchmark's ``graph500-s19`` cell draws it (``spmvbench``'s Kronecker
    generator on the card, seed 1).  Per handle: one counted product that
-   must launch ``sell_cs`` and ``sell_row`` and not ``sell_slot``; K12
+   must launch ``sell_cs`` and ``csr_split`` once each and neither
+   ``sell_row`` nor ``sell_slot``; K12
    against its plain version (and the number of positions whose bits
    differ), and with an inf at x[0], which padding slots read: NaN where
    the plain version has NaN; K12 and the handle 20 calls each bit for
@@ -66,6 +67,13 @@ its ticket counters a CUDA stream); lines ``{"phase": "streams", ...}``.
    heavy part's, K12 timed (warm, cold, device) beside that slot stream
    and cuSPARSE on the same rows, and the two whole products in turns;
    lines ``{"phase": "sell_cs", ...}``;
+3b. csr_split: K13, the same handles' heavy rows in row-split CSR with
+   explicit columns: K13 against its plain version bit for bit, K13 20
+   calls bit for bit, the plan's ``describe`` (pieces, rows split); on the
+   graph K13 timed (warm, cold, device) beside K1 row on the SELL-8W
+   stream the CPU's route packs for the same rows and cuSPARSE on them,
+   and the same rows packed at P 512 (more rows split, more tickets)
+   bit for bit their plain version; lines ``{"phase": "csr_split", ...}``;
 4. main path: the bench's nine families (``bench.py``'s generator calls
    and seeds, ``_to_f64`` seed 7 for the f64 ones) through
    ``create_handle(a, device="cuda")`` and ``spmv``, with the AUTO plan
@@ -544,6 +552,8 @@ KERNELS = {
                     "spmv_tpu/ops/pallas_sell.py:77"),
     # no TPU kernel: the hybrid's light rows, where the TPU ran K1 slot
     "sell_cs": ("spmv_tpu_torch/csrc/sell_cs.cu", "none"),
+    # no TPU kernel: the hybrid's heavy rows, where the TPU ran K1 row
+    "csr_split": ("spmv_tpu_torch/csrc/csr_split.cu", "none"),
     # the planner's calibration probes (P1-P9 of baselines/)
     "tile_stream": ("spmv_tpu_torch/csrc/probes.cu",
                     "baselines/probe2_stream.py:55"),
@@ -663,17 +673,18 @@ def scaled_err(y, ref, absref, bound, atol=0.0):
 def plain_kernels():
     """Route every kernel wrapper to its plain version (to time the same
     plan without the kernels)."""
-    from spmv_tpu_torch.ops import coo2, dia, sell, sell_cs
+    from spmv_tpu_torch.ops import coo2, csr_split, dia, sell, sell_cs
     saved = (sell.sell_spmv, dia.dia_spmv, coo2.coo2_pass1,
-             sell_cs.cs_spmv)
+             sell_cs.cs_spmv, csr_split.split_spmv)
     sell.sell_spmv, dia.dia_spmv = sell.sell_plain, dia.dia_plain
     coo2.coo2_pass1 = coo2.coo2_pass1_plain
     sell_cs.cs_spmv = sell_cs.cs_plain
+    csr_split.split_spmv = csr_split.split_plain
     try:
         yield
     finally:
         (sell.sell_spmv, dia.dia_spmv, coo2.coo2_pass1,
-         sell_cs.cs_spmv) = saved
+         sell_cs.cs_spmv, csr_split.split_spmv) = saved
 
 
 def is_dia(st):
@@ -690,6 +701,11 @@ def is_cs(st):
     return hasattr(st, "slice_ptr")
 
 
+def is_split(st):
+    """A row-split CSR stream with explicit columns (K13)."""
+    return hasattr(st, "piece_ptr")
+
+
 def kernel_of(st):
     """The kernel name that runs a placed stream."""
     import torch
@@ -700,13 +716,15 @@ def kernel_of(st):
         return "coo2_pass1"
     if is_cs(st):
         return "sell_cs"
+    if is_split(st):
+        return "csr_split"
     return sell.kernel_name(st)
 
 
 def abs_stream(st):
     if is_dia(st):
         return dataclasses.replace(st, data=st.data.abs())
-    if is_coo2(st) or is_cs(st):
+    if is_coo2(st) or is_cs(st) or is_split(st):
         return dataclasses.replace(st, vals=st.vals.abs())
     return dataclasses.replace(
         st, palette=st.palette.abs(),
@@ -749,6 +767,11 @@ def stream_bound(st, nnz):
         # padding slots, each lane's output row and the slice offsets
         nbytes = nnz * 8 + xy
         stored = nb(st.cols, st.vals, st.rows, st.slice_ptr) + xy
+    elif is_split(st):
+        # a nonzero's column and value; as stored, the piece and row tables
+        nbytes = nnz * 8 + xy
+        stored = nb(st.cols, st.vals, st.piece_ptr, st.piece_row,
+                    st.row_piece) + xy
     else:
         slot = nb(st.meta, st.vals, st.vals_lo) / st.meta.numel()
         binary = st.value_mode == "binary"   # no palette, one add a slot
@@ -804,6 +827,10 @@ def stream_csr(st):
         from spmv_tpu_torch.ops import sell_cs
         rows, cols, vals = sell_cs.cs_decode(st)
         shape = (st.m, st.n)
+    elif is_split(st):
+        from spmv_tpu_torch.ops import csr_split
+        rows, cols, vals = csr_split.split_decode(st)
+        shape = (st.m, st.n)
     else:
         rows, cols, vals = [], [], []
         for t0 in range(0, st.meta.shape[0], sell.PLAIN_TILES):
@@ -832,13 +859,15 @@ def matrix_csr(a, dev):
 def check_stream(st, x, timing=False):
     """Kernel vs plain version on one stream; returns a record."""
     import torch
-    from spmv_tpu_torch.ops import coo2, dia, sell, sell_cs
+    from spmv_tpu_torch.ops import coo2, csr_split, dia, sell, sell_cs
     if is_dia(st):
         run, plain = dia.dia_spmv, dia.dia_plain
     elif is_coo2(st):
         run, plain = coo2.coo2_pass1, coo2.coo2_pass1_plain
     elif is_cs(st):
         run, plain = sell_cs.cs_spmv, sell_cs.cs_plain
+    elif is_split(st):
+        run, plain = csr_split.split_spmv, csr_split.split_plain
     else:
         run, plain = sell.sell_spmv, sell.sell_plain
     absref = plain(abs_stream(st), x.abs())
@@ -1091,8 +1120,9 @@ def _cs_matrices(dev):
 
 
 def sell_cs_phase(dev, kern):
-    """Phase 3a (see the module): K12 on its two handles; its numbers go
-    into ``kern``.  Returns the launch counts of its counted products."""
+    """Phases 3a and 3b (see the module): K12 and K13 on their two
+    handles; their numbers go into ``kern``.  Returns the launch counts of
+    its counted products."""
     import numpy as np
     import torch
     import spmv_tpu_torch as st
@@ -1108,10 +1138,10 @@ def sell_cs_phase(dev, kern):
         h = st.create_handle(a, device=dev)
         predeal_s = time.perf_counter() - t0
         kind = th.plan_kind(h.plan)
-        if kind != "hybrid(8w+cs)":
+        if kind != "hybrid(split+cs)":
             raise AssertionError(f"{name}: AUTO planned {kind} "
                                  f"({h.plan.get('value_mode')}) on the card, "
-                                 "not hybrid(8w+cs)")
+                                 "not hybrid(split+cs)")
         stream = h.plan["hybrid"][1]["sell_cs"]
         x = torch.from_numpy(rng.standard_normal(a.n).astype(np.float32)
                              ).to(dev)
@@ -1119,8 +1149,8 @@ def sell_cs_phase(dev, kern):
         y = st.spmv(h, x)
         torch.cuda.synchronize()
         counts = read_counts()
-        if counts["sell_cs"] != 1 or not counts["sell_row"] \
-                or counts["sell_slot"]:
+        if counts["sell_cs"] != 1 or counts["csr_split"] != 1 \
+                or counts["sell_row"] or counts["sell_slot"]:
             raise AssertionError(f"{name}: a product launched {counts}")
         for k, c in counts.items():
             launches[k] += c
@@ -1162,21 +1192,27 @@ def sell_cs_phase(dev, kern):
                "repeats_its_y": CS_REPEAT_CALLS,
                "bit_diff_vs_plain": diff,
                "inf_x0_nan_rows": int(nan.sum()), "kernel": rec}
+        against = None
         if timing:
             keep_kernel(kern, "sell_cs", rec, stream, f"{name} light part")
-            out.update(_cs_against_8d(h, a, x, ref, absref, bound))
+            against = _cs_against_8d(h, a, x, ref, absref, bound)
+            out.update(against["record"])
         log(json.dumps(out))
-        del h, stream
+        log(json.dumps(_split_checks(name, h, x, kern, against)))
+        del h, stream, against
         gc.collect()
         torch.cuda.empty_cache()
     return launches
 
 
 def _cs_against_8d(h, a, x, ref, absref, bound):
-    """The handle ``h`` (K12 light part) beside the plan the CPU's route
-    gives the same matrix (SELL-8D light part, K1 slot), both on the card:
-    the two light streams' bytes and times, the heavy part's bytes, and
-    the two whole products' ms in turns (8d, cs, cs, 8d)."""
+    """The handle ``h`` (K12 light part, K13 heavy part) beside the plan
+    the CPU's route gives the same matrix (SELL-8D light part on K1 slot,
+    SELL-8W heavy part on K1 row), both on the card: the two light
+    streams' bytes and times, the heavy part's bytes, and the two whole
+    products' ms in turns (8d, cs, cs, 8d).  Returns {"record": those
+    numbers, "heavy_k1": the SELL-8W heavy stream, "prep": the hybrid's
+    parts}."""
     import torch
     from spmv_tpu_torch import handle as th
     from spmv_tpu_torch.formats import sell_cs as cs_fmt
@@ -1203,7 +1239,7 @@ def _cs_against_8d(h, a, x, ref, absref, bound):
     turns = {"8d": [], "cs": []}
     for k in ("8d", "cs", "cs", "8d"):
         turns[k].append(cuda_ms(f8d if k == "8d" else h, x))
-    return {
+    record = {
         "rule": {"sell8d_tiles_estimate": prep.ts,
                  "sell8d_bytes_estimate": cs_fmt.sell8d_bytes(prep.ts),
                  "cs_bytes": cs_fmt.layout_bytes(prep.sparse.row_lengths)},
@@ -1223,6 +1259,64 @@ def _cs_against_8d(h, a, x, ref, absref, bound):
         "product_ms": turns,
         "product_profile": {"cs": profile_calls(h, x),
                             "8d": profile_calls(f8d, x)}}
+    return {"record": record, "heavy_k1": heavy, "prep": prep}
+
+
+#: a second piece length at which K13 is held bit for bit to its plain
+#: version on the graph's heavy rows: more rows split, more tickets taken
+SPLIT_CHECK_PIECE = 512
+
+
+def _split_checks(name, h, x, kern, against):
+    """Phase 3b on one handle: K13 (the heavy part) against its plain
+    version bit for bit and 20 calls bit for bit; with ``against`` (the
+    graph) its times beside K1 row on the CPU route's SELL-8W stream of
+    the same rows and cuSPARSE, and the same rows packed at
+    ``SPLIT_CHECK_PIECE`` bit for bit their plain version.  Returns the
+    phase's line."""
+    from spmv_tpu_torch import handle as th
+    from spmv_tpu_torch.formats import csr_split as split_fmt
+    from spmv_tpu_torch.ops import csr_split
+
+    stream = h.plan["hybrid"][0]["csr_split"]
+    diff = int(bit_diff(csr_split.split_spmv(stream, x),
+                        csr_split.split_plain(stream, x)))
+    if diff:
+        raise AssertionError(f"{name}: K13 differs from its plain version "
+                             f"in {diff} of {stream.m} rows' bits")
+    repeats_its_y(f"{name} csr_split",
+                  lambda v: csr_split.split_spmv(stream, v), x,
+                  calls=CS_REPEAT_CALLS)
+    rec = check_stream(stream, x, timing=against is not None)
+    kern["csr_split"]["max_abs_err"] = max(kern["csr_split"]["max_abs_err"],
+                                           rec["max_abs_err"])
+    out = {"phase": "csr_split", "family": name, "describe":
+           th.describe(h.plan), "heavy_nnz": stream.nnz,
+           "layout_bytes": sum(t.numel() * t.element_size() for t in (
+               stream.cols, stream.vals, stream.piece_ptr, stream.piece_row,
+               stream.row_piece)),
+           "repeats_its_y": CS_REPEAT_CALLS, "bit_diff_vs_plain": diff,
+           "kernel": rec}
+    if against is None:
+        return out
+    keep_kernel(kern, "csr_split", rec, stream, f"{name} heavy part")
+    k1 = check_stream(against["heavy_k1"], x, timing=True)
+    out["k1_row"] = k1
+    out["k13_over_k1_row_device"] = rec["device_ms"] / k1["device_ms"] \
+        if isinstance(rec["device_ms"], float) \
+        and isinstance(k1["device_ms"], float) else "not measured"
+    p = split_fmt.pack_csr_split(against["prep"].dense_sorted,
+                                 piece=SPLIT_CHECK_PIECE)
+    st = csr_split.prepare_split(p, x.device)
+    diff = int(bit_diff(csr_split.split_spmv(st, x),
+                        csr_split.split_plain(st, x)))
+    if diff:
+        raise AssertionError(f"{name}: K13 at P {SPLIT_CHECK_PIECE} differs "
+                             f"from its plain version in {diff} rows' bits")
+    out["second_piece"] = {"piece": SPLIT_CHECK_PIECE,
+                           "split_rows": p.split_rows,
+                           "bit_diff_vs_plain": diff}
+    return out
 
 
 def bit_diff(y, ref):
@@ -1540,6 +1634,8 @@ def family_streams(plan):
         return [(plan["coo2"], None), (plan["coo2"].reduce, None)]
     if "sell_cs" in plan:
         return [(plan["sell_cs"], None)]
+    if "csr_split" in plan:
+        return [(plan["csr_split"], None)]
     if "sell8d_stripes" in plan:
         return [(st, slice(lo, hi))
                 for lo, hi, _vis, st in plan["sell8d_stripes"]]
@@ -1553,7 +1649,7 @@ def keep_kernel(kern, k, rec, stream, family):
     """Keep a kernel's numbers at its largest stream."""
     kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], rec["max_abs_err"])
     size = (stream.data.numel() if is_dia(stream)
-            else stream.vals.numel() if is_cs(stream)
+            else stream.vals.numel() if is_cs(stream) or is_split(stream)
             else stream.meta.numel())
     if size >= kern[k].get("size", -1):
         kern[k].update(size=size, family=family, **{

@@ -114,6 +114,8 @@ def load_kernels() -> SimpleNamespace:
                                      [p] * 6 + [i64] * 3 + [p]),
                 "spmv_sell_cs_launch": ("sell_cs", ctypes.c_int,
                                         [p] * 6 + [i64, p]),
+                "spmv_csr_split_launch": ("csr_split", ctypes.c_int,
+                                          [p] * 9 + [i64, p]),
                 "spmv_probe_tile_stream": ("probes", ctypes.c_int,
                                            [p] * 9 + [i64] * 5 + [p]),
                 "spmv_probe_tile_body": ("probes", ctypes.c_int,

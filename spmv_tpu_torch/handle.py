@@ -5,11 +5,11 @@ packs, routed exactly as the JAX package routes on a TPU), places it on
 ``device``, and binds an ``x -> y`` closure; ``spmv`` then runs only device
 work.  Planning does not depend on the device: the CPU runs the same plans
 as the card, through each kernel's plain PyTorch version, so the CPU tests
-cover the plans the card runs.  One rule reads the device's type: the
-hybrid's light part (below) takes K12's layout only on a CUDA device, so
-every CPU handle keeps the JAX planner's route; a plan built for CUDA
-(``hints={"device_type": "cuda"}``) runs on the CPU through K12's plain
-version.
+cover the plans the card runs.  Two rules read the device's type: the
+hybrid's light and heavy parts (below) take K12's and K13's layouts only
+on a CUDA device, so every CPU handle keeps the JAX planner's route; a
+plan built for CUDA (``hints={"device_type": "cuda"}``) runs on the CPU
+through K12's and K13's plain versions.
 
 Plans and what runs them:
 
@@ -31,7 +31,10 @@ row-split hybrid   8W heavy rows + 8D light rows; the heavy output folds
                    by x-extension (f64).  On a CUDA device an f32 light
                    part that SELL-8D would pad to twice the bytes of
                    SELL-32-σ with explicit columns takes that layout
-                   instead (``ops/sell_cs.py``, K12): ``hybrid(8w+cs)``
+                   instead (``ops/sell_cs.py``, K12): ``hybrid(8w+cs)``;
+                   an f32 heavy part that SELL-8W would pad to twice the
+                   bytes of row-split CSR takes that layout instead
+                   (``ops/csr_split.py``, K13): ``hybrid(split+cs)``
 graph (f32)        hub columns appended to x, heavy rows as SELL-8W v2 (K1
                    row), light rows as SELL-8D (K1 slot) over x extended by
                    the hubs and by the heavy output
@@ -76,8 +79,8 @@ from .types import (CsrMatrix, Method, VectorizedWay, METHOD_NAMES,
                     INT_DTYPE, dtype_name)
 from .formats import (_bf16, dia as dia_fmt, partition, sell as sell_fmt,
                       sell8w as sell8w_fmt)
-from .ops import (coo2 as coo2_ops, dia as dia_ops, sell as sell_ops,
-                  sell_cs as sell_cs_ops)
+from .ops import (coo2 as coo2_ops, csr_split as csr_split_ops,
+                  dia as dia_ops, sell as sell_ops, sell_cs as sell_cs_ops)
 from .formats.prices import Prices, table as price_table
 from .ops import torch_csr
 from .ops.sell import V2_MAX_N
@@ -170,8 +173,9 @@ def plan_kind(plan: Dict[str, Any]) -> str:
     if "graph" in plan:
         return "graph"
     if "hybrid" in plan:
-        return ("hybrid(8w+cs)" if "sell_cs" in plan["hybrid"][1]
-                else "hybrid(8w+8d)")
+        heavy, light = plan["hybrid"]
+        return (f"hybrid({'split' if 'csr_split' in heavy else '8w'}+"
+                f"{'cs' if 'sell_cs' in light else '8d'})")
     if "coo2" in plan:
         return "coo2"
     if "colidx_pad" in plan:
@@ -187,6 +191,20 @@ def plan_kind(plan: Dict[str, Any]) -> str:
         if key in plan:
             return key + rest
     return "serial" if "rows" in plan else "none"
+
+
+def describe(plan: Dict[str, Any]) -> Dict[str, Any]:
+    """A (host or placed) plan's shape: its :func:`plan_kind`, and where a
+    hybrid's heavy rows are row-split CSR (K13) their rows, pieces, the
+    most nonzeros a piece holds and the rows cut into more than one
+    piece."""
+    out: Dict[str, Any] = {"kind": plan_kind(plan)}
+    heavy = plan["hybrid"][0] if "hybrid" in plan else {}
+    if "csr_split" in heavy:
+        sp = heavy["csr_split"]
+        out["heavy"] = {"rows": sp.m, "nnz": sp.nnz, "pieces": sp.npieces,
+                        "piece": sp.piece, "split_rows": sp.split_rows}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -486,10 +504,12 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any],
     priced with ``prices`` (None is the JAX package's table).  With
     ``hints["device_type"]`` "cuda", the hybrid's light part takes
     SELL-32-σ with explicit columns where ``sell_cs.use_sell_cs`` says so
-    (decided from the hybrid's estimates, before any SELL-8D pack).  None
+    (decided from the hybrid's estimates, before any SELL-8D pack), and its
+    heavy part row-split CSR where ``csr_split.use_csr_split`` says so
+    (decided from the SELL-8W estimate, before any SELL-8W pack).  None
     when no tile plan fits: the caller falls through to the chunked SELL
     plan."""
-    from .formats import sell_cs as sell_cs_fmt
+    from .formats import csr_split as csr_split_fmt, sell_cs as sell_cs_fmt
     from .formats.sell8d import (MAX_SPILL_STRIPED, MAX_STRIPES,
                                  column_stripe_bounds, cost_tables,
                                  dense_tile_ns, estimate_sell8d_auto,
@@ -672,8 +692,19 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any],
             if (hybrid_wins and prep.spilled <= 0.02 * mat.nnz
                     and prep.tiles * WINDOW <= 6.7e8):
                 try:
-                    pd = _sell8w_plan(prep.dense_sorted, {})
-                    pd["m_rows"] = prep.dense_sorted.m
+                    dense = prep.dense_sorted
+                    if (not df and hints.get("device_type") == "cuda"
+                            and csr_split_fmt.use_csr_split(
+                                "cuda", slot_value_mode(dense.vals, 1, df),
+                                prep.td, csr_split_fmt.layout_bytes(
+                                    dense.row_lengths))):
+                        # the heavy rows as CSR cut into pieces (K13), in
+                        # their order: the same compact output and fold
+                        pd = {"csr_split": csr_split_fmt.pack_csr_split(
+                            dense), "value_mode": "f32"}
+                    else:
+                        pd = _sell8w_plan(dense, {})
+                    pd["m_rows"] = dense.m
                     pd["fold_rows"] = prep.fold_rows.astype(INT_DTYPE)
                     sparse = prep.sparse
                     if (not df and hints.get("device_type") == "cuda"
@@ -838,6 +869,8 @@ def _place(plan: Dict[str, Any], device) -> Dict[str, Any]:
             out[k] = sell_ops.prepare_sell(v, device, slot_mode=False)
         elif k == "sell_cs":
             out[k] = sell_cs_ops.prepare_cs(v, device)
+        elif k == "csr_split":
+            out[k] = csr_split_ops.prepare_split(v, device)
         elif k == "dia":
             out[k] = dia_ops.prepare_dia(v, device)
         elif k == "coo2":
@@ -962,7 +995,7 @@ def graph_part_inputs(handle: "SpmvHandle",
 
 #: the plan keys of SELL streams
 _SELL_KEYS = ("sell8d", "sell8d_stripes", "sell8w_v2", "sell8w_v2w",
-              "sell_cs")
+              "sell_cs", "csr_split")
 
 
 def _sell_fn(p: Dict[str, Any], m_rows: int):
@@ -970,6 +1003,9 @@ def _sell_fn(p: Dict[str, Any], m_rows: int):
     if "sell_cs" in p:
         cs = p["sell_cs"]
         return lambda x: sell_cs_ops.cs_spmv(cs, x)
+    if "csr_split" in p:
+        sp = p["csr_split"]
+        return lambda x: csr_split_ops.split_spmv(sp, x)
     if "sell8d_stripes" not in p:
         st = next(p[k] for k in _SELL_KEYS if k in p)
         return lambda x: sell_ops.sell_spmv(st, x)[:st.m]

@@ -167,7 +167,7 @@ def test_plain_matches_sell8d_and_f64(m, nnz, seed):
     a = _powerlaw(m, nnz, seed)
     cpu, cuda, prep = _hybrid_plans(a)
     assert th.plan_kind(cpu) == "hybrid(8w+8d)"
-    assert th.plan_kind(cuda) == "hybrid(8w+cs)"
+    assert th.plan_kind(cuda) == "hybrid(split+cs)"
     light = cuda["hybrid"][1]
     assert light["sell_cs"].nnz == prep.sparse.nnz and "rest_rows" not in light
     x = np.random.default_rng(seed).standard_normal(a.n).astype(np.float32)
@@ -186,7 +186,8 @@ def test_plain_matches_sell8d_and_f64(m, nnz, seed):
         assert _scaled_err(parts[kind], ref, absref) <= 1e-5, kind
     assert _scaled_err(parts["cs"], parts["8d"].astype(np.float64),
                        absref) <= 2e-5
-    # the whole product: the same heavy part and fold on both
+    # the whole product: the heavy part on SELL-8W (the CPU's plan) or on
+    # row-split CSR (K13, the CUDA plan), the same fold on both
     ys = [th._make_bound(Method.SELL_C_SIGMA, th._place(p, "cpu"),
                          a.m)(xt).numpy() for p in (cpu, cuda)]
     ref = st.spmv_golden(a.astype(np.float64), x.astype(np.float64))
@@ -217,7 +218,8 @@ def test_rule(device, mode, ratio, want):
 #: name → (matrix, the value mode of its light part, the plan a CUDA
 #: device gets)
 ROUTES = {
-    "f32": (lambda: _powerlaw(10000, 300_000, 2), "f32", "hybrid(8w+cs)"),
+    "f32": (lambda: _powerlaw(10000, 300_000, 2), "f32",
+            "hybrid(split+cs)"),
     "palette": (lambda: _powerlaw(10000, 300_000, 2, "palette"), "palette",
                 "hybrid(8w+8d)"),
     "bf16": (lambda: _powerlaw(10000, 300_000, 2, "bf16"), "bf16",
@@ -240,8 +242,8 @@ def test_planner_takes_the_rule(name):
     assert th.plan_kind(cuda) == want
     bytes_8d = fmt.sell8d_bytes(prep.ts)
     bytes_cs = fmt.layout_bytes(prep.sparse.row_lengths)
-    assert (want == "hybrid(8w+cs)") == (mode == "f32"
-                                         and bytes_8d >= 2 * bytes_cs)
+    assert want.endswith("+cs)") == (mode == "f32"
+                                     and bytes_8d >= 2 * bytes_cs)
     # a CPU handle keeps the JAX planner's route
     h = st.create_handle(a, device="cpu")
     assert th.plan_kind(h.plan) == "hybrid(8w+8d)"
@@ -253,7 +255,7 @@ def test_cuda_plan_runs_on_the_cpu():
     a = _powerlaw(20000, 800_000, 2)
     h = st.create_handle(a, device="cpu")
     plan = th._build_plan(a, h.method, 0, hints={"device_type": "cuda"})
-    assert th.plan_kind(plan) == "hybrid(8w+cs)"
+    assert th.plan_kind(plan) == "hybrid(split+cs)"
     assert plan["value_mode"] == "f32"
     placed = th._place(plan, "cpu")
     assert isinstance(placed["hybrid"][1]["sell_cs"], ops.CsStream)

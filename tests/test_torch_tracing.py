@@ -231,21 +231,21 @@ def test_launch_table_counts_and_clears():
 
 
 def test_sell_cs_span_opens_in_the_product(tmp_path):
-    # the hybrid's light part in SELL-32-σ with explicit columns (a plan
-    # built for a CUDA device, bound on the CPU through the handle's
-    # product closure): its kernel span opens inside each product, beside
-    # the fold; the plain version launches nothing, and the launch table
-    # that chip_smoke.py reads carries the kernel's name (its counted run
-    # on the card must see a launch)
+    # the hybrid's light part in SELL-32-σ with explicit columns and its
+    # heavy part in row-split CSR (a plan built for a CUDA device, bound on
+    # the CPU through the handle's product closure): each kernel span opens
+    # inside each product, beside the fold; the plain versions launch
+    # nothing, and the launch table that chip_smoke.py reads carries the
+    # kernels' names (its counted runs on the card must see launches)
     from spmv_tpu_torch import handle as th
-    from spmv_tpu_torch.ops import sell_cs
+    from spmv_tpu_torch.ops import csr_split, sell_cs
     a = g.power_law(20000, 20000, 800_000, dtype=np.float32, seed=2)
     a = g.CsrMatrix(a.m, a.n, a.rowptr, a.colidx,
                     np.random.default_rng(0).standard_normal(a.nnz)
                     .astype(np.float32))
     h = st.create_handle(a, device="cpu")
     plan = th._build_plan(a, h.method, 0, hints={"device_type": "cuda"})
-    assert th.plan_kind(plan) == "hybrid(8w+cs)"
+    assert th.plan_kind(plan) == "hybrid(split+cs)"
     bound = th._product(th._make_bound(h.method, th._place(plan, "cpu"),
                                        a.m))
     x = _x(h)
@@ -257,14 +257,17 @@ def test_sell_cs_span_opens_in_the_product(tmp_path):
     assert dict(profiling.launches) == before
     table = profiling.spans()
     assert table["spmv.kernel." + sell_cs.KERNEL]["count"] == 2
+    assert table["spmv.kernel." + csr_split.KERNEL]["count"] == 2
     assert table["spmv.product"]["count"] == 2
     assert "spmv.kernel.sell_slot" not in table
+    assert "spmv.kernel.sell_row" not in table
     assert "spmv.glue.fold" in table
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     spans = [e for e in events if e.get("ph") == "X"]
     products = [e for e in spans if e["name"] == "spmv.product"]
-    kernels = [e for e in spans if e["name"] == "spmv.kernel.sell_cs"]
-    assert len(kernels) == 2
+    kernels = [e for e in spans if e["name"] in (
+        "spmv.kernel.sell_cs", "spmv.kernel.csr_split")]
+    assert len(kernels) == 4
     for e in kernels:
         assert any(p["ts"] <= e["ts"] and e["ts"] + e["dur"]
                    <= p["ts"] + p["dur"] + 1e-3 for p in products), e
@@ -272,6 +275,6 @@ def test_sell_cs_span_opens_in_the_product(tmp_path):
         "chip_smoke_for_cs", os.path.join(REPO, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert sell_cs.KERNEL in smoke.KERNELS
-    assert smoke.read_counts()[sell_cs.KERNEL] == \
-        profiling.launches[sell_cs.KERNEL]
+    for kernel in (sell_cs.KERNEL, csr_split.KERNEL):
+        assert kernel in smoke.KERNELS
+        assert smoke.read_counts()[kernel] == profiling.launches[kernel]
