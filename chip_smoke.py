@@ -672,19 +672,37 @@ def scaled_err(y, ref, absref, bound, atol=0.0):
 @contextlib.contextmanager
 def plain_kernels():
     """Route every kernel wrapper to its plain version (to time the same
-    plan without the kernels)."""
+    plan without the kernels): the stream kinds of ``ops.KINDS``, which a
+    plan bound inside the block calls, and the wrappers that the COO2 and
+    striped plans call by name.  Yields ``bind(h)``: ``h``'s plan bound
+    inside the block, x and y permuted as ``h`` permutes them."""
+    import numpy as np
+    import torch
+    from spmv_tpu_torch import handle as th, ops
     from spmv_tpu_torch.ops import coo2, csr_split, dia, sell, sell_cs
-    saved = (sell.sell_spmv, dia.dia_spmv, coo2.coo2_pass1,
-             sell_cs.cs_spmv, csr_split.split_spmv)
-    sell.sell_spmv, dia.dia_spmv = sell.sell_plain, dia.dia_plain
+    plain = {sell.sell_spmv: sell.sell_plain, dia.dia_spmv: dia.dia_plain,
+             sell_cs.cs_spmv: sell_cs.cs_plain,
+             csr_split.split_spmv: csr_split.split_plain}
+    saved = (dict(ops.KINDS), sell.sell_spmv, coo2.coo2_pass1)
+    for k, kind in saved[0].items():
+        ops.KINDS[k] = dataclasses.replace(
+            kind, product=plain.get(kind.product, kind.product))
+    sell.sell_spmv = sell.sell_plain
     coo2.coo2_pass1 = coo2.coo2_pass1_plain
-    sell_cs.cs_spmv = sell_cs.cs_plain
-    csr_split.split_spmv = csr_split.split_plain
+
+    def bind(h):
+        f = th._make_bound(h.method, h.plan, h.m)
+        if h.perm is None:
+            return f
+        perm = torch.as_tensor(np.asarray(h.perm), dtype=torch.int64,
+                               device=h.device)
+        inv = torch.argsort(perm)
+        return lambda x: f(x[perm])[inv]
     try:
-        yield
+        yield bind
     finally:
-        (sell.sell_spmv, dia.dia_spmv, coo2.coo2_pass1,
-         sell_cs.cs_spmv, csr_split.split_spmv) = saved
+        ops.KINDS.update(saved[0])
+        sell.sell_spmv, coo2.coo2_pass1 = saved[1:]
 
 
 def is_dia(st):
@@ -1215,6 +1233,7 @@ def _cs_against_8d(h, a, x, ref, absref, bound):
     parts}."""
     import torch
     from spmv_tpu_torch import handle as th
+    from spmv_tpu_torch import ops
     from spmv_tpu_torch.formats import sell_cs as cs_fmt
     from spmv_tpu_torch.formats.sell8d import prepare_hybrid
 
@@ -1241,7 +1260,7 @@ def _cs_against_8d(h, a, x, ref, absref, bound):
         turns[k].append(cuda_ms(f8d if k == "8d" else h, x))
     record = {
         "rule": {"sell8d_tiles_estimate": prep.ts,
-                 "sell8d_bytes_estimate": cs_fmt.sell8d_bytes(prep.ts),
+                 "sell8d_bytes_estimate": ops.sell_bytes(prep.ts),
                  "cs_bytes": cs_fmt.layout_bytes(prep.sparse.row_lengths)},
         "sell8d_light": {"tiles": slot.meta.shape[0],
                          "bytes": nb(slot.meta, slot.vals, slot.vals_lo),
@@ -1864,9 +1883,10 @@ def main_path(dev, kern, gpu):
         if plan_kind(h.plan) == "bcsr":
             extra = bcsr_tf32(h, x, ref, absref, bound)
         ms = cuda_ms(h, x)
-        with plain_kernels():
-            y_plain = h(x)
-            plain_ms = cuda_ms(h, x)
+        with plain_kernels() as bind:
+            h_plain = bind(h)
+            y_plain = h_plain(x)
+            plain_ms = cuda_ms(h_plain, x)
         rel_p, _, ok_p = scaled_err(y_plain.cpu(), ref, absref, bound, atol)
         if not ok_p:
             raise AssertionError(f"{name}: plain path scaled error "

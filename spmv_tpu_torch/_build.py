@@ -26,7 +26,10 @@ import threading
 from types import SimpleNamespace
 from typing import List, Optional, Sequence
 
-__all__ = ["BUILD_DIR", "check", "compile_shared", "load_kernels", "nvcc_path"]
+from .utils.profiling import launches
+
+__all__ = ["BUILD_DIR", "check", "compile_shared", "launch", "load_kernels",
+           "nvcc_path"]
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -143,3 +146,14 @@ def check(lib: SimpleNamespace, err: int, what: str) -> None:
     if err:
         msg = lib.spmv_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def launch(kernel: str, entry: str, *args, n: int = 1) -> None:
+    """Every kernel launch: the entry point ``entry`` called with ``args``
+    (built on first use), a CUDA error raised, ``n`` launches of
+    ``kernel`` counted in ``profiling.launches``."""
+    lib = _kernels if _kernels is not None else load_kernels()
+    err = getattr(lib, entry)(*args)
+    if err:
+        check(lib, err, kernel)
+    launches[kernel] += n

@@ -5,8 +5,9 @@ SELL kernels that :func:`..formats.prices.derive_prices` turns into a
 price table.
 
 Kernels (a wrapper each; a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel, any other device raises; each launch adds one
-to the wrapper's count):
+tensor launches the kernel, any other device raises, by the kernel
+wrappers' device switch ``ops.require_cpu``; each launch goes through
+``_build.launch`` and adds one to the kernel's count):
 
 * :func:`tile_stream` — P1 (``probe2_stream.py:make_stream_fn``), P3
   (``probe3_v2proto.py:pallas_huge``), P7
@@ -59,8 +60,8 @@ import torch
 from .. import _build
 from ..formats import _bf16
 from ..formats.sell8w import LANES, SUB, WINDOW
+from ..ops import require_cpu
 from ..ops.sell import sm_count
-from ..utils.profiling import launches
 from . import timing
 
 __all__ = ["tile_stream", "tile_stream_plain", "tile_body", "tile_body_plain",
@@ -72,7 +73,7 @@ __all__ = ["tile_stream", "tile_stream_plain", "tile_body", "tile_body_plain",
            "probe_stream", "probe_g8", "probe_huge", "probe_v2proto",
            "probe_body", "probe_tiny", "probe_step", "probe_fma",
            "probe_wide_gather", "p9_arrays", "run_probes", "calibrate",
-           "KERNELS"]
+           "time_kernels", "calibration_figures", "KERNELS"]
 
 #: the probe kernels, under whose names ``profiling.launches`` counts their
 #: launches
@@ -85,18 +86,13 @@ BODY_GATHERS = {"full": 0, "no_dim1": 1, "none": 2}
 P9_NW = 8
 
 
-def _count(name: str, n: int = 1) -> None:
-    launches[name] += n
-
-
 def _on_card(name: str, *ts: torch.Tensor) -> bool:
     """False for CPU tensors (the plain version runs); True for contiguous
     CUDA tensors on one device; raises for anything else."""
     dev = ts[0].device
-    if dev.type == "cpu":
-        return False
     if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
+        require_cpu(name, dev)
+        return False
     for t in ts:
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: every input must be a contiguous "
@@ -408,15 +404,13 @@ def tile_stream(vals: torch.Tensor, block: int, accumulate: bool,
                          "int32 zeros")
     out = torch.empty((SUB, LANES) if accumulate else (nsteps, SUB, LANES),
                       dtype=torch.float32, device=dev)
-    lib = _build.load_kernels()
-    err = lib.spmv_probe_tile_stream(
-        _aligned(vals).data_ptr(), _aligned(c).data_ptr(), out.data_ptr(),
-        tabs.chunks.data_ptr(), tabs.slot_out.data_ptr(),
-        tabs.slot_ptr.data_ptr(), tabs.node_ptr.data_ptr(),
-        tabs.partial.data_ptr(), ticket.data_ptr(), len(sp.chunks),
-        sp.nslots, sp.nnodes, block, int(accumulate), _stream(dev))
-    _build.check(lib, err, "tile_stream")
-    _count("tile_stream")
+    _build.launch(
+        "tile_stream", "spmv_probe_tile_stream", _aligned(vals).data_ptr(),
+        _aligned(c).data_ptr(), out.data_ptr(), tabs.chunks.data_ptr(),
+        tabs.slot_out.data_ptr(), tabs.slot_ptr.data_ptr(),
+        tabs.node_ptr.data_ptr(), tabs.partial.data_ptr(), ticket.data_ptr(),
+        len(sp.chunks), sp.nslots, sp.nnodes, block, int(accumulate),
+        _stream(dev))
     return out
 
 
@@ -525,9 +519,8 @@ def tile_body(b: BodyStream, init: torch.Tensor) -> torch.Tensor:
                  dev), stamp=(b.ginfo.data_ptr(), b.ginfo._version))
     sp = tabs.split
     vals = None if b.value_mode in ("palette", "dyadic") else b.vals
-    lib = _build.load_kernels()
-    err = lib.spmv_probe_tile_body(
-        _aligned(b.meta).data_ptr(),
+    _build.launch(
+        "tile_body", "spmv_probe_tile_body", _aligned(b.meta).data_ptr(),
         None if vals is None else _aligned(vals).data_ptr(),
         b.palette.data_ptr(), b.tinfo.data_ptr(), b.ginfo.data_ptr(),
         b.x.data_ptr(), init.data_ptr(), out.data_ptr(),
@@ -538,8 +531,6 @@ def tile_body(b: BodyStream, init: torch.Tensor) -> torch.Tensor:
         len(sp.zero_groups), sp.nslots, sp.nnodes, b.g,
         BODY_VALUES[b.value_mode], BODY_GATHERS[b.gather], int(b.mask),
         int(b.fixed_window), _stream(dev))
-    _build.check(lib, err, "tile_body")
-    _count("tile_body")
     return out
 
 
@@ -635,8 +626,8 @@ def window_gather(wide: bool, a0, a1, a2, x, nsteps: int) -> torch.Tensor:
                       lambda: (gather_split(g, nsteps, nsm), dev))
     sp = tabs.split
     out = torch.empty(SUB, LANES, dtype=torch.float32, device=dev)
-    lib = _build.load_kernels()
-    err = lib.spmv_probe_window_gather(
+    _build.launch(
+        "window_gather", "spmv_probe_window_gather",
         *(_aligned(t).data_ptr() for t in planes[:2]),
         None if wide else _aligned(a2).data_ptr(), _aligned(x).data_ptr(),
         out.data_ptr(), tabs.chunks.data_ptr(), tabs.writes.data_ptr(),
@@ -644,8 +635,6 @@ def window_gather(wide: bool, a0, a1, a2, x, nsteps: int) -> torch.Tensor:
         tabs.node_ptr.data_ptr(), tabs.partial.data_ptr(),
         tabs.tickets.data_ptr(), len(sp.chunks), sp.nslots, sp.nnodes,
         int(wide), _stream(dev))
-    _build.check(lib, err, "window_gather")
-    _count("window_gather")
     return out
 
 
@@ -668,11 +657,8 @@ def tiny(v: torch.Tensor) -> torch.Tensor:
         return tiny_plain(v)
     v = _tiny_input(v)
     out = torch.empty_like(v)
-    lib = _build.load_kernels()
-    err = lib.spmv_probe_tiny(v.data_ptr(), out.data_ptr(),
-                              _stream(v.device))
-    _build.check(lib, err, "tiny")
-    _count("tiny")
+    _build.launch("tiny", "spmv_probe_tiny", v.data_ptr(), out.data_ptr(),
+                  _stream(v.device))
     return out
 
 
@@ -695,12 +681,9 @@ def tiny_chain(v: torch.Tensor, n: int, pdl: bool = True) -> torch.Tensor:
     if n < 1:
         raise ValueError("tiny_chain: at least one launch")
     a, b = torch.empty_like(v), torch.empty_like(v)
-    lib = _build.load_kernels()
-    err = lib.spmv_probe_tiny_chain(v.data_ptr(), a.data_ptr(),
-                                    b.data_ptr(), n, int(pdl),
-                                    _stream(v.device))
-    _build.check(lib, err, "tiny_chain")
-    _count("tiny", n)
+    _build.launch("tiny", "spmv_probe_tiny_chain", v.data_ptr(),
+                  a.data_ptr(), b.data_ptr(), n, int(pdl), _stream(v.device),
+                  n=n)
     return a if n % 2 else b
 
 
@@ -719,11 +702,8 @@ def fma_err(a, b, p) -> torch.Tensor:
            for t in (a, b, p)):
         raise ValueError("fma_err: three f32 tensors of one shape")
     e = torch.empty_like(a)
-    lib = _build.load_kernels()
-    err = lib.spmv_probe_fma_err(a.data_ptr(), b.data_ptr(), p.data_ptr(),
-                                 e.data_ptr(), a.numel(), _stream(a.device))
-    _build.check(lib, err, "fma_err")
-    _count("fma_err")
+    _build.launch("fma_err", "spmv_probe_fma_err", a.data_ptr(), b.data_ptr(),
+                  p.data_ptr(), e.data_ptr(), a.numel(), _stream(a.device))
     return e
 
 
@@ -1264,36 +1244,29 @@ def row_slice(a, rows: int):
 
 
 def calibrate(mats: dict, device, probes: Optional[dict] = None) -> dict:
-    """The named figures :func:`derive_prices` reads, on ``device``:
-
-    * from the probes (``probes``, :func:`run_probes`' records): the launch
-      (P6's eager chain, ``tiny_pallas_ms``; see :func:`derive_prices`);
-      the stream ceiling, the best of P1/P3 with the L2 cold
-      (``stream_gbs``), and beside it the best chained, warm figure
-      (``stream_gbs_warm``, not read by the table); and beside the table
-      P4's bf16 tile over its palette tile (``vals_ns_p4``, a
-      cross-check).  The ceiling prices x bytes that a stripe or window
-      reads from device memory, as the TPU's HBM figure did; a chained
-      48 MB stream on the card is served partly from its 50 MB L2, so the
-      warm figure is not that rate.  The cold figure is taken after
-      :func:`flush_l2`, whose dirty lines are written back during the
-      call: it holds that write-back too;
-    * from the real kernels on ``mats``: ``uniform`` (f32) and
-      ``uniform_f64`` at nw 1-8 (K1 slot, K2 slot df16; df at nw 8;
-      ``vals_ns``: the nw = 4 pack forced to bf16 values over the same
-      pack with its palette, the JAX package's method for ``_VALS_NS``),
-      ``clustered`` and ``clustered_f64`` in row mode (K1 row, K2 row df16
-      and df), ``wide`` (n > 2M) at nw 1-8 (K6), and ``webbase``: its
-      light part at g 8 and 16 (the step solve), its graph plan's straggler
-      stream (f32 and f64: what the handle pays a straggler, launches
-      included), hub gather and fold; beside the table, the straggler
-      price on :func:`long_rest`'s stream (``rest_ns_long``, f32).
-
-    Returns ``{"figures": ..., "detail": ...}``."""
-    from ..formats import prices as prices_mod
+    """The named figures :func:`derive_prices` reads, on ``device``: the
+    real kernels timed on ``mats`` (:func:`time_kernels`), and with the
+    probes' records (``probes``, else :func:`run_probes` on ``mats``) read
+    into figures (:func:`calibration_figures`).  Returns ``{"figures":
+    ..., "detail": ...}``, the detail :func:`time_kernels`'."""
     probes = probes if probes is not None else run_probes(mats, device)
-    p4 = {r["variant"]: r for r in probes["P4"]}
-    stream = probes["P1"] + [probes["P3"]]
+    detail = time_kernels(mats, device)
+    return {"figures": calibration_figures(probes, detail), "detail": detail}
+
+
+def time_kernels(mats: dict, device) -> dict:
+    """The real kernels' times on ``mats`` (the JAX package's
+    ``probe_cell_w_r5``, ``probe_webbase_r4e``, ``probe_df_costs`` and
+    ``probe_webbase_r4b`` methods): ``uniform`` (f32) and ``uniform_f64``
+    at nw 1-8 (K1 slot, K2 slot df16; df at nw 8; the nw = 4 pack forced
+    to bf16 values beside the same pack with its palette, the JAX
+    package's method for ``_VALS_NS``), ``clustered`` and
+    ``clustered_f64`` in row mode (K1 row, K2 row df16 and df), ``wide``
+    (n > 2M) at nw 1-8 (K6), and ``webbase``: its light part at g 8 and
+    16 (the step solve), and under ``"graph"`` its graph plan's straggler
+    stream (f32 and f64: what the handle pays a straggler, launches
+    included), hub gather and fold, and the straggler price on
+    :func:`long_rest`'s stream (``rest_ns_long``, f32)."""
     detail = {"slot": slot_tiles(mats["uniform"], device),
               "slot_df16": slot_tiles(mats["uniform_f64"], device),
               "slot_df": slot_tiles(mats["uniform_f64"], device, nws=(8,),
@@ -1309,7 +1282,36 @@ def calibrate(mats: dict, device, probes: Optional[dict] = None) -> dict:
     detail["step_solve"] = step_solve(light, prep.nw, device)
     detail["light_nw"] = prep.nw
     rest = graph_rest(mats["webbase"], prep, light, prep.nw)
+    long = long_rest(light, prep.nw)
     m = mats["webbase"].m
+    detail["graph"] = {
+        "rest_ns": rest_ns(rest, m, device, torch.float32),
+        "rest_ns_df": rest_ns(rest, m, device, torch.float64),
+        "hub_ns": hub_ns(prep.hub_cols, mats["webbase"].n, device),
+        "fold_ns": fold_ns(prep.fold_rows, m, device),
+        "rest_nnz": len(rest[0]),
+        "rest_ns_long": rest_ns(long, m, device, torch.float32),
+        "rest_nnz_long": len(long[0])}
+    return detail
+
+
+def calibration_figures(probes: dict, detail: dict) -> dict:
+    """The named figures :func:`derive_prices` reads, from the probes'
+    records and :func:`time_kernels`' detail, with no measurement: the
+    launch (P6's eager chain, ``tiny_pallas_ms``; see
+    :func:`derive_prices`); the stream ceiling, the best of P1/P3 with the
+    L2 cold (``stream_gbs``), and beside it the best chained, warm figure
+    (``stream_gbs_warm``, not read by the table); beside the table P4's
+    bf16 tile over its palette tile (``vals_ns_p4``, a cross-check); and
+    the real kernels' figures.  The ceiling prices x bytes that a stripe
+    or window reads from device memory, as the TPU's HBM figure did; a
+    chained 48 MB stream on the card is served partly from its 50 MB L2,
+    so the warm figure is not that rate.  The cold figure is taken after
+    :func:`flush_l2`, whose dirty lines are written back during the call:
+    it holds that write-back too."""
+    from ..formats import prices as prices_mod
+    p4 = {r["variant"]: r for r in probes["P4"]}
+    stream = probes["P1"] + [probes["P3"]]
     figures = {
         "launch_ns": probes["P6"]["tiny_pallas_ms"] * 1e6,
         "stream_gbs": max(r["cold_gbs"] for r in stream),
@@ -1325,17 +1327,9 @@ def calibrate(mats: dict, device, probes: Optional[dict] = None) -> dict:
         "slot_df_ns": detail["slot_df"][8]["ns"],
         "slot_w_ns": {w: v["ns"] for w, v in detail["slot_w"].items()},
         "row_ns": detail["row"]["ns"], "row_df_ns": detail["row_df"]["ns"],
-        "row_df16_ns": detail["row_df16"]["ns"],
-        "rest_ns": rest_ns(rest, m, device, torch.float32),
-        "rest_ns_df": rest_ns(rest, m, device, torch.float64),
-        "hub_ns": hub_ns(prep.hub_cols, mats["webbase"].n, device),
-        "fold_ns": fold_ns(prep.fold_rows, m, device)}
-    figures["rest_nnz"] = len(rest[0])
-    long = long_rest(light, prep.nw)
-    figures["rest_ns_long"] = rest_ns(long, m, device, torch.float32)
-    figures["rest_nnz_long"] = len(long[0])
+        "row_df16_ns": detail["row_df16"]["ns"], **detail["graph"]}
     prices_mod.derive_prices(figures)       # every figure it needs is here
-    return {"figures": figures, "detail": detail}
+    return figures
 
 
 def run_probes(mats: dict, device) -> dict:

@@ -21,7 +21,8 @@ each nonzero once, and needs no windows:
   planes in order), ``piece_row`` its row and ``row_piece`` each row's
   first piece; the kernel gives each piece a warp.
 
-:func:`use_csr_split` is the rule that picks this layout over SELL-8W.
+``ops.use_card_layout`` is the rule that picks this layout over SELL-8W
+(``ops.card_layout``).
 """
 
 from __future__ import annotations
@@ -32,15 +33,12 @@ import numpy as np
 
 from ..types import CsrMatrix
 
-__all__ = ["PIECE", "TILE_BYTES", "CsrSplit", "pack_csr_split",
-           "piece_bounds", "layout_bytes", "sell8w_bytes", "use_csr_split"]
+__all__ = ["PIECE", "CsrSplit", "pack_csr_split", "piece_bounds",
+           "layout_bytes"]
 
 #: the most nonzeros a piece holds (P): the fastest of 256 to 16,384 on
 #: Graph500 SCALE 19's heavy rows on the H100 (PERF.md §6)
 PIECE = 4096
-#: bytes of one f32 SELL-8W tile: (8, 128) slots of int16 meta and f32
-#: value
-TILE_BYTES = 8 * 128 * (2 + 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,22 +94,6 @@ def layout_bytes(row_lengths, piece: int = PIECE) -> int:
     lens = np.asarray(row_lengths, dtype=np.int64)
     npieces = int(_pieces_a_row(lens, piece).sum())
     return int(lens.sum()) * 8 + npieces * 8 + 4 + (len(lens) + 1) * 4
-
-
-def sell8w_bytes(tiles: int) -> int:
-    """The bytes of an f32 SELL-8W stream of ``tiles`` tiles."""
-    return int(tiles) * TILE_BYTES
-
-
-def use_csr_split(device_type: str, mode: str, sell8w_tiles: int,
-                  split_bytes: int) -> bool:
-    """Whether a hybrid's heavy part takes this layout (K13) instead of
-    SELL-8W (K1 row): on a CUDA device, for f32 values (``mode`` as
-    ``sell8d.slot_value_mode`` reads them; a palette, bf16 or double-float
-    SELL-8W stream keeps its narrower values), where the SELL-8W stream's
-    bytes are at least twice this layout's."""
-    return (device_type == "cuda" and mode == "f32"
-            and sell8w_bytes(sell8w_tiles) >= 2 * split_bytes)
 
 
 def pack_csr_split(a: CsrMatrix, piece: int = PIECE) -> CsrSplit:

@@ -20,7 +20,8 @@ this layout stores each nonzero's column beside its value:
   32 · L slots), ``rows`` each lane's output row (-1 past m), so that one
   pass writes every one of the m output rows.
 
-:func:`use_sell_cs` is the rule that picks this layout over SELL-8D.
+``ops.use_card_layout`` is the rule that picks this layout over SELL-8D
+(``ops.card_layout``).
 """
 
 from __future__ import annotations
@@ -31,14 +32,10 @@ import numpy as np
 
 from ..types import CsrMatrix
 
-__all__ = ["SLICE", "TILE_BYTES", "SellCS", "pack_sell_cs", "layout_bytes",
-           "sell8d_bytes", "use_sell_cs"]
+__all__ = ["SLICE", "SellCS", "pack_sell_cs", "layout_bytes"]
 
 #: rows a slice: one warp, one thread a row
 SLICE = 32
-#: bytes of one f32 SELL-8D tile: (8, 128) slots of int16 meta and f32
-#: value
-TILE_BYTES = 8 * 128 * (2 + 4)
 #: bytes a slot (int32 column, f32 value) and a lane's output row (int32)
 _SLOT_BYTES = 8
 _ROW_BYTES = 4
@@ -83,21 +80,6 @@ def layout_bytes(row_lengths) -> int:
     _o, padded, slen = _sorted_lengths(row_lengths)
     return (int(slen.sum()) * SLICE * _SLOT_BYTES + len(padded) * _ROW_BYTES
             + (len(slen) + 1) * 4)
-
-
-def sell8d_bytes(tiles: int) -> int:
-    """The bytes of an f32 SELL-8D stream of ``tiles`` tiles."""
-    return int(tiles) * TILE_BYTES
-
-
-def use_sell_cs(device_type: str, value_mode: str, sell8d_tiles: int,
-                cs_bytes: int) -> bool:
-    """Whether a hybrid's light part takes this layout (K12) instead of
-    SELL-8D (K1 slot): on a CUDA device, for f32 values (a palette, bf16
-    or double-float SELL-8D stream keeps its narrower values), where the
-    SELL-8D stream's bytes are at least twice this layout's."""
-    return (device_type == "cuda" and value_mode == "f32"
-            and sell8d_bytes(sell8d_tiles) >= 2 * cs_bytes)
 
 
 def pack_sell_cs(a: CsrMatrix) -> SellCS:

@@ -5,11 +5,13 @@ packs, routed exactly as the JAX package routes on a TPU), places it on
 ``device``, and binds an ``x -> y`` closure; ``spmv`` then runs only device
 work.  Planning does not depend on the device: the CPU runs the same plans
 as the card, through each kernel's plain PyTorch version, so the CPU tests
-cover the plans the card runs.  Two rules read the device's type: the
-hybrid's light and heavy parts (below) take K12's and K13's layouts only
-on a CUDA device, so every CPU handle keeps the JAX planner's route; a
-plan built for CUDA (``hints={"device_type": "cuda"}``) runs on the CPU
-through K12's and K13's plain versions.
+cover the plans the card runs.  One rule reads the device's type
+(``ops.use_card_layout``, through ``ops.card_layout``): the f32 hybrid's
+light and heavy parts (below) take K12's and K13's layouts only on a CUDA
+device, so every CPU handle keeps the JAX planner's route; a plan built
+for CUDA (``hints={"device_type": "cuda"}``) runs on the CPU through K12's
+and K13's plain versions.  ``ops.KINDS`` says what places and runs each
+kernel stream of a plan.
 
 Plans and what runs them:
 
@@ -73,19 +75,15 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-from torch.autograd import profiler as _torch_profiler
 
 from .types import (CsrMatrix, Method, VectorizedWay, METHOD_NAMES,
                     INT_DTYPE, dtype_name)
 from .formats import (_bf16, dia as dia_fmt, partition, sell as sell_fmt,
                       sell8w as sell8w_fmt)
-from .ops import (coo2 as coo2_ops, csr_split as csr_split_ops,
-                  dia as dia_ops, sell as sell_ops, sell_cs as sell_cs_ops)
 from .formats.prices import Prices, table as price_table
-from .ops import torch_csr
+from .ops import KINDS, card_layout, sell as sell_ops, torch_csr
 from .ops.sell import V2_MAX_N
-from .utils import profiling
-from .utils.profiling import dev_put, span, spanned
+from .utils.profiling import dev_put, live, opening, span, spanned
 
 __all__ = [
     "SpmvHandle",
@@ -173,11 +171,10 @@ def plan_kind(plan: Dict[str, Any]) -> str:
     if "graph" in plan:
         return "graph"
     if "hybrid" in plan:
-        heavy, light = plan["hybrid"]
-        return (f"hybrid({'split' if 'csr_split' in heavy else '8w'}+"
-                f"{'cs' if 'sell_cs' in light else '8d'})")
-    if "coo2" in plan:
-        return "coo2"
+        # each part by its stream's kind; column stripes are "8d"
+        heavy, light = (next((KINDS[k].short for k in part if k in KINDS),
+                             "8d") for part in plan["hybrid"])
+        return f"hybrid({heavy}+{light})"
     if "colidx_pad" in plan:
         return "balanced2" if "sub_start" in plan else "scan"
     if "cols" in plan:
@@ -187,7 +184,7 @@ def plan_kind(plan: Dict[str, Any]) -> str:
     rest = "+rest" if ("rest_rows" in plan or "rest" in plan) else ""
     if "sell8d_stripes" in plan:
         return f"sell8d-striped[{len(plan['sell8d_stripes'])}]" + rest
-    for key in ("sell8d", "sell8w_v2", "sell8w_v2w", "dia"):
+    for key in KINDS:
         if key in plan:
             return key + rest
     return "serial" if "rows" in plan else "none"
@@ -195,15 +192,13 @@ def plan_kind(plan: Dict[str, Any]) -> str:
 
 def describe(plan: Dict[str, Any]) -> Dict[str, Any]:
     """A (host or placed) plan's shape: its :func:`plan_kind`, and where a
-    hybrid's heavy rows are row-split CSR (K13) their rows, pieces, the
-    most nonzeros a piece holds and the rows cut into more than one
-    piece."""
+    hybrid's heavy part is of a kind that tells of itself (``Kind.info``:
+    row-split CSR, K13) what it tells."""
     out: Dict[str, Any] = {"kind": plan_kind(plan)}
     heavy = plan["hybrid"][0] if "hybrid" in plan else {}
-    if "csr_split" in heavy:
-        sp = heavy["csr_split"]
-        out["heavy"] = {"rows": sp.m, "nnz": sp.nnz, "pieces": sp.npieces,
-                        "piece": sp.piece, "split_rows": sp.split_rows}
+    for key in heavy:
+        if key in KINDS and KINDS[key].info is not None:
+            out["heavy"] = KINDS[key].info(heavy[key])
     return out
 
 
@@ -501,21 +496,19 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any],
     hint, and the f32 last resort).  Past V2_MAX_N columns slot mode is
     column stripes or one windowed stream, by the JAX planner's cost gate,
     and row mode is a windowed ``sell8w_v2w`` stream.  Every cost is
-    priced with ``prices`` (None is the JAX package's table).  With
-    ``hints["device_type"]`` "cuda", the hybrid's light part takes
-    SELL-32-σ with explicit columns where ``sell_cs.use_sell_cs`` says so
-    (decided from the hybrid's estimates, before any SELL-8D pack), and its
-    heavy part row-split CSR where ``csr_split.use_csr_split`` says so
-    (decided from the SELL-8W estimate, before any SELL-8W pack).  None
-    when no tile plan fits: the caller falls through to the chunked SELL
-    plan."""
-    from .formats import csr_split as csr_split_fmt, sell_cs as sell_cs_fmt
+    priced with ``prices`` (None is the JAX package's table).  Each part of
+    the hybrid may take a layout of the card's own, by the device type in
+    ``hints["device_type"]`` (``ops.card_layout``: on CUDA, the f32 light
+    rows SELL-32-σ with explicit columns and the f32 heavy rows row-split
+    CSR, each decided from the hybrid's estimates before any SELL pack of
+    the part).  None when no tile plan fits: the caller falls through to
+    the chunked SELL plan."""
     from .formats.sell8d import (MAX_SPILL_STRIPED, MAX_STRIPES,
                                  column_stripe_bounds, cost_tables,
                                  dense_tile_ns, estimate_sell8d_auto,
                                  pack_sell8d, pack_sell8d_striped,
                                  prepare_hybrid, slot_stream_budget,
-                                 slot_value_mode, stripe_overhead_ns)
+                                 stripe_overhead_ns)
     WINDOW = sell8w_fmt.WINDOW
     df = np.dtype(a.dtype) == np.dtype(np.float64)
 
@@ -692,34 +685,21 @@ def _plan_sell(a: CsrMatrix, hints: Dict[str, Any],
             if (hybrid_wins and prep.spilled <= 0.02 * mat.nnz
                     and prep.tiles * WINDOW <= 6.7e8):
                 try:
+                    # the heavy rows (in their order: the same compact
+                    # output and fold) and the light rows, each in the
+                    # card's layout or in SELL
+                    device = hints.get("device_type")
                     dense = prep.dense_sorted
-                    if (not df and hints.get("device_type") == "cuda"
-                            and csr_split_fmt.use_csr_split(
-                                "cuda", slot_value_mode(dense.vals, 1, df),
-                                prep.td, csr_split_fmt.layout_bytes(
-                                    dense.row_lengths))):
-                        # the heavy rows as CSR cut into pieces (K13), in
-                        # their order: the same compact output and fold
-                        pd = {"csr_split": csr_split_fmt.pack_csr_split(
-                            dense), "value_mode": "f32"}
-                    else:
-                        pd = _sell8w_plan(dense, {})
+                    pd = (card_layout("heavy", device, dense, prep.td, 1, df)
+                          or _sell8w_plan(dense, {}))
                     pd["m_rows"] = dense.m
                     pd["fold_rows"] = prep.fold_rows.astype(INT_DTYPE)
                     sparse = prep.sparse
-                    if (not df and hints.get("device_type") == "cuda"
-                            and sell_cs_fmt.use_sell_cs(
-                                "cuda",
-                                slot_value_mode(sparse.vals, prep.nw, df),
-                                prep.ts,
-                                sell_cs_fmt.layout_bytes(
-                                    sparse.row_lengths))):
-                        # the light rows with explicit columns (K12):
-                        # every one of them, so no straggler of its own
-                        psp = _finish_rest(
-                            {"sell_cs": sell_cs_fmt.pack_sell_cs(sparse),
-                             "value_mode": "f32"},
-                            [extra.get("rest_host")])
+                    psp = card_layout("light", device, sparse, prep.ts,
+                                      prep.nw, df)
+                    if psp is not None:
+                        # every light row in it: no straggler of its own
+                        psp = _finish_rest(psp, [extra.get("rest_host")])
                     else:
                         if (df and "sell8w_v2" in pd
                                 and "mega_sub_rows" not in pd
@@ -859,22 +839,12 @@ def _place(plan: Dict[str, Any], device) -> Dict[str, Any]:
             out[k] = tuple(_place(p, device) for p in v)
         elif k in ("light", "heavy"):
             out[k] = _place(v, device)
-        elif k == "sell8d":
-            out[k] = sell_ops.prepare_sell(v, device, slot_mode=True)
+        elif k in KINDS:
+            out[k] = KINDS[k].prepare(v, device)
         elif k == "sell8d_stripes":
             out[k] = [(int(lo), int(hi), _stripe_slices(vis, device),
                        sell_ops.prepare_sell(pk, device, slot_mode=True))
                       for lo, hi, vis, pk in v]
-        elif k in ("sell8w_v2", "sell8w_v2w"):
-            out[k] = sell_ops.prepare_sell(v, device, slot_mode=False)
-        elif k == "sell_cs":
-            out[k] = sell_cs_ops.prepare_cs(v, device)
-        elif k == "csr_split":
-            out[k] = csr_split_ops.prepare_split(v, device)
-        elif k == "dia":
-            out[k] = dia_ops.prepare_dia(v, device)
-        elif k == "coo2":
-            out[k] = coo2_ops.prepare_coo2(v, device)
         elif k in _INDEX_KEYS:
             out[k] = dev_put(np.asarray(v).astype(np.int64), device)
         elif k in _VALUE_KEYS:
@@ -902,9 +872,8 @@ STRIPES = "spmv.glue.stripes"
 
 # The handle's glue between the kernels, each op in its span (the kernels'
 # outputs are computed before the op is called, outside it).  A closure
-# calls these only while spans are live (``profiling.live``, tested inline
-# so that tracing off costs a product no extra call) and the bare op
-# otherwise.
+# calls these only while spans are live (``profiling.live``) and the bare
+# op otherwise.
 _fold_add = spanned("spmv.glue.fold", operator.add)
 _fold_index_add = spanned("spmv.glue.fold", torch.Tensor.index_add_)
 _fold_mega = spanned("spmv.glue.fold", torch_csr.fold_add)
@@ -918,21 +887,14 @@ def _product(fn):
     """The handle's outermost closure: ``fn`` inside the ``spmv.product``
     span, which ``spmv()``, ``h(x)`` and a solver's direct call of
     ``h._bound`` all pass."""
-    def product(x):
-        if _torch_profiler._is_profiler_enabled or \
-                profiling.record is not None:
-            with span(PRODUCT):
-                return fn(x)
-        return fn(x)
-    return product
+    traced = spanned(PRODUCT, fn)
+    return lambda x: traced(x) if live() else fn(x)
 
 
 def _extend_x(f_dense, x: torch.Tensor) -> torch.Tensor:
     """Fold by x-extension: x with the dense part's output (its compact
     heavy rows) appended, which the light part of an f64 hybrid reads."""
-    cat = (_xext_cat if _torch_profiler._is_profiler_enabled
-           or profiling.record is not None else torch.cat)
-    return cat([x, f_dense(x)])
+    return (_xext_cat if live() else torch.cat)([x, f_dense(x)])
 
 
 def light_part_input(handle: "SpmvHandle", x: torch.Tensor) -> torch.Tensor:
@@ -967,8 +929,7 @@ def _graph_fns(method: Method, p: Dict[str, Any], m_rows: int):
         fns["heavy"] = _make_bound(method, p["heavy"], fold_k)
 
     def inputs(x):
-        traced = (_torch_profiler._is_profiler_enabled
-                  or profiling.record is not None)
+        traced = live()
         if hub is None:
             x_ext = x
         elif traced:
@@ -993,22 +954,15 @@ def graph_part_inputs(handle: "SpmvHandle",
     return _graph_fns(handle.method, handle.plan, handle.m)[0](x)
 
 
-#: the plan keys of SELL streams
-_SELL_KEYS = ("sell8d", "sell8d_stripes", "sell8w_v2", "sell8w_v2w",
-              "sell_cs", "csr_split")
-
-
-def _sell_fn(p: Dict[str, Any], m_rows: int):
-    """``x -> y`` over a placed plan's SELL streams, before its folds."""
-    if "sell_cs" in p:
-        cs = p["sell_cs"]
-        return lambda x: sell_cs_ops.cs_spmv(cs, x)
-    if "csr_split" in p:
-        sp = p["csr_split"]
-        return lambda x: csr_split_ops.split_spmv(sp, x)
+def _stream_fn(p: Dict[str, Any], m_rows: int):
+    """``x -> y`` over a placed plan's kernel stream (a key of
+    ``ops.KINDS``) or its column stripes, before its folds."""
     if "sell8d_stripes" not in p:
-        st = next(p[k] for k in _SELL_KEYS if k in p)
-        return lambda x: sell_ops.sell_spmv(st, x)[:st.m]
+        key = next(k for k in KINDS if k in p)
+        st, product = p[key], KINDS[key].product
+        if KINDS[key].cut:
+            return lambda x: product(st, x)[:st.m]
+        return lambda x: product(st, x)
     # one slot stream per column stripe on its slice of x (a view); each
     # compact output adds into the 1024-row slices it touched, and y is
     # cut to m_rows once, after the stripes
@@ -1019,9 +973,8 @@ def _sell_fn(p: Dict[str, Any], m_rows: int):
     def striped(x):
         # the span bounds the whole sum, the stripes' kernels nested in it:
         # its self time is the glue
-        if _torch_profiler._is_profiler_enabled or \
-                profiling.record is not None:
-            s = profiling.opening(STRIPES)
+        if live():
+            s = opening(STRIPES)
             if s is not None:
                 with s:
                     return striped(x)
@@ -1056,24 +1009,16 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
             # distinct rows (one a compact heavy row): one add a row
             fr = pd["fold_rows"]
 
-            def fold_rows(x):
-                add = (_fold_index_add if _torch_profiler._is_profiler_enabled
-                       or profiling.record is not None
-                       else torch.Tensor.index_add_)
-                return add(f2(x), 0, fr, f1(x))
-            return fold_rows
-
-        def fold_sum(x):
-            add = (_fold_add if _torch_profiler._is_profiler_enabled
-                   or profiling.record is not None else operator.add)
-            return add(f1(x), f2(x))
-        return fold_sum
+            return lambda x: (_fold_index_add if live() else
+                              torch.Tensor.index_add_)(f2(x), 0, fr, f1(x))
+        return lambda x: (_fold_add if live() else operator.add)(
+            f1(x), f2(x))
     if "graph" in p:
         inputs, fns = _graph_fns(method, p, m_rows)
         light_fn = fns["light"]
         return lambda x: light_fn(inputs(x)["light"])
-    if any(k in p for k in _SELL_KEYS):
-        inner = _sell_fn(p, m_rows)
+    if "sell8d_stripes" in p or any(k in p for k in KINDS):
+        inner = _stream_fn(p, m_rows)
         fn = inner
         if "mega_fold" in p:
             # fold virtual sub-row outputs back into their origin rows,
@@ -1082,27 +1027,17 @@ def _make_bound(method: Method, p: Dict[str, Any], m_rows: int):
 
             def fn(x):
                 y = inner(x)
-                add = (_fold_mega if _torch_profiler._is_profiler_enabled
-                       or profiling.record is not None
-                       else torch_csr.fold_add)
-                return add(y[:m_rows], fold, y[m_rows:])
+                return (_fold_mega if live() else torch_csr.fold_add)(
+                    y[:m_rows], fold, y[m_rows:])
 
         if "rest" in p:
             r = p["rest"]
             kern = fn
 
             def fn(x):
-                add = (_rest if _torch_profiler._is_profiler_enabled
-                       or profiling.record is not None else add_rest)
-                return add(r, x, kern(x))
+                return (_rest if live() else add_rest)(r, x, kern(x))
 
         return fn
-    if "dia" in p:
-        d = p["dia"]
-        return lambda x: dia_ops.dia_spmv(d, x)
-    if "coo2" in p:
-        c = p["coo2"]
-        return lambda x: coo2_ops.coo2_spmv(c, x)
     if "sub_start" in p:
         return lambda x: torch_csr.balanced2_spmv(
             p["colidx_pad"], p["vals_pad"], p["vrow_start"], p["vrow_end"],
@@ -1287,8 +1222,7 @@ def _permuted(inner, perm_dev, inv_dev):
     """``inner`` between the reorder's gathers: x by ``perm_dev`` (None: x
     stays natural) and y by ``inv_dev``."""
     def permuted(x):
-        if _torch_profiler._is_profiler_enabled or \
-                profiling.record is not None:
+        if live():
             xp = x if perm_dev is None else _perm_gather(x, perm_dev)
             return _perm_gather(inner(xp), inv_dev)
         return inner(x if perm_dev is None else x[perm_dev])[inv_dev]
@@ -1307,8 +1241,8 @@ def spmv(handle: SpmvHandle, x) -> torch.Tensor:
     otherwise (a bf16 x upcasts exactly); the result is a tensor of that
     type there.  The checks, the cast and the product lie in one
     ``spmv.product`` span."""
-    if _torch_profiler._is_profiler_enabled or profiling.record is not None:
-        s = profiling.opening(PRODUCT)
+    if live():
+        s = opening(PRODUCT)
         if s is not None:
             with s:
                 return spmv(handle, x)

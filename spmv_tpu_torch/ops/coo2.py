@@ -21,16 +21,14 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.autograd import profiler as _torch_profiler
 
 from .. import _build
 from ..formats import _bf16
 from ..formats.coo2 import Coo2
 from ..formats.dia import is_lossless_bf16
 from ..formats.sell8w import LANES, SUB, WINDOW
-from ..utils import profiling
-from ..utils.profiling import dev_put, launches
-from . import sell as sell_ops
+from ..utils.profiling import dev_put
+from . import kernel, sell as sell_ops
 
 __all__ = ["Coo2Plan", "prepare_coo2", "coo2_pass1", "coo2_pass1_plain",
            "coo2_spmv", "chunk_bounds", "G1"]
@@ -52,6 +50,13 @@ class Coo2Plan:
     reduce: sell_ops.SellStream   # R, binary row mode, n = its positions
     chunk_ptr: torch.Tensor       # (nchunks + 1,) int32 pass-1 tile
     #                               bounds (chunk_bounds)
+    # pass 1's kernel name and the type of x (class attributes)
+    kernel = "coo2_pass1"
+    dtype = torch.float32
+
+    @property
+    def device(self) -> torch.device:
+        return self.meta.device
 
     def __post_init__(self):
         if self.meta.device.type != "cuda":
@@ -109,37 +114,21 @@ def coo2_pass1_plain(p: Coo2Plan, x: torch.Tensor) -> torch.Tensor:
     return (p.vals.to(torch.float32) * xg).reshape(-1)
 
 
-def coo2_pass1(p: Coo2Plan, x: torch.Tensor) -> torch.Tensor:
+@kernel("coo2_pass1", coo2_pass1_plain)
+def coo2_pass1(p: Coo2Plan, x: torch.Tensor, stream: int) -> torch.Tensor:
     """Pass 1 (the product stream).  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel (K8, ``coo2_pass1`` in
     ``profiling.launches``); any other device raises.  x is f32.  Inside
-    the span ``spmv.kernel.coo2_pass1``."""
-    if _torch_profiler._is_profiler_enabled or profiling.record is not None:
-        s = profiling.opening("spmv.kernel.coo2_pass1")
-        if s is not None:
-            with s:
-                return coo2_pass1(p, x)
-    if x.device.type == "cpu":
-        return coo2_pass1_plain(p, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"coo2_pass1: no kernel for device {x.device}")
-    if (x.dtype != torch.float32 or x.shape != (p.n,)
-            or not x.is_contiguous() or x.device != p.meta.device):
-        raise ValueError(f"coo2_pass1: x must be a contiguous float32 "
-                         f"({p.n},) tensor on {p.meta.device}, got "
-                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    the span ``spmv.kernel.coo2_pass1`` (``ops.kernel``)."""
     if x.data_ptr() % 16:
         x = x.clone()       # x windows are bulk-copied: 16-B aligned
-    lib = _build.load_kernels()
     out = torch.empty(p.ntiles * WINDOW, dtype=torch.float32,
                       device=x.device)
-    err = lib.spmv_coo2_launch(
-        p.window_ids.data_ptr(), p.meta.data_ptr(), p.vals.data_ptr(),
-        x.data_ptr(), p.chunk_ptr.data_ptr(), out.data_ptr(),
-        p.chunk_ptr.numel() - 1, p.n, int(p.vals.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "coo2_pass1")
-    launches["coo2_pass1"] += 1
+    _build.launch(
+        p.kernel, "spmv_coo2_launch", p.window_ids.data_ptr(),
+        p.meta.data_ptr(), p.vals.data_ptr(), x.data_ptr(),
+        p.chunk_ptr.data_ptr(), out.data_ptr(), p.chunk_ptr.numel() - 1, p.n,
+        int(p.vals.dtype == torch.bfloat16), stream)
     return out
 
 

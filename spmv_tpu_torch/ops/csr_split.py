@@ -4,7 +4,7 @@
 K13 replaces no TPU kernel.  It runs the heavy part of an f32 row-split
 hybrid on the card in place of the SELL-8W row stream (K1 row, which
 replaces ``spmv_tpu/ops/pallas_sell.py::_kernel_v2`` in row mode) where
-``formats/csr_split.py:use_csr_split`` picks it: there the row stream is
+``ops.use_card_layout`` picks it: there the row stream is
 mostly padding, which the TPU's x windows forced and the card's L2 does
 not need.  The layout is ``formats/csr_split.py``'s; the kernel is bound
 by its two planes (8 B a nonzero) and the x gathers, which hit the L2
@@ -17,7 +17,7 @@ piece sums in piece order, from 0.  So a row's result is fixed and
 repeats bit for bit.  The plain version adds the same terms in the same
 order; it rounds each step's product and sum once, in f64, then to f32,
 which differs from the FMA only where that double rounding does.  The tickets that pick a row's last piece are the only
-state that launches share: :func:`tickets` keeps a set for each CUDA
+state that launches share: ``ops.tickets`` keeps a set for each CUDA
 stream.
 """
 
@@ -27,20 +27,18 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.autograd import profiler as _torch_profiler
 
 from .. import _build
 from ..formats.csr_split import CsrSplit
-from ..utils import profiling
-from ..utils.profiling import dev_put, launches
+from ..utils.profiling import dev_put
+from . import kernel, tickets
 
 __all__ = ["SplitStream", "prepare_split", "split_spmv", "split_plain",
-           "split_decode", "tickets", "KERNEL"]
+           "split_decode", "describe", "KERNEL"]
 
 #: the kernel's name in ``profiling.launches``; its span is
 #: ``spmv.kernel.csr_split``
 KERNEL = "csr_split"
-_SPAN = "spmv.kernel." + KERNEL
 #: lanes a piece
 _WARP = 32
 
@@ -59,20 +57,27 @@ class SplitStream:
     row_piece: torch.Tensor       # (m + 1,) int32
     cols: torch.Tensor            # (nnz,) int32
     vals: torch.Tensor            # (nnz,) float32
-    #: the kernel's per-row ticket counters, (m,) int32 zeros that each
-    #: launch leaves 0, one set a CUDA stream: (device index, cuda_stream)
-    #: → tensor, made by :func:`tickets` (a ``dataclasses.replace`` copy
-    #: starts with none)
+    #: the kernel's per-row ticket counters, :attr:`ntickets` int32 zeros
+    #: that each launch leaves 0, one set a CUDA stream: (device index,
+    #: cuda_stream) → tensor, made by ``ops.tickets`` (a
+    #: ``dataclasses.replace`` copy starts with none)
     tickets_by_stream: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
+    # the kernel's name and the type of x and y (class attributes)
+    kernel = KERNEL
+    dtype = torch.float32
 
     @property
     def npieces(self) -> int:
         return self.piece_row.numel()
 
     @property
-    def dtype(self) -> torch.dtype:
-        return torch.float32
+    def ntickets(self) -> int:
+        return max(self.m, 1)
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
 
 
 def prepare_split(p: CsrSplit, device) -> SplitStream:
@@ -85,18 +90,6 @@ def prepare_split(p: CsrSplit, device) -> SplitStream:
         row_piece=dev_put(np.asarray(p.row_piece, dtype=np.int32), device),
         cols=dev_put(np.asarray(p.cols, dtype=np.int32), device),
         vals=dev_put(np.asarray(p.vals, dtype=np.float32), device))
-
-
-def tickets(st: SplitStream, key) -> torch.Tensor:
-    """The ticket counters of launches over ``st`` on the CUDA stream
-    ``key`` = (device index, cuda_stream): made zero on the key's first
-    use, on the current CUDA stream, which is the one the launch goes to,
-    so the fill is ordered before it; kept while ``st`` lives."""
-    t = st.tickets_by_stream.get(key)
-    if t is None:
-        t = st.tickets_by_stream[key] = torch.zeros(
-            max(st.m, 1), dtype=torch.int32, device=st.vals.device)
-    return t
 
 
 def split_plain(st: SplitStream, x: torch.Tensor) -> torch.Tensor:
@@ -149,37 +142,27 @@ def split_decode(st: SplitStream):
     return rows, st.cols.to(torch.int64), st.vals
 
 
-def split_spmv(st: SplitStream, x: torch.Tensor) -> torch.Tensor:
+def describe(st) -> dict:
+    """A pack's or a stream's rows, nonzeros, pieces, the most nonzeros a
+    piece holds and the rows cut into more than one piece."""
+    return {"rows": st.m, "nnz": st.nnz, "pieces": st.npieces,
+            "piece": st.piece, "split_rows": st.split_rows}
+
+
+@kernel("split_spmv", split_plain)
+def split_spmv(st: SplitStream, x: torch.Tensor, stream: int) -> torch.Tensor:
     """y = A @ x over the pack, (m,) f32.  A CPU tensor takes the plain
     version; a CUDA tensor launches K13 (one launch, ``csr_split`` in
     ``profiling.launches``); any other device raises.  Each call lies
-    inside the span ``spmv.kernel.csr_split``."""
-    if _torch_profiler._is_profiler_enabled or profiling.record is not None:
-        s = profiling.opening(_SPAN)
-        if s is not None:
-            with s:
-                return split_spmv(st, x)
-    if x.device.type == "cpu":
-        return split_plain(st, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"split_spmv: no kernel for device {x.device}")
-    if (x.dtype != torch.float32 or x.shape != (st.n,)
-            or not x.is_contiguous() or x.device != st.vals.device):
-        raise ValueError(f"split_spmv: x must be a contiguous float32 "
-                         f"({st.n},) tensor on {st.vals.device}, got "
-                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    lib = _build.load_kernels()
+    inside the span ``spmv.kernel.csr_split`` (``ops.kernel``)."""
     y = torch.empty(st.m, dtype=torch.float32, device=x.device)
     partial = (torch.empty(st.npieces, dtype=torch.float32, device=x.device)
                if st.split_rows else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.spmv_csr_split_launch(
-        st.piece_ptr.data_ptr(), st.piece_row.data_ptr(),
-        st.row_piece.data_ptr(), st.cols.data_ptr(), st.vals.data_ptr(),
-        x.data_ptr(), y.data_ptr(),
+    _build.launch(
+        st.kernel, "spmv_csr_split_launch", st.piece_ptr.data_ptr(),
+        st.piece_row.data_ptr(), st.row_piece.data_ptr(),
+        st.cols.data_ptr(), st.vals.data_ptr(), x.data_ptr(), y.data_ptr(),
         None if partial is None else partial.data_ptr(),
         tickets(st, (x.device.index, stream)).data_ptr(), st.npieces,
         stream)
-    _build.check(lib, err, KERNEL)
-    launches[KERNEL] += 1
     return y

@@ -18,13 +18,12 @@ from typing import Tuple
 
 import numpy as np
 import torch
-from torch.autograd import profiler as _torch_profiler
 
 from .. import _build
 from ..formats import _bf16
 from ..formats.dia import DiaMatrix
-from ..utils import profiling
-from ..utils.profiling import dev_put, launches
+from ..utils.profiling import dev_put
+from . import kernel
 
 __all__ = ["DiaPlan", "prepare_dia", "dia_spmv", "dia_plain"]
 
@@ -40,12 +39,23 @@ class DiaPlan:
     offsets: Tuple[int, ...]      # host copy, sorted
     offsets_dev: torch.Tensor     # (ndiags,) int32
     data: torch.Tensor            # (ndiags, m) float32, bfloat16 or float64
+    #: its kernel's name in ``profiling.launches``: ``dia_f64`` (K4) for
+    #: f64 diagonals, else ``dia`` (K3)
+    kernel: str = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "kernel", "dia_f64" if self.data.dtype
+                           == torch.float64 else "dia")
 
     @property
     def dtype(self) -> torch.dtype:
         """The type of x and y: f64 for an f64 plan, else f32."""
         return (torch.float64 if self.data.dtype == torch.float64
                 else torch.float32)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
 
 
 def prepare_dia(d: DiaMatrix, device) -> DiaPlan:
@@ -80,36 +90,15 @@ def dia_plain(p: DiaPlan, x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def dia_spmv(p: DiaPlan, x: torch.Tensor) -> torch.Tensor:
+@kernel("dia_spmv", dia_plain)
+def dia_spmv(p: DiaPlan, x: torch.Tensor, stream: int) -> torch.Tensor:
     """y = A @ x.  A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel (K3 on f32/bf16 plans, ``dia`` in
     ``profiling.launches``; K4 on f64 plans, ``dia_f64``); any other device
     raises.  x is f64 for an f64 plan, else f32.  Inside the span
-    ``spmv.kernel.dia`` or ``spmv.kernel.dia_f64``."""
-    if _torch_profiler._is_profiler_enabled or profiling.record is not None:
-        name = ("spmv.kernel.dia_f64" if p.data.dtype == torch.float64
-                else "spmv.kernel.dia")
-        s = profiling.opening(name)
-        if s is not None:
-            with s:
-                return dia_spmv(p, x)
-    if x.device.type == "cpu":
-        return dia_plain(p, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"dia_spmv: no kernel for device {x.device}")
-    if (x.dtype != p.dtype or x.shape != (p.n,)
-            or not x.is_contiguous() or x.device != p.data.device):
-        raise ValueError(f"dia_spmv: x must be a contiguous {p.dtype} "
-                         f"({p.n},) tensor on {p.data.device}, got {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}")
-    lib = _build.load_kernels()
+    ``spmv.kernel.dia`` or ``spmv.kernel.dia_f64`` (``ops.kernel``)."""
     y = torch.empty(p.m, dtype=p.dtype, device=x.device)
-    f64 = p.data.dtype == torch.float64
-    err = lib.spmv_dia_launch(
-        p.data.data_ptr(), p.offsets_dev.data_ptr(), x.data_ptr(),
-        y.data_ptr(), p.m, p.n, len(p.offsets), _KINDS[p.data.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    name = "dia_f64" if f64 else "dia"
-    _build.check(lib, err, name)
-    launches[name] += 1
+    _build.launch(p.kernel, "spmv_dia_launch", p.data.data_ptr(),
+                  p.offsets_dev.data_ptr(), x.data_ptr(), y.data_ptr(), p.m,
+                  p.n, len(p.offsets), _KINDS[p.data.dtype], stream)
     return y

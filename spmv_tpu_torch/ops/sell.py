@@ -53,7 +53,7 @@ dependent global loads.  One launch a call: a block with several chunks is
 added up, in chunk order, by whichever of its chunks finishes last (a
 per-block ticket counter is the only atomic), so the result is
 deterministic.  The tickets are the only state that launches over one
-SELL stream share, so :func:`tickets` keeps a set for each CUDA stream it
+SELL stream share, so ``ops.tickets`` keeps a set for each CUDA stream it
 is launched on: calls on two CUDA streams never count on each other's
 tickets.  A CUDA graph captured over :func:`sell_spmv` binds the set of
 the CUDA stream it was captured on, so one graph must not be replayed on
@@ -73,20 +73,19 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.autograd import profiler as _torch_profiler
 
 from .. import _build
 from ..formats import _bf16
 from ..formats.sell8w import (LANES, SUB, WINDOW, Sell8W, Sell8WV2,
                               plan_v2, v2_layout)
-from ..utils import profiling
-from ..utils.profiling import dev_put, launches
+from ..utils.profiling import dev_put
+from . import kernel, tickets
 
 __all__ = ["SellStream", "prepare_sell", "prepare_v1", "binary_v2",
            "pack_gpk", "build_sell8w_fn", "sell8w_spmv", "sell_spmv",
            "sell_plain", "sell_decode", "kernel_name", "KERNELS",
            "V2_MAX_N", "CHUNK_TILES", "CHUNKS_PER_SM", "MAX_REDUCE_BYTES",
-           "H100_SMS", "chunk_len", "chunk_tables", "sm_count", "tickets"]
+           "H100_SMS", "chunk_len", "chunk_tables", "sm_count"]
 
 #: the JAX package's VMEM-resident-x bound: streams up to it replace the
 #: resident kernels (K1, K2), streams past it the windowed ones (K5-K7)
@@ -117,8 +116,6 @@ PLAIN_TILES = 1 << 16
 KERNELS = ("sell_row", "sell_slot", "sell_row_df", "sell_slot_df",
            "sell_row_bin", "sell_row_w", "sell_slot_w", "sell_row_df_w",
            "sell_slot_df_w", "sell_v1", "sell_v1_df", "sell_v1_bin")
-#: kernel name → its span
-_SPANS = {k: "spmv.kernel." + k for k in KERNELS}
 
 _VALUE_MODES = {"f32": 0, "bf16": 1, "palette": 2,
                 "df": 3, "df16": 4, "palette_df": 5, "binary": 6}
@@ -155,21 +152,32 @@ class SellStream:
     #                                     group << 4 | row << 1 | first
     #: the kernel's last-chunk counters, (nblocks,) int32 zeros that each
     #: launch leaves 0, one set a CUDA stream: (device index, cuda_stream)
-    #: → tensor, made by :func:`tickets` (a ``dataclasses.replace`` copy
+    #: → tensor, made by ``ops.tickets`` (a ``dataclasses.replace`` copy
     #: starts with none)
     tickets_by_stream: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
+    #: the name of the kernel that runs it (:func:`kernel_name`)
+    kernel: str = dataclasses.field(init=False, repr=False, compare=False)
     #: what every launch passes that is fixed per stream (CUDA streams)
     _launch: Optional[tuple] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
+        object.__setattr__(self, "kernel", kernel_name(self))
         if self.meta.device.type == "cuda":
             object.__setattr__(self, "_launch", _launch_args(self))
 
     @property
     def nchunks(self) -> int:
         return self.chunk_step_ptr.numel() - 1
+
+    @property
+    def ntickets(self) -> int:
+        return self.nblocks
+
+    @property
+    def device(self) -> torch.device:
+        return self.meta.device
 
     @property
     def dtype(self) -> torch.dtype:
@@ -463,21 +471,9 @@ def kernel_name(st: SellStream) -> str:
             + ("_w" if st.n > V2_MAX_N else ""))
 
 
-def tickets(st: SellStream, key) -> torch.Tensor:
-    """The ticket counters of launches over ``st`` on the CUDA stream
-    ``key`` = (device index, cuda_stream): made zero on the key's first
-    use, on the current CUDA stream, which is the one the launch goes to,
-    so the fill is ordered before it; kept while ``st`` lives."""
-    t = st.tickets_by_stream.get(key)
-    if t is None:
-        t = st.tickets_by_stream[key] = torch.zeros(
-            st.nblocks, dtype=torch.int32, device=st.meta.device)
-    return t
-
-
 def _launch_args(st: SellStream):
-    """(the arguments before the tickets, those after x, the kernel name)
-    of every launch over ``st``: fixed per stream (the pointers, the value
+    """(the arguments before the tickets, those after x) of every launch
+    over ``st``: fixed per stream (the pointers, the value
     mode; the ring's size follows from the value mode inside the kernel),
     computed once when it is placed.  Raises when a bulk-copied plane is
     not 16-B aligned."""
@@ -491,46 +487,28 @@ def _launch_args(st: SellStream):
               ptr(st.chunk_block), ptr(st.block_chunk_ptr))
     after = (st.nchunks, st.g, st.n, _VALUE_MODES[st.value_mode],
              int(st.slot_mode), st.nw, int(st.cell_w))
-    return before, after, kernel_name(st)
+    return before, after
 
 
-def sell_spmv(st: SellStream, x: torch.Tensor) -> torch.Tensor:
+@kernel("sell_spmv", sell_plain)
+def sell_spmv(st: SellStream, x: torch.Tensor, stream: int) -> torch.Tensor:
     """Tile-stream product, (nblocks * 1024,) output.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel; any other device
     raises.  x is f32 for an f32 or binary stream and f64 for a
     double-float one.  Each launch adds one to the count of its kernel
     name in ``profiling.launches``; each call, on the card or the CPU,
-    lies inside the span ``spmv.kernel.<kernel name>``."""
-    if _torch_profiler._is_profiler_enabled or profiling.record is not None:
-        name = _SPANS[st._launch[2] if st._launch is not None
-                      else kernel_name(st)]
-        s = profiling.opening(name)
-        if s is not None:
-            with s:
-                return sell_spmv(st, x)
-    if x.device.type == "cpu":
-        return sell_plain(st, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"sell_spmv: no kernel for device {x.device}")
-    if (x.dtype != st.dtype or x.shape != (st.n,)
-            or not x.is_contiguous() or x.device != st.meta.device):
-        raise ValueError(f"sell_spmv: x must be a contiguous {st.dtype} "
-                         f"({st.n},) tensor on {st.meta.device}, got "
-                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    lies inside the span ``spmv.kernel.<kernel name>`` (``ops.kernel``)."""
     if not st.slot_mode and x.data_ptr() % 16:
         x = x.clone()       # row mode bulk-copies x windows: 16-B aligned
-    lib = _build.load_kernels()
-    before, after, name = st._launch
+    before, after = st._launch
     # partial sums only where an output block has several chunks
     partial = (torch.empty(st.nchunks * WINDOW, dtype=st.dtype,
                            device=x.device)
                if st.nchunks > st.nblocks else None)
     out = torch.empty(st.nblocks * WINDOW, dtype=st.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.spmv_sell_launch(
-        *before, tickets(st, (x.device.index, stream)).data_ptr(),
-        x.data_ptr(), None if partial is None else partial.data_ptr(),
-        out.data_ptr(), *after, stream)
-    _build.check(lib, err, name)
-    launches[name] += 1
+    _build.launch(
+        st.kernel, "spmv_sell_launch", *before,
+        tickets(st, (x.device.index, stream)).data_ptr(), x.data_ptr(),
+        None if partial is None else partial.data_ptr(), out.data_ptr(),
+        *after, stream)
     return out

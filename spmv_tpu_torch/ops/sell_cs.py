@@ -4,7 +4,7 @@
 K12 replaces no TPU kernel.  It runs the light part of an f32 row-split
 hybrid on the card in place of the SELL-8D slot stream (K1 slot, which
 replaces ``spmv_tpu/ops/pallas_sell.py::_kernel_v2`` in slot mode) where
-``formats/sell_cs.py:use_sell_cs`` picks it: there the slot stream is
+``ops.use_card_layout`` picks it: there the slot stream is
 mostly padding, which the TPU's x windows forced and the card's L2 does
 not need.  The layout is ``formats/sell_cs.py``'s; the kernel is bound by
 its two planes (8 B a slot) and the x gathers, which hit the L2 where x
@@ -23,12 +23,11 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.autograd import profiler as _torch_profiler
 
 from .. import _build
 from ..formats.sell_cs import SLICE, SellCS
-from ..utils import profiling
-from ..utils.profiling import dev_put, launches
+from ..utils.profiling import dev_put
+from . import kernel
 
 __all__ = ["CsStream", "prepare_cs", "cs_spmv", "cs_plain", "cs_decode",
            "KERNEL"]
@@ -36,7 +35,6 @@ __all__ = ["CsStream", "prepare_cs", "cs_spmv", "cs_plain", "cs_decode",
 #: the kernel's name in ``profiling.launches``; its span is
 #: ``spmv.kernel.sell_cs``
 KERNEL = "sell_cs"
-_SPAN = "spmv.kernel." + KERNEL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,14 +49,17 @@ class CsStream:
     rows: torch.Tensor            # (nslices * 32,) int32, -1 past m
     cols: torch.Tensor            # (nslots,) int32
     vals: torch.Tensor            # (nslots,) float32
+    # the kernel's name and the type of x and y (class attributes)
+    kernel = KERNEL
+    dtype = torch.float32
 
     @property
     def nslices(self) -> int:
         return self.slice_ptr.numel() - 1
 
     @property
-    def dtype(self) -> torch.dtype:
-        return torch.float32
+    def device(self) -> torch.device:
+        return self.vals.device
 
 
 def prepare_cs(p: SellCS, device) -> CsStream:
@@ -118,31 +119,14 @@ def cs_decode(st: CsStream):
     return tuple(torch.cat(t) for t in zip(*out))
 
 
-def cs_spmv(st: CsStream, x: torch.Tensor) -> torch.Tensor:
+@kernel("cs_spmv", cs_plain)
+def cs_spmv(st: CsStream, x: torch.Tensor, stream: int) -> torch.Tensor:
     """y = A @ x over the pack, (m,) f32.  A CPU tensor takes the plain
     version; a CUDA tensor launches K12 (one launch, ``sell_cs`` in
     ``profiling.launches``); any other device raises.  Each call lies
-    inside the span ``spmv.kernel.sell_cs``."""
-    if _torch_profiler._is_profiler_enabled or profiling.record is not None:
-        s = profiling.opening(_SPAN)
-        if s is not None:
-            with s:
-                return cs_spmv(st, x)
-    if x.device.type == "cpu":
-        return cs_plain(st, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"cs_spmv: no kernel for device {x.device}")
-    if (x.dtype != torch.float32 or x.shape != (st.n,)
-            or not x.is_contiguous() or x.device != st.vals.device):
-        raise ValueError(f"cs_spmv: x must be a contiguous float32 "
-                         f"({st.n},) tensor on {st.vals.device}, got "
-                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    lib = _build.load_kernels()
+    inside the span ``spmv.kernel.sell_cs`` (``ops.kernel``)."""
     y = torch.empty(st.m, dtype=torch.float32, device=x.device)
-    err = lib.spmv_sell_cs_launch(
-        st.slice_ptr.data_ptr(), st.rows.data_ptr(), st.cols.data_ptr(),
-        st.vals.data_ptr(), x.data_ptr(), y.data_ptr(), st.nslices,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, KERNEL)
-    launches[KERNEL] += 1
+    _build.launch(st.kernel, "spmv_sell_cs_launch", st.slice_ptr.data_ptr(),
+                  st.rows.data_ptr(), st.cols.data_ptr(), st.vals.data_ptr(),
+                  x.data_ptr(), y.data_ptr(), st.nslices, stream)
     return y

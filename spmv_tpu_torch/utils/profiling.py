@@ -8,9 +8,10 @@ span is live only while a torch profiler records
 :func:`predeal_profile` record is open (:data:`record`); otherwise
 ``span`` makes one check and returns a shared context that does nothing
 (no clock read, no allocation, no name formatted).  The sites a product
-passes make that check themselves, inline, and enter no context and call
-no extra function when it fails: a Python call or ``with`` costs a tenth
-of a µs on the card's host, and a product passes up to six sites.  Live,
+passes make that check by :func:`live`, and when it fails enter no
+context and call nothing else: a Python call or ``with`` costs a tenth
+of a µs on the card's host (forwarding ``*args`` three times that), and a
+product passes up to six sites.  Live,
 a span opens a profiler range of its name (``record_function``; where
 torch has it, its C++ form, which costs a seventh as much), so it lies on
 the profiler's clock beside CUPTI's kernels and copies and nests in the
@@ -101,16 +102,14 @@ _OFF = _Off()
 
 def live() -> bool:
     """Whether spans record: a torch profiler records, or a pre-deal
-    record is open.  Hot sites test the same two flags inline."""
+    record is open.  The one test of it, which every site makes."""
     return _autograd_profiler._is_profiler_enabled or record is not None
 
 
 def opening(name: str) -> Optional["_Span"]:
     """The live span to open under ``name``, or None where spans are off or
-    the innermost live span open on this thread already is ``name``.  A
-    site that, tracing on, opens its span and runs itself again inside it
-    (so that tracing off costs it no extra call) opens this one."""
-    if not (_autograd_profiler._is_profiler_enabled or record is not None):
+    the innermost live span open on this thread already is ``name``."""
+    if not live():
         return None
     stack = getattr(_OPEN, "stack", None)
     if stack is None:
@@ -166,7 +165,8 @@ def span(name: str):
 
 def spanned(name: str, fn: Callable) -> Callable:
     """``fn`` with each call inside ``span(name)`` (a site a product passes
-    calls it only while spans are live, and ``fn`` itself otherwise)."""
+    calls it only while spans are live, :func:`live`, and ``fn`` itself
+    otherwise)."""
     @functools.wraps(fn)
     def call(*args, **kwargs):
         with span(name):

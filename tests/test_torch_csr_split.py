@@ -2,8 +2,9 @@
 plain version in ``ops/csr_split.py``) on the CPU: the pack holds every
 nonzero once, in CSR order, in pieces of at most P nonzeros; the plain
 version sums in the kernel's order and agrees with the f64 reference; the
-rule that picks the layout, as a pure function and through the planner; a
-plan built for a CUDA device runs on the CPU.  The kernel itself runs on
+rule that picks the layout through the planner (as a pure function it is
+``test_torch_launch.py``'s); a plan built for a CUDA device runs on the
+CPU.  The kernel itself runs on
 the card (``chip_smoke.py``'s ``csr_split`` phase)."""
 
 import dataclasses
@@ -15,6 +16,7 @@ import torch
 
 import spmv_tpu_torch as st
 from spmv_tpu_torch import handle as th
+from spmv_tpu_torch import ops as launch_ops
 from spmv_tpu_torch.formats import csr_split as fmt
 from spmv_tpu_torch.formats.reorder import length_order, reorder_rows
 from spmv_tpu_torch.formats.sell8d import prepare_hybrid, slot_value_mode
@@ -181,22 +183,6 @@ def test_plain_sums_in_the_kernel_order(name, piece):
                        torch.from_numpy(y))
 
 
-@pytest.mark.parametrize("device,mode,ratio,want", [
-    ("cuda", "f32", 2.0, True),
-    ("cuda", "f32", 7.44 * 6 / 8, True),
-    ("cuda", "f32", 1.99, False),
-    ("cuda", "f32", 0.75, False),
-    ("cpu", "f32", 5.6, False),
-    ("cuda", "palette", 5.6, False),
-    ("cuda", "bf16", 5.6, False),
-    ("cuda", "df", 5.6, False),
-])
-def test_rule(device, mode, ratio, want):
-    tiles = 1000
-    split_bytes = int(round(fmt.sell8w_bytes(tiles) / ratio))
-    assert fmt.use_csr_split(device, mode, tiles, split_bytes) is want
-
-
 @pytest.mark.parametrize("kind,want", [("f32", "f32"), ("palette", "palette"),
                                        ("bf16", "bf16"), ("f64", "df16")])
 def test_value_mode_reads_the_values(kind, want):
@@ -256,7 +242,8 @@ def test_planner_takes_the_rule(name):
     assert slot_value_mode(dense.vals, 1, name == "f64") == mode
     assert th.plan_kind(cpu) == want_cpu
     assert th.plan_kind(cuda) == want
-    ratio = fmt.sell8w_bytes(prep.td) / fmt.layout_bytes(dense.row_lengths)
+    ratio = (launch_ops.sell_bytes(prep.td)
+             / fmt.layout_bytes(dense.row_lengths))
     split = want.startswith("hybrid(split")
     assert split == (mode == "f32" and ratio >= 2)
     heavy = cuda["hybrid"][0]
@@ -370,9 +357,10 @@ def test_wrapper_refuses_other_devices_and_types():
 
 
 def test_tickets_one_set_a_stream():
+    # the one ``ops.tickets`` of the SELL kernel and K13, at K13's size
     s = ops.prepare_split(fmt.pack_csr_split(PACKS["hubs"]()), "cpu")
-    t1, t2 = ops.tickets(s, (0, 1)), ops.tickets(s, (0, 2))
-    assert t1 is not t2 and t1 is ops.tickets(s, (0, 1))
+    t1, t2 = launch_ops.tickets(s, (0, 1)), launch_ops.tickets(s, (0, 2))
+    assert t1 is not t2 and t1 is launch_ops.tickets(s, (0, 1))
     assert t1.shape == (s.m,) and t1.dtype == torch.int32
     assert not t1.any()
     assert not dataclasses.replace(s).tickets_by_stream

@@ -314,7 +314,10 @@ def test_chain_and_fma_err_raise_off_the_cpu_without_cuda():
 @pytest.fixture(scope="module")
 def calibrated():
     """(mats, run_probes' records, calibrate's result) at a small size on
-    the plain versions."""
+    the plain versions, on one CPU thread: the timing loops run thousands
+    of small ops, and torch's thread pool (a thread a core in each test
+    worker) spins on a busy machine (on an 8-core host beside 5 busy
+    processes, these two tests took 290 s on 8 threads and 10 s on one)."""
     def f64(a):
         return CsrMatrix(a.m, a.n, a.rowptr, a.colidx,
                          np.random.default_rng(7).standard_normal(a.nnz))
@@ -326,18 +329,24 @@ def calibrated():
             "uniform_f64": f64(un), "wide": wide,
             "webbase": t_gen.webbase_like(20000, 20000, 60000,
                                           dtype=np.float32, seed=11)}
-    runs = pr.run_probes(mats, "cpu")
-    return mats, runs, pr.calibrate(mats, "cpu", runs)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        runs = pr.run_probes(mats, "cpu")
+        return mats, runs, pr.calibrate(mats, "cpu", runs)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_calibrate_takes_launch_ns_from_the_eager_chain(calibrated):
     # launch_ns stays the eager figure (a stripe pays an eager call), not
     # the chain's: P6's figures made distinct, the table's launch is the
     # eager one's
-    mats, runs, _cal = calibrated
+    # (calibrate's pure step on the fixture's timings: nothing re-timed)
+    _mats, runs, cal = calibrated
     p6 = dict(runs["P6"], tiny_pallas_ms=0.0125, tiny_chain_ms=0.0025,
               tiny_chain_pdl_ms=0.0015)
-    fig = pr.calibrate(mats, "cpu", dict(runs, P6=p6))["figures"]
+    fig = pr.calibration_figures(dict(runs, P6=p6), cal["detail"])
     assert fig["launch_ns"] == 0.0125 * 1e6
     assert pm.derive_prices(fig).stripe_call_ns == 0.0125 * 1e6
 
@@ -359,6 +368,7 @@ def test_run_probes_and_calibrate_on_the_cpu(calibrated):
     assert runs["P8"]["fused_exact"]
     assert all(r["max_err"] < 1e-4 for r in runs["P9"])
     fig = cal["figures"]
+    assert pr.calibration_figures(runs, cal["detail"]) == fig
     assert cal["detail"]["slot_w"][8]["kernel"] == "sell_slot_w"
     assert cal["detail"]["slot_df16"][4]["value_mode"] == "df16"
     assert cal["detail"]["row_df"]["value_mode"] == "df"
@@ -375,7 +385,7 @@ def test_probes_module_counts_only_kernel_launches():
     pr.tiny_chain(torch.ones(8, 128), 5)
     pr.fma_err(torch.ones(4), torch.ones(4), torch.ones(4))
     assert before == {k: launches[k] for k in pr.KERNELS}
-    pr._count("tiny", 5)
+    launches["tiny"] += 5
     assert launches["tiny"] == before["tiny"] + 5
     launches["tiny"] -= 5
 

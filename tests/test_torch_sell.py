@@ -32,7 +32,7 @@ from spmv_tpu.ops.pallas_sell import (_run, _run_df_v1, _run_v2, _run_v2_df,
                                       _run_v2w, _run_v2w_df, _run_v2w_slot,
                                       pack_gpk)
 from spmv_tpu.types import CsrMatrix as JaxCsr
-from spmv_tpu_torch.ops import sell as tsell
+from spmv_tpu_torch.ops import sell as tsell, tickets
 
 
 @dataclasses.dataclass
@@ -824,7 +824,7 @@ def _chunked_plain(st, x, order):
     csp = st.chunk_step_ptr.numpy().astype(np.int64) * st.g
     cb = st.chunk_block.numpy()
     bcp = st.block_chunk_ptr.numpy()
-    ticket = tsell.tickets(st, ("cpu", 0)).numpy().copy()
+    ticket = tickets(st, ("cpu", 0)).numpy().copy()
     sums = []
     for c in range(len(cb)):
         acc = torch.zeros(1024, dtype=st.dtype)
@@ -877,7 +877,7 @@ def test_ticket_and_partials_layout(kind, request):
                             kind != "row", "df16" if kind == "slot_df"
                             else "f32", 3, seed=11)
         st = tsell.prepare_sell(pk, "cpu", kind != "row", nsm=64)
-    ticket = tsell.tickets(st, ("cpu", 0))
+    ticket = tickets(st, ("cpu", 0))
     assert ticket.dtype == torch.int32 and ticket.shape == (
         st.nblocks,) and not bool(ticket.any())
     assert np.diff(st.block_chunk_ptr.numpy()).max() > 1

@@ -3,8 +3,9 @@ version in ``ops/sell_cs.py``) on the CPU: the pack holds every nonzero
 once, in its row's order, rows longest first, with the padding its slice
 lengths give; the plain version sums each row in slot order and agrees
 with the SELL-8D plan and the f64 reference; the rule that picks the
-layout, as a pure function and through the planner; a plan built for a
-CUDA device runs on the CPU.  The kernel itself runs on the card
+layout through the planner (as a pure function it is
+``test_torch_launch.py``'s); a plan built for a CUDA device runs on the
+CPU.  The kernel itself runs on the card
 (``chip_smoke.py``'s ``sell_cs`` phase)."""
 
 import numpy as np
@@ -13,6 +14,7 @@ import torch
 
 import spmv_tpu_torch as st
 from spmv_tpu_torch import handle as th
+from spmv_tpu_torch import ops as launch_ops
 from spmv_tpu_torch.formats import sell_cs as fmt
 from spmv_tpu_torch.formats.sell8d import prepare_hybrid, slot_value_mode
 from spmv_tpu_torch.io import generate as g
@@ -198,23 +200,6 @@ def test_plain_matches_sell8d_and_f64(m, nnz, seed):
         assert _scaled_err(y, ref, absref) <= 1e-4
 
 
-@pytest.mark.parametrize("device,mode,ratio,want", [
-    ("cuda", "f32", 2.0, True),
-    ("cuda", "f32", 33.7, True),
-    ("cuda", "f32", 1.99, False),
-    ("cpu", "f32", 33.7, False),
-    ("cuda", "palette", 33.7, False),
-    ("cuda", "bf16", 33.7, False),
-    ("cuda", "df16", 33.7, False),
-    ("cuda", "df", 33.7, False),
-    ("cuda", "palette_df", 33.7, False),
-])
-def test_rule(device, mode, ratio, want):
-    tiles = 1000
-    cs_bytes = int(round(fmt.sell8d_bytes(tiles) / ratio))
-    assert fmt.use_sell_cs(device, mode, tiles, cs_bytes) is want
-
-
 #: name → (matrix, the value mode of its light part, the plan a CUDA
 #: device gets)
 ROUTES = {
@@ -240,7 +225,7 @@ def test_planner_takes_the_rule(name):
     assert cpu["value_mode"] == mode
     assert th.plan_kind(cpu) == "hybrid(8w+8d)"
     assert th.plan_kind(cuda) == want
-    bytes_8d = fmt.sell8d_bytes(prep.ts)
+    bytes_8d = launch_ops.sell_bytes(prep.ts)
     bytes_cs = fmt.layout_bytes(prep.sparse.row_lengths)
     assert want.endswith("+cs)") == (mode == "f32"
                                      and bytes_8d >= 2 * bytes_cs)

@@ -1,9 +1,10 @@
-"""The SELL kernel's ticket counters, one set a CUDA stream
-(spmv_tpu_torch/ops/sell.py ``tickets``).
+"""The ticket counters of the SELL kernel and K13, one set a CUDA stream
+(``spmv_tpu_torch/ops/__init__.py`` ``tickets``, one function for both).
 
-A launch over a stream counts its chunks' completions on one int32 ticket a
-1024-row output block; the chunk that takes the last ticket adds the
-block's partial sums and sets the ticket back to 0.  Two launches over one
+A SELL launch over a stream counts its chunks' completions on one int32
+ticket a 1024-row output block; the chunk that takes the last ticket adds
+the block's partial sums and sets the ticket back to 0 (K13 keeps one
+ticket a row for the pieces of a split row).  Two launches over one
 stream that run at once (two CUDA streams, or a graph replayed beside an
 eager call) must not count on the same tickets, so the port keeps a set a
 (device index, cuda_stream) key.  The JAX package's bound function has no
@@ -19,17 +20,21 @@ import numpy as np
 import pytest
 import torch
 
+from spmv_tpu_torch.formats.csr_split import pack_csr_split
 from spmv_tpu_torch.formats.sell8d import pack_sell8d
 from spmv_tpu_torch.formats.sell8w import pack_sell8w, plan_v2
 from spmv_tpu_torch.io import generate
-from spmv_tpu_torch.ops import sell as tsell
+from spmv_tpu_torch.ops import csr_split as tsplit, sell as tsell, tickets
 
 
 def _stream(kind):
     """A small stream of each layout, its chunks cut for 64 SMs so that
-    output blocks have several chunks (and so use tickets)."""
+    output blocks have several chunks (and so use tickets); ``split`` a
+    K13 stream whose rows are cut into pieces of 8 (so use tickets)."""
     a = generate.clustered(3000, 3000, 12, spread=256, dtype=np.float32,
                            seed=5)
+    if kind == "split":
+        return tsplit.prepare_split(pack_csr_split(a, piece=8), "cpu")
     if kind == "v1":
         p = pack_sell8w(a)
         return tsell.prepare_v1(p.window_ids, tsell.pack_gpk(p.slice_ids),
@@ -42,27 +47,34 @@ def _stream(kind):
                               nsm=64)
 
 
-KINDS = ["slot", "row", "v1"]
+KINDS = ["slot", "row", "v1", "split"]
+#: the SELL kinds (the interleaving below follows the SELL chunk tables)
+SELL_KINDS = KINDS[:3]
+#: kind → (its product, its plain version)
+PRODUCTS = {k: (tsell.sell_spmv, tsell.sell_plain) for k in SELL_KINDS}
+PRODUCTS["split"] = (tsplit.split_spmv, tsplit.split_plain)
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_tickets_are_one_set_a_stream_key(kind):
     st = _stream(kind)
     assert st.tickets_by_stream == {}
-    a = tsell.tickets(st, ("cpu", 1))
-    b = tsell.tickets(st, ("cpu", 2))
+    a = tickets(st, ("cpu", 1))
+    b = tickets(st, ("cpu", 2))
     # two keys give two tensors, the same key the same tensor
     assert a is not b and a.data_ptr() != b.data_ptr()
-    assert tsell.tickets(st, ("cpu", 1)) is a
-    assert tsell.tickets(st, ("cpu", 2)) is b
+    assert tickets(st, ("cpu", 1)) is a
+    assert tickets(st, ("cpu", 2)) is b
     assert set(st.tickets_by_stream) == {("cpu", 1), ("cpu", 2)}
+    # a set's size: one a SELL output block, one a K13 row
+    size = max(st.m, 1) if kind == "split" else st.nblocks
     for t in (a, b):
-        assert t.dtype == torch.int32 and t.shape == (st.nblocks,)
-        assert t.device == st.meta.device and not bool(t.any())
+        assert t.dtype == torch.int32 and t.shape == (size,)
+        assert t.device == torch.device("cpu") and not bool(t.any())
     # a key's set is the one that stays: what a launch leaves is kept
     a[0] = 3
-    assert int(tsell.tickets(st, ("cpu", 1))[0]) == 3
-    assert not bool(tsell.tickets(st, ("cpu", 2)).any())
+    assert int(tickets(st, ("cpu", 1))[0]) == 3
+    assert not bool(tickets(st, ("cpu", 2)).any())
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -70,7 +82,7 @@ def test_entry_is_made_zero_on_first_use(kind):
     st = _stream(kind)
     # the device index and the stream both part of the key
     keys = [(0, 0), (1, 0), (0, 7)]
-    sets = [tsell.tickets(st, k) for k in keys]
+    sets = [tickets(st, k) for k in keys]
     assert len({t.data_ptr() for t in sets}) == len(keys)
     assert all(not bool(t.any()) for t in sets)
 
@@ -78,21 +90,22 @@ def test_entry_is_made_zero_on_first_use(kind):
 @pytest.mark.parametrize("kind", KINDS)
 def test_a_replace_copy_has_its_own_tickets(kind):
     st = _stream(kind)
-    tsell.tickets(st, ("cpu", 1))[:] = 1
+    tickets(st, ("cpu", 1))[:] = 1
     copy = dataclasses.replace(st)
     assert copy.tickets_by_stream == {}
-    assert not bool(tsell.tickets(copy, ("cpu", 1)).any())
-    assert bool(tsell.tickets(st, ("cpu", 1)).all())
+    assert not bool(tickets(copy, ("cpu", 1)).any())
+    assert bool(tickets(st, ("cpu", 1)).all())
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_cpu_product_uses_no_tickets(kind):
     st = _stream(kind)
+    product, plain = PRODUCTS[kind]
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(st.n)
                          .astype(np.float32))
-    y0 = tsell.sell_spmv(st, x)
+    y0 = product(st, x)
     assert st.tickets_by_stream == {}
-    assert bool(torch.equal(y0, tsell.sell_plain(st, x)))
+    assert bool(torch.equal(y0, plain(st, x)))
 
 
 def _last_chunks(nchunks_of_block, order, sets):
@@ -114,7 +127,7 @@ def _last_chunks(nchunks_of_block, order, sets):
     return reduced
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", SELL_KINDS)
 def test_two_streams_interleaved(kind):
     # the fault that one set a stream repairs: with A's and B's chunks of
     # one block interleaved, a shared set lets a launch reduce a block
@@ -128,12 +141,12 @@ def test_two_streams_interleaved(kind):
     assert per[b] > 1
     order = ([("A", b)] * (per[b] - 1) + [("B", b)]
              + [("A", b)] + [("B", b)] * (per[b] - 1))
-    shared = tsell.tickets(st, ("cpu", 0)).numpy().copy()
+    shared = tickets(st, ("cpu", 0)).numpy().copy()
     got = _last_chunks(per, order, {"A": shared, "B": shared})
     # B reduces after its first chunk and again after its last; A never
     assert got == {"A": [], "B": [(b, 1), (b, per[b])]}
-    own = {"A": tsell.tickets(st, ("cpu", 1)).numpy().copy(),
-           "B": tsell.tickets(st, ("cpu", 2)).numpy().copy()}
+    own = {"A": tickets(st, ("cpu", 1)).numpy().copy(),
+           "B": tickets(st, ("cpu", 2)).numpy().copy()}
     got = _last_chunks(per, order, own)
     assert got == {"A": [(b, per[b])], "B": [(b, per[b])]}
     assert not own["A"].any() and not own["B"].any()
